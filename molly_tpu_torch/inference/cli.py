@@ -9,9 +9,12 @@ Usage:
 
 The decode loop itself is ``run_batches``, which takes already-encoded
 samples (``OmicsSampleEncoder.encode_test`` rows), so a caller without
-pandas can drive it. Weights are random from ``--seed`` until checkpoint
-import is ported; the serving, offline-ring, API, lookup, checkpoint and
-adapter flags of the JAX CLI belong to later slices.
+pandas can drive it. Weights are random from ``--seed`` unless
+``--checkpoint`` names a train-state directory of this package's own format
+(``training.checkpoint``); ``--adapter`` grafts an exported ``.npz`` (LoRA +
+projectors) and merges it once at load. HF checkpoint import and the
+serving, offline-ring, API and lookup flags of the JAX CLI belong to later
+slices.
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--text-model-path", default=None,
                    help="local HF dir for the text tokenizer (default: the "
                         "byte-level tokenizer)")
+    p.add_argument("--checkpoint", default=None,
+                   help="train-state dir written by "
+                        "molly_tpu_torch.training (params are read from it)")
+    p.add_argument("--adapter", default=None,
+                   help="adapter .npz from training.export_adapter")
+    p.add_argument("--lora-r", type=int, default=64)
+    p.add_argument("--lora-alpha", type=float, default=None,
+                   help="merge scale override; default = recorded adapter "
+                        "meta, else 64")
     p.add_argument("--preset", default="qwen3-1.7b")
     p.add_argument("--dna-rna-preset", default="nt-500m")
     p.add_argument("--protein-preset", default="esm2-650m")
@@ -96,10 +108,44 @@ def build_config(args, text_tok, dna_tok, prot_tok):
 
 
 def _load_params(args, cfg, device):
-    """Random weights from ``--seed`` (checkpoint import is a later slice)."""
+    """Random weights from ``--seed``, then ``--checkpoint`` (params of a
+    saved train state) and ``--adapter`` (LoRA + projectors, merged once
+    here so decode never pays the merge again)."""
     from ..models import fusion
+    from ..utils.tree import tree_to
     g = torch.Generator(device=device).manual_seed(args.seed)
-    return fusion.init_params(cfg, g, device)
+    params = fusion.init_params(cfg, g, device)
+    lora = None
+    if args.checkpoint:
+        from ..training.checkpoint import graft_params, load_params
+        saved = load_params(args.checkpoint)
+        lora = saved.pop("lora", None)
+        if any(isinstance(w, dict)
+               for w in saved["text"]["layers"].values()):
+            # a QLoRA state: keep its int8 base, merge_lora dequantizes it
+            params["text"] = tree_to(saved.pop("text"), device)
+        params = {**params, **graft_params(
+            {k: params[k] for k in saved}, saved)}
+        if lora is not None:
+            lora = tree_to(lora, device)
+    lora_alpha = args.lora_alpha  # explicit flag wins
+    if args.adapter:
+        from ..training.checkpoint import adapter_meta, load_adapter
+        params = load_adapter(args.adapter, params)
+        lora = params.pop("lora", lora)
+        meta = adapter_meta(args.adapter)
+        if meta is not None and lora_alpha is None:
+            lora_alpha = meta["alpha"]
+    if lora is not None:
+        from ..models.lora import LoraConfig, merge_lora
+        r = lora["layers"]["q_proj"]["a"].shape[-1]
+        params["text"] = merge_lora(
+            params["text"], lora,
+            LoraConfig(r=r, alpha=float(lora_alpha if lora_alpha is not None
+                                        else 64.0)))
+    return params
+
+
 
 
 def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
@@ -111,7 +157,7 @@ def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
     """Collate encoded samples into batches, generate, and write one JSONL
     record per sample to ``out_fh``; returns the records. ``stats`` collects
     per-phase seconds (see ``engine.generate``)."""
-    from molly_tpu.data import collate_test
+    from ..data import collate_test
 
     from .engine import generate
 
@@ -153,9 +199,8 @@ def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
 
-    from molly_tpu.data import (DataConfig, OmicsDataset,
-                                default_modality_tokenizers,
-                                load_text_tokenizer)
+    from ..data import (DataConfig, OmicsDataset,
+                        default_modality_tokenizers, load_text_tokenizer)
 
     from ..models import qwen3
 

@@ -58,15 +58,29 @@ def generate(
     gen: GenerationConfig,
     generator: Optional[torch.Generator] = None,
     stats: Optional[Dict[str, float]] = None,
+    lora_alpha: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns new tokens only, [B, max_new_tokens], rows padded with
     pad_token_id after EOS. ``batch`` holds numpy arrays or tensors; they go
     to the device of the text embedding. ``stats``, when given, accumulates
     seconds per phase (``encode_s``, ``prefill_s``, ``decode_s``) and counts
-    ``decode_steps``; it synchronizes the device between phases."""
-    assert params.get("lora") is None, (
-        "LoRA adapters are not ported yet: merge them into the base "
-        "weights before generate")
+    ``decode_steps``; it synchronizes the device between phases. An
+    unmerged ``params["lora"]`` is merged first with ``lora_alpha`` (default
+    64)."""
+    lora = params.get("lora")
+    if lora is not None:
+        # fold adapters into the base weights (PEFT merge_and_unload).
+        # Callers doing repeated batched inference should merge once up
+        # front (the CLI does); this per-call path is a convenience for
+        # one-off use. A quantized decode base cannot be merged.
+        assert "q_proj" in params["text"]["layers"], (
+            "merge adapters before quantize_for_decode")
+        from ..models.lora import LoraConfig, merge_lora
+        r = lora["layers"]["q_proj"]["a"].shape[-1]
+        alpha = float(lora_alpha) if lora_alpha is not None else 64.0
+        params = {**params, "lora": None,
+                  "text": merge_lora(params["text"], lora,
+                                     LoraConfig(r=r, alpha=alpha))}
     device = params["text"]["embed"].device
     clock = _Clock(stats, device) if stats is not None else None
     embed_batch = {k: _as_tensor(batch[k], device) for k in EMBED_KEYS

@@ -21,7 +21,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.norms import layer_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import EsmConfig
-from .qwen3 import _layer_params, torch_dtype
+from .qwen3 import _unstack_layers, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -133,7 +133,6 @@ def forward_hidden(params: Params, cfg: EsmConfig, input_ids: torch.Tensor,
     cos, sin = rope_cos_sin(torch.arange(S, device=input_ids.device),
                             cfg.head_dim, 10000.0, dtype=dt)
     hidden = emb
-    for li in range(cfg.num_hidden_layers):
-        hidden = _layer(cfg, hidden, _layer_params(params["layers"], li),
-                        cos, sin, attention_mask)
+    for lp in _unstack_layers(params["layers"], cfg.num_hidden_layers):
+        hidden = _layer(cfg, hidden, lp, cos, sin, attention_mask)
     return _layer_norm(hidden, params["final_ln"], cfg.layer_norm_eps)

@@ -11,15 +11,20 @@ rows out before an in-place ``index_put_``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ..data.omics_dataset import (LABEL_IGNORE, NUM_DOMAIN_TASKS,
+                                  UNKNOWN_TASK_ID)
+from ..utils.tree import leaves
 from . import esm, qwen3
-from .configs import EsmConfig, FusionConfig
+from .configs import EsmConfig, FusionConfig, Qwen3Config
 from .qwen3 import torch_dtype
 
 Params = Dict[str, Any]
+
 
 
 def init_params(cfg: FusionConfig, generator: torch.Generator,
@@ -54,7 +59,11 @@ def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
     # dummy all-pad segments would have an empty mask; force position 0
     # attended (real segments start with a non-pad CLS anyway)
     mask[:, 0] = 1
-    h = esm.forward_hidden(params[enc_name], enc_cfg, flat, mask)
+    # a frozen encoder runs without autograd, so no backward exists for it
+    # (the JAX step closes frozen subtrees over as constants)
+    frozen = not any(t.requires_grad for t in leaves(params[enc_name]))
+    with torch.no_grad() if frozen else torch.enable_grad():
+        h = esm.forward_hidden(params[enc_name], enc_cfg, flat, mask)
     proj = params[proj_name]
     out = h @ proj["kernel"] + proj["bias"]
     return out.reshape(B, G, K, -1)
@@ -62,7 +71,8 @@ def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
 
 def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
            start_pos: torch.Tensor) -> torch.Tensor:
-    """Overwrite placeholder rows with encoder embeddings, in place.
+    """Overwrite placeholder rows with encoder embeddings (in place when
+    autograd does not record, out of place when it does).
 
     hidden [B, S, H]; proj_emb [B, G, K, H]; start_pos [B, G], the index of
     the <|*_start|> token, -1 = inactive slot. Slot g of sample b writes rows
@@ -75,8 +85,12 @@ def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
     keep = (start_pos[..., None] >= 0) & (rows < S)
     batch_idx = torch.arange(B, device=hidden.device)[:, None, None].expand(
         rows.shape)
-    hidden.index_put_((batch_idx[keep], rows[keep]),
-                      proj_emb[keep].to(hidden.dtype))
+    idx = (batch_idx[keep], rows[keep])
+    vals = proj_emb[keep].to(hidden.dtype)
+    if torch.is_grad_enabled() and (hidden.requires_grad
+                                    or vals.requires_grad):
+        return hidden.index_put(idx, vals)
+    hidden.index_put_(idx, vals)
     return hidden
 
 
@@ -102,3 +116,89 @@ def forward_logits(params: Params, cfg: FusionConfig,
         params["text"], cfg.text, inputs_embeds=embeds,
         attention_mask=batch.get("attention_mask"))
     return qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, S, V]
+    labels: torch.Tensor,  # [B, S] with LABEL_IGNORE masking
+    *,
+    task_label: Optional[torch.Tensor] = None,  # [B]
+    z_loss: float = 0.0,
+    pre_shifted: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token CE over supervised positions (+ optional per-task
+    domain-loss sums). pre_shifted=True: labels[t] already targets position
+    t; skip the shift."""
+    if not pre_shifted:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    valid = labels != LABEL_IGNORE
+    labels_safe = torch.where(valid, labels, 0).to(torch.long)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, labels_safe[..., None])[..., 0]
+    nll = (lse - tgt) * valid
+
+    tokens_per_sample = valid.sum(dim=-1)
+    total_tokens = torch.clamp(tokens_per_sample.sum(), min=1)
+    loss = nll.sum() / total_tokens
+    if z_loss:
+        loss = loss + z_loss * (torch.square(lse) * valid).sum() / total_tokens
+    metrics = {"loss": loss, "tokens": total_tokens}
+    if task_label is not None:
+        metrics.update(_domain_sums(nll.sum(dim=-1), tokens_per_sample,
+                                    task_label))
+    return loss, metrics
+
+
+def _domain_sums(per_nll, per_tok, task_label) -> Dict[str, torch.Tensor]:
+    """Per-sample mean loss -> per-task sums and counts (slot
+    NUM_DOMAIN_TASKS collects unknown tasks)."""
+    per_sample = per_nll / torch.clamp(per_tok, min=1)
+    tid = torch.where(task_label == UNKNOWN_TASK_ID, NUM_DOMAIN_TASKS,
+                      task_label).to(torch.long)
+    onehot = F.one_hot(tid, NUM_DOMAIN_TASKS + 1).to(torch.float32)
+    return {"domain_loss_sum": onehot.T @ per_sample.to(torch.float32),
+            "domain_loss_count": onehot.sum(dim=0)}
+
+
+def lm_head_weight(params: Params, cfg: Qwen3Config) -> torch.Tensor:
+    text = params["text"] if "text" in params else params
+    return text["embed"].T if cfg.tie_word_embeddings else text["lm_head"]
+
+
+def loss_from_hidden(
+    params: Params, cfg: FusionConfig, hidden: torch.Tensor,
+    batch: Dict[str, torch.Tensor], *, z_loss: float = 0.0,
+    fused_lce: bool = True, chunk_size: int = 256,
+    pre_shifted: bool = False, lce_need_dw: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """LM loss + metrics from final hidden states. fused_lce avoids the
+    [B, S, V] logit tensor (``ops.lce``); the naive path materializes it.
+    lce_need_dw=False skips the dead lm-head weight gradient when the text
+    tower is frozen (LoRA / QLoRA)."""
+    labels = batch["labels"]
+    task_label = batch.get("task_label")
+    if not fused_lce:
+        logits = qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
+        return cross_entropy_loss(logits, labels, task_label=task_label,
+                                  z_loss=z_loss, pre_shifted=pre_shifted)
+    from ..ops.lce import causal_lm_loss
+    w = lm_head_weight(params, cfg.text)
+    loss, per_nll, per_tok = causal_lm_loss(
+        hidden, w, labels, chunk_size=chunk_size, z_loss=z_loss,
+        pre_shifted=pre_shifted, need_dw=lce_need_dw)
+    metrics = {"loss": loss, "tokens": per_tok.sum()}
+    if task_label is not None:
+        metrics.update(_domain_sums(per_nll, per_tok, task_label))
+    return loss, metrics
+
+
+def loss_fn(params: Params, cfg: FusionConfig,
+            batch: Dict[str, torch.Tensor], *, z_loss: float = 0.0,
+            fused_lce: bool = True):
+    embeds = build_inputs_embeds(params, cfg, batch)
+    hidden, _ = qwen3.forward_hidden(
+        params["text"], cfg.text, inputs_embeds=embeds,
+        attention_mask=batch.get("attention_mask"))
+    return loss_from_hidden(params, cfg, hidden, batch, z_loss=z_loss,
+                            fused_lce=fused_lce)

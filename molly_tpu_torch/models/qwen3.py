@@ -7,7 +7,8 @@ weights are [in, out], int8 weights are ``{w_q, scale}`` dicts. Where JAX
 scans over layers, this is a Python loop over the stacked weights. The KV
 cache is the same single head-major array [L, B, Nkv, Smax, 2*Dh] (k ‖ v
 on the minor dim); where JAX threads it functionally through the scan,
-here each layer writes its new rows into it in place.
+here each layer writes its new rows into it in place. The training side
+(LoRA bypasses, remat, the int8 QLoRA base) rides the same ``_layer``.
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import quant
 from ..ops.attention import dot_product_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import Qwen3Config
+from .lora import apply_lora, apply_lora_fused
 
 Params = Dict[str, Any]
 
@@ -82,20 +85,42 @@ def init_cache(cfg: Qwen3Config, batch: int, max_len: int, device="cpu",
     return {"kv": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def _layer_params(lp: Params, i: int) -> Params:
-    """Layer i's slice of the stacked [L, ...] weights."""
-    return {name: ({k: t[i] for k, t in w.items()} if isinstance(w, dict)
-                   else w[i])
-            for name, w in lp.items()}
+def _unstack_layers(lp: Params, n_layers: int):
+    """The stacked [L, ...] weights as a list of L per-layer dicts. One
+    ``unbind`` per leaf, so autograd stacks the L slice gradients once
+    (indexing ``w[i]`` layer by layer would add a full-size zero-padded
+    gradient into the stacked leaf L times)."""
+    def unbind(w):
+        if isinstance(w, dict):
+            parts = {k: t.unbind(0) for k, t in w.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        return w.unbind(0)
+
+    cols = {name: unbind(w) for name, w in lp.items()}
+    return [{name: cols[name][i] for name in cols} for i in range(n_layers)]
 
 
-def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
-           cache_kv, cache_index: int):
-    """One decoder layer. cache_kv: None, or (kv [L, B, Nkv, Smax, 2*Dh],
-    layer index) — the layer's new rows are written into kv in place."""
+def _generator_for(seeds, device):
+    """name -> a fresh generator seeded for that LoRA target's dropout mask
+    (or None). Seeding per (layer, target) keeps the masks the same when a
+    checkpointed layer runs again in the backward pass."""
+    if seeds is None:
+        return lambda name: None
+
+    def make(name):
+        return torch.Generator(device=device).manual_seed(seeds[name])
+
+    return make
+
+
+def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
+                 lora_scale=1.0, lora_dropout=0.0, seeds=None):
+    """The part of a layer before attention: (q, k, v), q/k normed and
+    rotated."""
     B, S, H = hidden.shape
     Nq, Nkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
+    gen_for = _generator_for(seeds, hidden.device)
 
     x = rms_norm(hidden, p["input_norm"], cfg.rms_norm_eps)
     if "qkv_proj" in p:  # fused decode weights (quantize_for_decode)
@@ -103,20 +128,74 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
         # q/k RMSNorm and RoPE run once each over [B, S, Nq+Nkv, Dh] with
         # the stacked qk_norm weights
         qkv = quant.linear(x, p["qkv_proj"])
+        if lora_layer is not None:
+            qkv = apply_lora_fused(
+                x, qkv, lora_layer,
+                (("q_proj", cfg.q_dim), ("k_proj", cfg.kv_dim),
+                 ("v_proj", cfg.kv_dim)), lora_scale, lora_dropout, gen_for)
         qk = qkv[..., : cfg.q_dim + cfg.kv_dim].reshape(B, S, Nq + Nkv, Dh)
         v = qkv[..., cfg.q_dim + cfg.kv_dim:].reshape(B, S, Nkv, Dh)
         qk = rms_norm(qk, p["qk_norm"], cfg.rms_norm_eps)
         qk = apply_rope(qk, cos, sin)
-        q, kk = qk[:, :, :Nq], qk[:, :, Nq:]
+        return qk[:, :, :Nq], qk[:, :, Nq:], v
+
+    def proj(name):
+        ll = lora_layer.get(name) if lora_layer is not None else None
+        return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
+                          lora_dropout, gen_for(name))
+
+    q = proj("q_proj").reshape(B, S, Nq, Dh)
+    kk = proj("k_proj").reshape(B, S, Nkv, Dh)
+    v = proj("v_proj").reshape(B, S, Nkv, Dh)
+    # Qwen3 applies RMSNorm on the head dim of q/k before RoPE
+    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+    kk = rms_norm(kk, p["k_norm"], cfg.rms_norm_eps)
+    return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), v
+
+
+def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
+                lora_scale=1.0, lora_dropout=0.0, seeds=None):
+    """The part of a layer after attention: output projection, residual,
+    MLP, residual."""
+    B, S, H = hidden.shape
+    gen_for = _generator_for(seeds, hidden.device)
+
+    def proj(x, name):
+        ll = lora_layer.get(name) if lora_layer is not None else None
+        return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
+                          lora_dropout, gen_for(name))
+
+    hidden = hidden + proj(attn.reshape(B, S, -1), "o_proj")
+    x = rms_norm(hidden, p["post_attn_norm"], cfg.rms_norm_eps)
+    if "gateup_proj" in p:  # fused decode weights
+        gu = quant.linear(x, p["gateup_proj"])
+        if lora_layer is not None:
+            I = gu.shape[-1] // 2
+            gu = apply_lora_fused(x, gu, lora_layer,
+                                  (("gate_proj", I), ("up_proj", I)),
+                                  lora_scale, lora_dropout, gen_for)
+        gate, up = gu.chunk(2, dim=-1)
     else:
-        q = quant.linear(x, p["q_proj"]).reshape(B, S, Nq, Dh)
-        kk = quant.linear(x, p["k_proj"]).reshape(B, S, Nkv, Dh)
-        v = quant.linear(x, p["v_proj"]).reshape(B, S, Nkv, Dh)
-        # Qwen3 applies RMSNorm on the head dim of q/k before RoPE
-        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
-        kk = rms_norm(kk, p["k_norm"], cfg.rms_norm_eps)
-        q = apply_rope(q, cos, sin)
-        kk = apply_rope(kk, cos, sin)
+        gate, up = proj(x, "gate_proj"), proj(x, "up_proj")
+    return hidden + proj(F.silu(gate) * up, "down_proj")
+
+
+def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
+           cache_kv, cache_index: int, lora_layer=None, lora_scale=1.0,
+           lora_dropout=0.0, seeds=None, split_remat: bool = False):
+    """One decoder layer. cache_kv: None, or (kv [L, B, Nkv, Smax, 2*Dh],
+    layer index) — the layer's new rows are written into kv in place.
+    seeds: LoRA target name -> dropout seed, or None for no dropout.
+    split_remat: checkpoint the part before attention and the part after
+    it, and leave the attention call outside (the ``attn`` / ``hot`` remat
+    policies: the backward pass never re-runs flash attention)."""
+    Dh = cfg.head_dim
+    lkw = (lora_layer, lora_scale, lora_dropout, seeds)
+    if split_remat:
+        q, kk, v = checkpoint(_attn_inputs, cfg, hidden, p, cos, sin, *lkw,
+                              use_reentrant=False)
+    else:
+        q, kk, v = _attn_inputs(cfg, hidden, p, cos, sin, *lkw)
 
     if cache_kv is None:
         attn = dot_product_attention(q, kk, v, mask=mask, causal=causal,
@@ -124,6 +203,7 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     else:
         # write ONLY the new token rows (k ‖ v) at cache_index, in place of
         # JAX's dynamic_update_slice, then read this layer's window
+        S = hidden.shape[1]
         ckv, li = cache_kv
         kv_new = torch.cat([kk.transpose(1, 2), v.transpose(1, 2)], dim=-1)
         ckv[li, :, :, cache_index:cache_index + S] = kv_new.to(ckv.dtype)
@@ -131,17 +211,13 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
         attn = dot_product_attention(
             q, kv_l[..., :Dh], kv_l[..., Dh:], mask=mask, causal=causal,
             scale=Dh ** -0.5, q_offset=cache_index, kv_layout="bnsd")
-    attn = quant.linear(attn.reshape(B, S, Nq * Dh), p["o_proj"])
-    hidden = hidden + attn
+    if split_remat:
+        return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
+                          use_reentrant=False)
+    return _layer_tail(cfg, hidden, attn, p, *lkw)
 
-    x = rms_norm(hidden, p["post_attn_norm"], cfg.rms_norm_eps)
-    if "gateup_proj" in p:  # fused decode weights
-        gate, up = quant.linear(x, p["gateup_proj"]).chunk(2, dim=-1)
-    else:
-        gate = quant.linear(x, p["gate_proj"])
-        up = quant.linear(x, p["up_proj"])
-    down = quant.linear(F.silu(gate) * up, p["down_proj"])
-    return hidden + down
+
+REMAT_POLICIES = ("full", "attn", "hot")
 
 
 def forward_hidden(
@@ -155,18 +231,30 @@ def forward_hidden(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: int = 0,
     causal: bool = True,
+    lora: Optional[Dict[str, Any]] = None,     # {"layers": {target: {a, b}}}
+    lora_scale: float = 1.0,
+    lora_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,  # LoRA dropout stream
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the decoder stack; returns (final hidden states, cache).
 
-    Without a cache this is a plain causal forward. With the dense cache,
-    the S new tokens are written at ``cache_index`` (in place) and attention
-    runs over the whole cache (prefill: S = prompt length, index 0; decode:
-    S = 1)."""
+    Without a cache this is a plain causal forward (training). With the
+    dense cache, the S new tokens are written at ``cache_index`` (in place)
+    and attention runs over the whole cache (prefill: S = prompt length,
+    index 0; decode: S = 1).
+
+    Training memory: ``cfg.remat`` recomputes each layer in the backward
+    pass with ``torch.utils.checkpoint`` where JAX uses ``jax.checkpoint``;
+    the first ``cfg.remat_skip_layers`` layers stay unchecked. Policy
+    ``full`` checkpoints the whole layer; ``attn`` and ``hot`` checkpoint
+    the parts before and after attention and keep the attention call (its
+    q, k, v, output and LSE) out of the recompute. ``dots`` is refused."""
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     hidden = inputs_embeds
     B, S, _ = hidden.shape
     dev = hidden.device
+    L = cfg.num_hidden_layers
 
     if positions is None:
         if attention_mask is not None and cache is None:
@@ -180,12 +268,41 @@ def forward_hidden(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             dtype=hidden.dtype)
 
-    lp = params["layers"]
-    for li in range(cfg.num_hidden_layers):
-        hidden = _layer(cfg, hidden, _layer_params(lp, li), cos, sin,
-                        attention_mask, causal,
-                        None if cache is None else (cache["kv"], li),
-                        cache_index)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    if remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP.md, "
+            f"queue 1 item 8, left open: the 'dots' policy); use one of "
+            f"{REMAT_POLICIES}")
+    n_skip = min(cfg.remat_skip_layers, L)
+
+    lora_layers = lora["layers"] if lora is not None else None
+    all_seeds = None
+    if lora_layers is not None and lora_dropout > 0.0 and \
+            generator is not None:
+        # one seed per (layer, target), drawn from the caller's stream
+        all_seeds = torch.randint(
+            0, 2 ** 62, (L, len(lora_layers)), generator=generator,
+            device=generator.device).tolist()
+
+    layer_params = _unstack_layers(params["layers"], L)
+    lora_params = (_unstack_layers(lora_layers, L)
+                   if lora_layers is not None else None)
+    for li in range(L):
+        p = layer_params[li]
+        ll = lora_params[li] if lora_params is not None else None
+        seeds = (dict(zip(lora_layers, all_seeds[li]))
+                 if all_seeds is not None else None)
+        args = (cfg, hidden, p, cos, sin, attention_mask, causal,
+                None if cache is None else (cache["kv"], li), cache_index,
+                ll, lora_scale, lora_dropout, seeds)
+        if remat and li >= n_skip:
+            if cfg.remat_policy == "full":
+                hidden = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                hidden = _layer(*args, split_remat=True)
+        else:
+            hidden = _layer(*args)
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     return hidden, cache
 
@@ -197,6 +314,23 @@ def logits_from_hidden(params: Params, cfg: Qwen3Config,
     if "lm_head" in params:  # untied
         return hidden @ params["lm_head"]
     return hidden @ params["embed"].T  # tied embeddings
+
+
+QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                 "gate_proj", "up_proj", "down_proj")
+
+
+def quantize_for_training(params: Params, cfg: Qwen3Config) -> Params:
+    """QLoRA-style base quantization: int8 the frozen decoder linears IN
+    PLACE of their storage in the model dtype, keeping names, embedding, lm
+    head and norms untouched — so LoRA adapters (``models.lora``) apply on
+    top and the trainer's loss path (fused LCE on the head in the model
+    dtype) is unchanged. Only the adapters and projectors train."""
+    new_layers = dict(params["layers"])
+    for name in QUANT_TARGETS:
+        if name in new_layers:
+            new_layers[name] = quant.quantize_int8(new_layers[name])
+    return {**params, "layers": new_layers}
 
 
 def _stacked_qk_norm(cfg: Qwen3Config, lp: Params) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Int8 weight-only quantization for decode: the wrapper of the hand-written
+"""Int8 weight-only quantization (decode, and the frozen QLoRA base in
+training): the wrapper of the hand-written
 CUDA GEMM (``csrc/int8_matmul.cu``) and its plain PyTorch version.
 
 Replaces ``molly_tpu/ops/quant.py:_kernel`` (launched from ``int8_matmul``).
@@ -7,6 +8,11 @@ and scale = max|w_col| / 127. The plain version follows the Pallas kernel:
 it multiplies the activations as given. (The JAX package's non-TPU path
 rounds them to bf16 first, so int8 results differ from it by that
 rounding; the tests state the tolerance.)
+
+For training the product is an autograd function over the FROZEN int8 base:
+forward is the kernel, backward gives dx = (g * scale) @ w_q^T — a plain
+``torch.matmul`` on the dequantized weight, the product the JAX package
+leaves to XLA — and no gradient for the weight.
 """
 
 from __future__ import annotations
@@ -44,10 +50,32 @@ def int8_matmul_plain(x: torch.Tensor, q: Dict[str, torch.Tensor],
     return y.to(out_dtype or x.dtype)
 
 
+class _Int8Matmul(torch.autograd.Function):
+    """Forward: the int8 kernel. Backward: dx only (the base is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        return _int8_matmul_fwd(x, {"w_q": w_q, "scale": scale})
+
+    @staticmethod
+    def backward(ctx, g):
+        w_q, scale = ctx.saved_tensors
+        dx = (g * scale.to(g.dtype)) @ w_q.to(g.dtype).T
+        return dx, None, None
+
+
 def int8_matmul(x: torch.Tensor, q: Dict[str, torch.Tensor]) -> torch.Tensor:
     """x [..., K] @ quantized w [K, N] -> [..., N] in x's dtype. A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    raises. Differentiable in x when autograd records."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int8Matmul.apply(x, q["w_q"], q["scale"])
+    return _int8_matmul_fwd(x, q)
+
+
+def _int8_matmul_fwd(x: torch.Tensor,
+                     q: Dict[str, torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q)
     if x.device.type != "cuda":

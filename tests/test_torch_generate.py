@@ -1,6 +1,6 @@
 """The port's generation slice held against molly_tpu on the CPU, in fp32:
 sampling processors, greedy generate (token-exact), the batch CLI's JSONL,
-and that nothing in molly_tpu_torch imports jax.
+and that nothing in molly_tpu_torch imports jax or the JAX package.
 
 Sampled outputs cannot match token for token (``torch.Generator`` and
 ``jax.random`` draw different streams), so the sampled path is compared
@@ -141,8 +141,13 @@ def test_generate_eos_pads_and_sampled_runs():
     b = engine.generate(tp, _tcfg_of(cfg), batch, gen,
                         torch.Generator().manual_seed(5))
     assert a.shape == (4, 4) and torch.equal(a, b)
+    # an unmerged adapter over a base already quantized for decode cannot
+    # be merged: refused
+    from molly_tpu_torch.models import qwen3 as tqwen3
+    quantized = {**tp, "text": tqwen3.quantize_for_decode(
+        tp["text"], _tcfg_of(cfg).text), "lora": {"layers": {}}}
     with pytest.raises(AssertionError):
-        engine.generate({**tp, "lora": {}}, _tcfg_of(cfg), batch, gen)
+        engine.generate(quantized, _tcfg_of(cfg), batch, gen)
 
 
 # ---------------------------------------------------------------- CLI
@@ -194,40 +199,87 @@ def _jax_cfg(tcfg_obj):
 
 
 _BLOCK_JAX = r"""
-import importlib, pkgutil, sys
+import importlib, io, os, pkgutil, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "molly_tpu")
 for name in list(sys.modules):
-    if name.split(".")[0] in ("jax", "jaxlib"):
+    if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
 
-class _NoJax:
+class _Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in the port: " + name)
         return None
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Blocked())
 import molly_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(molly_tpu_torch.__path__,
                                                 "molly_tpu_torch.")]
-for name in names + ["molly_tpu.data", "chip_smoke"]:
+for name in names + ["chip_smoke"]:
     importlib.import_module(name)
-bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib")
-             or n.startswith("molly_tpu.models"))
+
+# drive the entry points: the --tiny batch CLI's loop and one --tiny train
+# step, on in-memory samples (no parquet reader is needed for that)
+import torch
+from molly_tpu_torch.data import (DataConfig, OmicsSampleEncoder,
+                                  default_modality_tokenizers,
+                                  load_text_tokenizer)
+from molly_tpu_torch.inference import cli as icli
+from molly_tpu_torch.models import GenerationConfig, fusion
+from molly_tpu_torch.training import cli as tcli
+from molly_tpu_torch.training.trainer import TrainConfig, init_train_state
+
+text_tok = load_text_tokenizer(None)
+dna_tok, prot_tok = default_modality_tokenizers()
+enc = OmicsSampleEncoder(text_tok, dna_tok, prot_tok, DataConfig(
+    max_len=192, dna_rna_k_tokens=4, protein_k_tokens=4))
+rows = [{"task": "pd-prom_300", "kind": "dna", "label": "1",
+         "input": "Is <dna>ACGTACGTACGT</dna> a promoter?", "output": "Yes"},
+        {"task": "Solubility-Solubility", "kind": "protein", "label": "0",
+         "input": "Soluble? <protein>MKTAYIAKQR</protein>", "output": "No"}]
+args = icli.build_argparser().parse_args(
+    ["--input-file", "unused", "--output-file", "unused", "--tiny",
+     "--dna-rna-k-tokens", "4", "--protein-k-tokens", "4"])
+cfg = icli.build_config(args, text_tok, dna_tok, prot_tok)
+params = fusion.init_params(cfg, torch.Generator().manual_seed(0))
+recs = icli.run_batches(
+    [enc.encode_test(r) for r in rows], params, cfg,
+    GenerationConfig(max_new_tokens=2, do_sample=False,
+                     eos_token_id=text_tok.eos_token_id,
+                     pad_token_id=text_tok.pad_token_id or 0),
+    text_tok, io.StringIO(), batch_size=2)
+assert len(recs) == 2
+tc = TrainConfig(total_steps=1)
+out = tcli.train_loop(init_train_state(params, tc), cfg, tc,
+                      [enc.encode_train(r) for r in rows], batch_size=2,
+                      total_steps=1, device="cpu", output_dir=None)
+assert out["steps"] == 1 and out["final_loss"] > 0
+
+bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
-print("imported", len(names) + 2, "modules")
+print("imported", len(names) + 1, "modules")
 """
 
 
 def test_port_imports_no_jax():
-    """Every molly_tpu_torch module, the data layer it reuses and
-    chip_smoke.py import with jax blocked, and none pulls in
-    molly_tpu.models (whose package __init__ imports jax)."""
+    """Every molly_tpu_torch module and chip_smoke.py import, and the
+    --tiny batch loop and one --tiny train step run, with jax, optax, orbax
+    and the whole molly_tpu package blocked; none of them ends up in
+    sys.modules. chip_smoke.py names no molly_tpu import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     import molly_tpu_torch
     n = len(list(pkgutil.walk_packages(molly_tpu_torch.__path__,
                                          "molly_tpu_torch.")))
     out = subprocess.run([sys.executable, "-c", _BLOCK_JAX], cwd=root,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert f"imported {n + 2} modules" in out.stdout
+    assert f"imported {n + 1} modules" in out.stdout
+    import re
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|optax|orbax|molly_tpu)(\.|\s|$)", re.M)
+    sources = [os.path.join(root, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(root, "molly_tpu_torch")):
+        sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 20
+    for path in sources:
+        assert not pat.search(open(path).read()), path
