@@ -72,7 +72,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny random model matching the train CLI's --tiny")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+                   help="torch device (default: cuda; the CPU only on "
+                        "request)")
     return p
 
 
@@ -204,8 +205,10 @@ def main(argv=None) -> None:
 
     from ..models import qwen3
 
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    if args.device is None and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device found; pass --device cpu to run on "
+                         "the CPU")
+    device = torch.device(args.device or "cuda")
     text_tok = load_text_tokenizer(args.text_model_path)
     dcfg = DataConfig(max_len=args.max_length,
                       dna_rna_k_tokens=args.dna_rna_k_tokens,

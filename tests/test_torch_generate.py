@@ -283,3 +283,19 @@ def test_port_imports_no_jax():
     assert len(sources) > 20
     for path in sources:
         assert not pat.search(open(path).read()), path
+
+
+@pytest.mark.parametrize("which", ["inference", "training"])
+def test_clis_do_not_carry_on_without_a_card(which):
+    """The entry points run on the card unless the caller asks for the CPU:
+    with no CUDA device and no --device they stop instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    if which == "inference":
+        with pytest.raises(SystemExit, match="--device cpu"):
+            cli.main(["--input-file", "none.parquet", "--output-file",
+                      "none.jsonl", "--tiny"])
+    else:
+        from molly_tpu_torch.training import cli as tcli
+        with pytest.raises(SystemExit, match="--device cpu"):
+            tcli.main(["--train-dataset-path", "none.parquet", "--tiny"])
