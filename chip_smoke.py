@@ -9,9 +9,10 @@ Phases, each printed with its time; any failure exits non-zero:
      limit from nvidia-smi.
   2. build: compile every CUDA kernel in ``molly_tpu_torch/csrc`` with nvcc
      for sm_90a (all sources in parallel).
-  3. kernel parity: each of the six kernels against its plain PyTorch
-     version (run in fp32 from the same bf16 inputs) at the shapes the main
-     paths give it, with the tolerances stated below; kernel and plain
+  3. kernel parity: each of the eight kernels (the paged flash-decode
+     kernel counts twice: over bf16 pages and over int8 pages) against its
+     plain PyTorch version (run in fp32 from the same inputs) at the shapes
+     the main paths give it, with the tolerances stated below; kernel and plain
      times by CUDA events, the time of the one PyTorch call that computes
      the same function (``library_ms``, used nowhere in the port), and the
      bound: the least time the card could take, the larger of bytes / 3.35
@@ -22,30 +23,46 @@ Phases, each printed with its time; any failure exits non-zero:
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
-  5. small reference, training: the same model, one full fine-tune step and
+  5. small reference, serving: the same model through ``ServingEngine``
+     and ``PagedServingEngine`` (fp32 pages and int8 pages, page size 16) on
+     the card against the same engines on the CPU: greedy tokens equal
+     (int8: first tokens equal, at most 3 flips), with a page pool small
+     enough that requests are preempted, and every page back on the free
+     list.
+  6. small reference, training: the same model, one full fine-tune step and
      one LoRA step on the card against the CPU (loss and every trainable
      gradient), and five steps on one repeated batch must lower the loss.
-  6. main path, generation, bf16: molly-1.7B width — qwen3-1.7b (vocab
+  7. main path, generation, bf16: molly-1.7B width — qwen3-1.7b (vocab
      151,936, 28 layers) fused with nt-500m and esm2-650m, k = 1024 tokens
      and 4 slots per modality, max length 3072 — random weights from
      --seed, four tri-modal requests encoded by
      OmicsSampleEncoder.encode_test and decoded by the batch CLI's
      ``run_batches`` with sampling.
-  7. main path, training, full fine-tune: the same weights, the train CLI's
+  8. main path, serving: the same weights through the inference CLI's
+     ``run_serve`` (continuous batching over the fixed system prompt's
+     shared prefix): 12 tri-modal requests into 8 slots so that slots
+     backfill, chunk 16, admission groups of 4, 32 new tokens, once with
+     paged KV in bf16 pages of 64 (sampled), once with int8 pages of 128
+     (greedy); then the dense ring with 4 requests and 16 new tokens.
+  9. main path, training, full fine-tune: the same weights, the train CLI's
      defaults (batch 4, max length 1024, k = 128 tokens and 4 slots per
      modality, train-llm and train-mlp, frozen encoders, fused LCE, no
      remat), four tri-modal samples through
      OmicsSampleEncoder.encode_train and ``train_loop`` for 3 steps.
-  8. main path, training, QLoRA: the same with --use-lora --qlora (r 64,
+ 10. main path, training, QLoRA: the same with --use-lora --qlora (r 64,
      dropout 0.05) over an int8 base, 3 steps, then export_adapter,
      load_adapter, merge_lora and 8 greedy tokens through ``run_batches``.
-  9. main path, generation, int8: the requests of phase 6 after
+ 11. main path, generation, int8: the requests of phase 7 after
      ``quantize_for_decode``, greedy.
- 10. checks: every kernel of each main-path run launched at least once in
-     that run (counts set to 0 just before it, read just after).
+ 12. checks: every kernel of each main-path run launched at least once in
+     that run (counts set to 0 just before it, read just after); each paged
+     serving run launched the paged kernel, the flash forward and the
+     RMSNorm forward.
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
-32 (bf16) / 16 (int8) new tokens instead of 3072; training runs 3 steps.
+32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
+instead of 32, chunk 16 instead of 64, admission groups of 4 instead of 8
+and 32 new tokens instead of 3072; training runs 3 steps.
 The last two lines of standard output are the kernels JSON line and the
 device JSON line.
 """
@@ -75,11 +92,18 @@ RMS_BWD_REL = 2.0 ** -7  # dx: one bf16 rounding of the output ...
 RMS_BWD_ABS = 1e-5      # ... plus the fp32 sums' order where dx cancels to 0
 RMS_DW_REL = 1e-2       # of max|dw|: dw is a sum over up to 65,536 rows,
 #                         rounded once to bf16 at the end
+PAGED_O_ATOL = 2e-2     # bf16 output of unit-scale attention (bf16 and int8
+#                         pages: int8 rows are dequantized exactly on both
+#                         sides, so only the output's rounding differs)
+PAGED_F32_ATOL = 1e-4   # fp32 pages: the kernel's fp32 sums run in another
+#                         order and its exp is the fast one
+SERVE_INT8_FLIPS = 3    # greedy tokens that may differ, card vs CPU, over
+#                         int8 pages (a quantization tie can flip an argmax)
 TRAIN_LOSS_ATOL = 1e-4  # fp32 small model, one step, card vs CPU
 TRAIN_GRAD_REL = 1e-3   # of each gradient's max-abs
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 REPLACES = {
     "flash_attention_fwd": "molly_tpu/ops/flash_attention.py:61",
@@ -88,9 +112,12 @@ REPLACES = {
     "rmsnorm_fwd": "molly_tpu/ops/rmsnorm_pallas.py:26",
     "rmsnorm_bwd": "molly_tpu/ops/rmsnorm_pallas.py:34",
     "int8_matmul": "molly_tpu/ops/quant.py:46",
+    "paged_attention": "molly_tpu/ops/paged_attention.py:112",
+    "paged_attention_int8": "molly_tpu/ops/paged_attention_int8.py:225",
 }
 _FWD_CU = "molly_tpu_torch/csrc/flash_attention_fwd.cu"
 _BWD_CU = "molly_tpu_torch/csrc/flash_attention_bwd.cu"
+_PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_CU),
     "flash_attention_dq": ("cuda", _BWD_CU),
@@ -98,6 +125,8 @@ SOURCES = {
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "rmsnorm_bwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
+    "paged_attention": ("cuda", _PAGED_CU),
+    "paged_attention_int8": ("cuda", _PAGED_CU),
 }
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "rmsnorm_fwd", "rmsnorm_bwd")
@@ -230,12 +259,21 @@ def sdpa_inputs(q, k, v, mask, causal, q_offset=0):
 
 
 def reset_counts():
+    from molly_tpu_torch.ops.paged_attention import paged_attention
     for fn in counters().values():
         fn.launches = 0
+    paged_attention.launches = paged_attention.launches_int8 = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    """Launches since ``reset_counts``. The paged wrapper launches one
+    templated kernel and counts its int8-page launches apart."""
+    from molly_tpu_torch.ops.paged_attention import paged_attention
+    counts = {name: fn.launches for name, fn in counters().items()}
+    counts["paged_attention_int8"] = paged_attention.launches_int8
+    counts["paged_attention"] = (paged_attention.launches
+                                 - paged_attention.launches_int8)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +289,11 @@ def parity_flash(g, results):
                                                      flash_attention_plain)
     dev = "cuda"
 
-    def case(name, q, k, v, mask, causal, scale, valid_rows, iters):
-        o, lse = flash_attention_fwd(q, k, v, mask, causal, scale, 0)
+    def case(name, q, k, v, mask, causal, scale, valid_rows, iters,
+             q_offset=0):
+        o, lse = flash_attention_fwd(q, k, v, mask, causal, scale, q_offset)
         ro, rlse = flash_attention_plain(q.float(), k.float(), v.float(),
-                                         mask, causal, scale, 0)
+                                         mask, causal, scale, q_offset)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(o).all()) or not bool(
                 torch.isfinite(lse).all()):
@@ -264,14 +303,14 @@ def parity_flash(g, results):
         lse_err = ((lse - rlse).abs()
                    * valid_rows[:, None, :]).max().item()
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask, causal,
-                                                 scale, 0), iters)
+                                                 scale, q_offset), iters)
         plain_ms = time_ms(lambda: flash_attention_plain(
-            q, k, v, mask, causal, scale, 0), max(1, iters // 2))
-        sq, sk, sv, allow = sdpa_inputs(q, k, v, mask, causal)
+            q, k, v, mask, causal, scale, q_offset), max(1, iters // 2))
+        sq, sk, sv, allow = sdpa_inputs(q, k, v, mask, causal, q_offset)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             sq, sk, sv, attn_mask=allow, scale=scale,
             enable_gqa=q.shape[2] != k.shape[2]), iters)
-        pairs = allowed_pairs(mask, q.shape[1], causal)
+        pairs = allowed_pairs(mask, q.shape[1], causal, q_offset)
         bound_ms, bound_by = bound(
             nbytes(q, k, v, o, lse),
             2 * 2 * q.shape[3] * pairs * q.shape[2], "bf16")
@@ -325,6 +364,21 @@ def parity_flash(g, results):
     valid = torch.ones((4, 1024), device=dev)
     cases.append(case("train_bf16[4,1024,16,128]", q, k, v, mask, True,
                       128 ** -0.5, valid, 10))
+    del q, k, v
+    # serving prefill behind a shared prefix: the cache starts with 64
+    # prefix columns, q holds only the right-padded suffix [4, 3008, 16,
+    # 128], so q_offset = 64 and Sq < Skv = 3072
+    B, S, pre, N, Nkv, D = 4, 3008, 64, 16, 8, 128
+    q = torch.randn((B, S, N, D), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((B, Nkv, pre + S, 2 * D), generator=g,
+                     device=dev).to(torch.bfloat16)
+    k, v = kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+    mask = torch.zeros((B, pre + S), dtype=torch.int32, device=dev)
+    for b, n in enumerate((3008, 2400, 1117, 41)):
+        mask[b, :pre + n] = 1
+    valid = torch.ones((B, S), device=dev)  # every row sees the prefix
+    cases.append(case("serve_prefill_bf16[4,3008,16,128]x3072,q_offset=64",
+                      q, k, v, mask, True, D ** -0.5, valid, 5, q_offset=pre))
     results["flash_attention_fwd"] = cases
 
 
@@ -603,6 +657,120 @@ def parity_int8(g, results):
     ]
 
 
+def parity_paged(g, results):
+    """The paged flash-decode kernel over bf16 pages and over int8 pages at
+    the serving shape (32 slots, 16 q heads over 8 kv heads, Dh 128, all 28
+    layers' pages in one pool, a shuffled page table, lengths from 1 to
+    3136 that mostly end inside a page, one empty slot), and one fp32 case
+    at Dh 64 with one q head a kv head."""
+    import torch
+    import torch.nn.functional as F
+
+    from molly_tpu_torch.models.qwen3 import quantize_page_rows
+    from molly_tpu_torch.ops.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    dev = "cuda"
+
+    def case(name, B, Nq, Nkv, Dh, P, rows, lens, dtype, quant, tol, iters):
+        pps = -(-max(lens) // P)
+        q = torch.randn((B, Nq, Dh), generator=g, device=dev).to(dtype)
+        table = torch.randperm(rows - 1, generator=g, device=dev)[
+            :B * pps].reshape(B, pps).to(torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pools = []
+        for _ in range(2):  # K then V, made in slices to bound fp32 scratch
+            pool = torch.empty((Nkv, rows, P, Dh), device=dev,
+                               dtype=torch.int8 if quant else dtype)
+            scales = (torch.empty((Nkv, rows, P), device=dev)
+                      if quant else None)
+            for h in range(Nkv):
+                x = torch.randn((rows, P, Dh), generator=g, device=dev)
+                if quant:
+                    w, sc = quantize_page_rows(x)
+                    pool[h], scales[h] = w, sc[..., 0]
+                else:
+                    pool[h] = x.to(dtype)
+            pools.append((pool, scales))
+        (kp, ks), (vp, vs) = pools
+        kw = dict(k_scales=ks, v_scales=vs)
+        out = paged_attention(q, kp, vp, lengths, table, **kw)
+        # the plain version gathers each slot's pages; give it the pools as
+        # they are (it dequantizes int8 itself) and q in fp32
+        ref = paged_attention_plain(q.float(), kp, vp, lengths, table, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"paged {name}: non-finite output")
+        err = (out.float() - ref).abs().max().item()
+        empty = lengths == 0
+        zero_rows = bool((out[empty] == 0).all())
+        ms = time_ms(lambda: paged_attention(q, kp, vp, lengths, table, **kw),
+                     iters)
+        plain_ms = time_ms(lambda: paged_attention_plain(
+            q, kp, vp, lengths, table, **kw), max(1, iters // 4))
+        library_ms = None
+        if not quant:
+            # one library call on the same data: attention over each slot's
+            # gathered dense K/V (the gather is not timed)
+            idx = table.long()
+            dk = kp[:, idx].movedim(1, 0).reshape(B, Nkv, pps * P, Dh)
+            dv = vp[:, idx].movedim(1, 0).reshape(B, Nkv, pps * P, Dh)
+            live = (torch.arange(pps * P, device=dev)[None, :]
+                    < lengths.clamp(min=1)[:, None])[:, None, None, :]
+            sq = q[:, :, None, :]
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sq, dk, dv, attn_mask=live, scale=Dh ** -0.5,
+                enable_gqa=Nq != Nkv), iters)
+            del dk, dv
+        tokens = int(lengths.sum().item())
+        used_pages = int((-(-lengths // P)).sum().item())
+        # live K and V rows (and their scales) once, q, out, lengths and the
+        # table entries that name a live page
+        row_bytes = 2 * Dh * kp.element_size() + (8 if quant else 0)
+        bound_ms, bound_by = bound(
+            tokens * Nkv * row_bytes + nbytes(q, out, lengths)
+            + 4 * used_pages, 4 * Nq * Dh * tokens,
+            "int8" if quant else ("bf16" if dtype == torch.bfloat16
+                                  else "fp32"))
+        log(f"  paged {name}: max|dO| {err:.3e} (tol {tol}), empty slots "
+            f"zero: {zero_rows}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {tokens} live tokens in "
+            f"{B} slots")
+        if not (err <= tol and zero_rows):
+            raise AssertionError(f"paged {name}: parity miss")
+        del ref, pools, kp, vp
+        torch.cuda.empty_cache()
+        return {"case": name, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "live_tokens": tokens}
+
+    cpu = torch.Generator().manual_seed(1)
+    lens = [1, 3136, 63, 64, 65, 1000, 2047, 0] + torch.randint(
+        1, 3137, (24,), generator=cpu).tolist()
+    # 8 slots as the serving smoke runs them: B x Nkv = 64 blocks
+    lens8 = [3136, 2900, 2047, 1531, 1000, 640, 65, 1]
+    results["paged_attention"] = [
+        case("serve_bf16[32,16,128]x[8,28*441+1,64,128]", 32, 16, 8, 128, 64,
+             28 * 441 + 1, lens, torch.bfloat16, False, PAGED_O_ATOL, 20),
+        case("serve_bf16[8,16,128]x[8,28*441+1,64,128]", 8, 16, 8, 128, 64,
+             28 * 441 + 1, lens8, torch.bfloat16, False, PAGED_O_ATOL, 20),
+        case("small_fp32[8,4,64]x[4,2*40+1,16,64]", 8, 4, 4, 64, 16,
+             2 * 40 + 1, [1, 17, 100, 0, 33, 64, 15, 128], torch.float32,
+             False, PAGED_F32_ATOL, 50),
+    ]
+    results["paged_attention_int8"] = [
+        case("serve_int8[32,16,128]x[8,28*221+1,128,128]", 32, 16, 8, 128,
+             128, 28 * 221 + 1, lens, torch.bfloat16, True, PAGED_O_ATOL, 20),
+        case("serve_int8[8,16,128]x[8,28*221+1,128,128]", 8, 16, 8, 128, 128,
+             28 * 221 + 1, lens8, torch.bfloat16, True, PAGED_O_ATOL, 20),
+        case("small_int8_fp32q[8,4,64]x[2,2*40+1,16,64]", 8, 4, 2, 64, 16,
+             2 * 40 + 1, [1, 17, 100, 0, 33, 64, 15, 128], torch.float32,
+             True, PAGED_F32_ATOL, 50),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # small reference and main path
 # ---------------------------------------------------------------------------
@@ -676,6 +844,82 @@ def small_reference(seed: int):
             raise AssertionError(f"small reference{tag}: kernels disagree "
                                  f"with the plain path")
     return errs
+
+
+def small_reference_serving(seed: int):
+    """The small model through both serving engines on the card (through
+    the kernels: flash prefill behind a shared prefix, RMSNorm, the paged
+    kernel over fp32 and int8 pages) against the same engines on the CPU
+    (plain versions): greedy tokens, the scheduler's counters, and every
+    page back on the free list after a run that had to preempt."""
+    import numpy as np
+    import torch
+
+    from molly_tpu_torch.inference.paged import PagedServingEngine
+    from molly_tpu_torch.inference.server import Request, ServingEngine
+    from molly_tpu_torch.models import GenerationConfig, fusion
+    from molly_tpu_torch.utils.tree import tree_to
+
+    cfg = small_config()
+    cpu = fusion.init_params(cfg, torch.Generator().manual_seed(seed))
+    gpu = tree_to(cpu, "cuda")
+    rng = np.random.default_rng(seed + 3)
+    prefix = rng.integers(1, 384, 20).astype(np.int32)  # one page + 4 tokens
+    batches = []
+    for i, n in enumerate((9, 40, 17, 44, 25)):
+        ids = np.concatenate(
+            [prefix, rng.integers(1, 384, n).astype(np.int32)])[None]
+        batch = {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+        if n >= 40:  # tri-modal prompts among text-only ones
+            batch.update(
+                dna_rna_tokens=rng.integers(6, 4102, (1, 1, 16)).astype(
+                    np.int32),
+                dna_rna_pos=np.asarray([[21 + i]], np.int32),
+                protein_tokens=rng.integers(4, 24, (1, 1, 16)).astype(
+                    np.int32),
+                protein_pos=np.asarray([[40 + i]], np.int32))
+        batches.append(batch)
+
+    def requests():
+        return [Request(uid=i, batch=dict(b)) for i, b in enumerate(batches)]
+
+    gen = GenerationConfig(max_new_tokens=24, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=0)
+    common = dict(n_slots=3, prefill_buckets=(64,), decode_chunk=4,
+                  admit_batch=2, prefix_ids=prefix)
+    paged = dict(page_size=16, n_pages=10, **common)
+    engines = {
+        "dense ring": (ServingEngine, dict(max_len=128, **common)),
+        "paged, fp32 pages": (PagedServingEngine, paged),
+        "paged, int8 pages": (PagedServingEngine,
+                              dict(kv_quant="int8", **paged)),
+    }
+    for name, (cls, kw) in engines.items():
+        runs = {}
+        for where, params in (("cpu", cpu), ("card", gpu)):
+            eng = cls(params, cfg, gen, **kw)
+            runs[where] = (eng.run(requests()), eng)
+        (ref, ceng), (got, geng) = runs["cpu"], runs["card"]
+        flips = sum(int(np.sum(got[u] != ref[u])) for u in ref)
+        firsts = all(got[u][0] == ref[u][0] for u in ref)
+        allowed = SERVE_INT8_FLIPS if "int8" in name else 0
+        stats = {k: v for k, v in geng.stats.items() if k != "fetch_wait_s"}
+        log(f"  small serving reference, {name}: {len(got)} requests, "
+            f"{flips} greedy tokens differ from the CPU (allowed {allowed}), "
+            f"first tokens equal: {firsts}; {stats}")
+        if set(got) != set(ref) or flips > allowed or not firsts or any(
+                len(got[u]) != 24 for u in got):
+            raise AssertionError(f"small serving reference, {name}: the card "
+                                 f"disagrees with the CPU")
+        if cls is PagedServingEngine:
+            if geng.stats["preemptions"] < 1:
+                raise AssertionError(f"small serving reference, {name}: the "
+                                     f"pool was never exhausted")
+            if len(geng._free_pages) != geng.n_pages - geng._n_shared or \
+                    any(geng._slot_pages):
+                raise AssertionError(f"small serving reference, {name}: "
+                                     f"pages were not returned")
 
 
 def small_reference_training(seed: int):
@@ -757,7 +1001,8 @@ def small_reference_training(seed: int):
 
 
 def make_requests(seed: int):
-    """Four tri-modal prompts with inline <dna>/<rna>/<protein> tags."""
+    """Four prompts (DNA, protein, RNA + protein, two DNA segments) with
+    inline <dna>/<rna>/<protein> tags."""
     import numpy as np
     rng = np.random.default_rng(seed)
 
@@ -816,6 +1061,55 @@ def main_path(params, cfg, samples, text_tok, gen, seed, label):
     return counts
 
 
+def serve_main_path(params, cfg, samples, text_tok, gen, seed, label,
+                    prefix_ids, n_slots, **serve_kw):
+    """Drive the CLI's ``run_serve`` once; returns the run's launch
+    counts."""
+    import torch
+
+    from molly_tpu_torch.inference.cli import run_serve
+
+    stats = {}
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    records = run_serve(
+        samples, params, cfg, gen, text_tok, buf, n_slots=n_slots,
+        max_length=3072, prefix_ids=prefix_ids, decode_chunk=16,
+        admit_batch=4, generator=torch.Generator("cuda").manual_seed(seed),
+        stats=stats, **serve_kw)
+    counts = read_counts()
+    lines = buf.getvalue().splitlines()
+    dispatches = (stats["decode_dispatches"] + stats["fused_dispatches"]
+                  + stats["prefill_dispatches"])
+    pages = (f", pages peak {stats['pages_peak']} of {stats['n_pages']} "
+             f"({stats['n_shared_pages']} shared), preemptions "
+             f"{stats['preemptions']}, stalls {stats['stalls']}"
+             if "pages_peak" in stats else "")
+    log(f"  {label}: {len(records)} requests done in {stats['rounds']} "
+        f"rounds, {dispatches} dispatches ({stats['prefill_rows']} rows "
+        f"prefilled); prefill {stats['prefill_s']:.3f} s, decode "
+        f"{stats['decode_s']:.3f} s, scheduler {stats['host_s']:.3f} s; "
+        f"{stats['tokens_out']} tokens = "
+        f"{stats['tokens_out'] / max(stats['decode_s'], 1e-9):.1f} tok/s of "
+        f"decode time ({n_slots} slots){pages}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{counts}")
+    log(f"  {label}: first record: {lines[0][:300]}")
+    if len(records) != len(samples) or not stats["logprobs_finite"]:
+        raise AssertionError(f"{label}: bad output (records {len(records)} "
+                             f"of {len(samples)}, finite log-probabilities "
+                             f"{stats['logprobs_finite']})")
+    if "free_pages" in stats and stats["free_pages"] != (
+            stats["n_pages"] - stats["n_shared_pages"]):
+        raise AssertionError(f"{label}: pages were not returned ({stats})")
+    for line in lines:
+        rec = json.loads(line)
+        assert set(rec) == {"decoded_output", "input", "gt_output",
+                            "gt_label", "task", "kind"}, rec.keys()
+    return counts
+
+
 def train_main_path(params, cfg, samples, tc, label, seed, needed,
                     profile_dir=None):
     """Drive ``train_loop`` for 3 steps on the four samples; returns (the
@@ -867,9 +1161,9 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
 
 
 def drive_main_paths(seed: int, profile_dir=None):
-    """Phases 6-10: generation (bf16, int8) and training (full fine-tune,
-    QLoRA) at molly-1.7B width; returns each kernel's launches summed over
-    the four runs."""
+    """Phases 7-12: generation (bf16, int8), serving (paged bf16, paged
+    int8, dense ring) and training (full fine-tune, QLoRA) at molly-1.7B
+    width; returns each kernel's launches summed over the runs."""
     import dataclasses
     import tempfile
 
@@ -932,6 +1226,42 @@ def drive_main_paths(seed: int, profile_dir=None):
     run_path("generation, bf16 sampled", params, cfg, samples,
              GenerationConfig(max_new_tokens=32, do_sample=True, **common),
              ("flash_attention_fwd", "rmsnorm_fwd"))
+
+    # serving: 12 requests (three draws of the four prompts) into 8 slots
+    serve_samples = samples + [enc.encode_test(r) for s in (1, 2)
+                               for r in make_requests(seed + s)]
+
+    def run_serve_path(label, run_samples, gen, needed, absent=(), **kw):
+        with Phase(f"main path {label}, {len(run_samples)} requests, "
+                   f"{gen.max_new_tokens} new tokens"):
+            counts = serve_main_path(params, cfg, run_samples, text_tok, gen,
+                                     seed, label, enc.system_prompt_ids, **kw)
+        for name in needed:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label} main path never launched "
+                                     f"{name}")
+        for name in absent:
+            if counts[name] != 0:
+                raise AssertionError(f"{label} main path launched {name}")
+        add(counts)
+        torch.cuda.empty_cache()
+
+    run_serve_path(
+        "serving, paged bf16 pages of 64, sampled", serve_samples,
+        GenerationConfig(max_new_tokens=32, do_sample=True, **common),
+        ("paged_attention", "flash_attention_fwd", "rmsnorm_fwd"),
+        absent=("paged_attention_int8",), n_slots=8, paged=True,
+        page_size=64)
+    run_serve_path(
+        "serving, paged int8 pages of 128, greedy", serve_samples,
+        GenerationConfig(max_new_tokens=32, do_sample=False, **common),
+        ("paged_attention_int8", "flash_attention_fwd", "rmsnorm_fwd"),
+        absent=("paged_attention",), n_slots=8, paged=True, page_size=128,
+        kv_int8=True)
+    run_serve_path(
+        "serving, dense ring, sampled", samples,
+        GenerationConfig(max_new_tokens=16, do_sample=True, **common),
+        ("flash_attention_fwd", "rmsnorm_fwd"), n_slots=4)
 
     with Phase("main path training, full fine-tune, 3 steps"):
         counts, state = train_main_path(
@@ -1018,8 +1348,12 @@ def run(args) -> int:
         parity_rmsnorm(g, parity)
     with Phase("parity int8_matmul"):
         parity_int8(g, parity)
+    with Phase("parity paged_attention, paged_attention_int8"):
+        parity_paged(g, parity)
     with Phase("small reference, generation"):
         small_reference(args.seed)
+    with Phase("small reference, serving"):
+        small_reference_serving(args.seed)
     with Phase("small reference, training"):
         small_reference_training(args.seed)
 

@@ -1,20 +1,26 @@
-"""Batch inference CLI, the counterpart of ``molly_tpu/inference/cli.py``'s
-batch path: read a parquet of prompts, run the fusion model with sampling,
-append JSONL rows ``{decoded_output, input, gt_output, gt_label, task,
-kind}`` that ``molly_tpu.evalsuite`` scores.
+"""Inference CLI, the counterpart of ``molly_tpu/inference/cli.py``: read a
+parquet of prompts, run the fusion model with sampling, append JSONL rows
+``{decoded_output, input, gt_output, gt_label, task, kind}`` that
+``molly_tpu.evalsuite`` scores.
 
 Usage:
   python -m molly_tpu_torch.inference.cli --input-file data.parquet \
       --output-file out.jsonl [--batch-size 32] [--int8] [--greedy] ...
+  ... --serve [--serve-chunk 64] [--serve-admit 8] [--serve-kv-int8]
+  ... --serve --serve-paged [--page-size 64] [--kv-pages N] [--serve-kv-int8]
 
-The decode loop itself is ``run_batches``, which takes already-encoded
-samples (``OmicsSampleEncoder.encode_test`` rows), so a caller without
-pandas can drive it. Weights are random from ``--seed`` unless
-``--checkpoint`` names a train-state directory of this package's own format
+Static batches (the default) wait for their longest row; ``--serve`` runs
+continuous batching (``inference.server``), where slots free at EOS and
+backfill from the queue, and ``--serve-paged`` puts its KV cache in pages
+(``inference.paged``). The loops themselves are ``run_batches`` and
+``run_serve``, which take already-encoded samples
+(``OmicsSampleEncoder.encode_test`` rows), so a caller without pandas can
+drive them. Weights are random from ``--seed`` unless ``--checkpoint`` names
+a train-state directory of this package's own format
 (``training.checkpoint``); ``--adapter`` grafts an exported ``.npz`` (LoRA +
-projectors) and merges it once at load. HF checkpoint import and the
-serving, offline-ring, API and lookup flags of the JAX CLI belong to later
-slices.
+projectors) and merges it once at load. HF checkpoint import, the offline
+ring, speculative decoding and the HTTP API are not ported: their flags
+parse and are refused with the ROADMAP.md entry that tracks them.
 """
 
 from __future__ import annotations
@@ -71,6 +77,47 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tiny", action="store_true",
                    help="tiny random model matching the train CLI's --tiny")
+    p.add_argument("--serve", action="store_true",
+                   help="continuous batching (inference.server): slots free "
+                        "at EOS and backfill from the queue instead of "
+                        "static batches that wait for the longest row; "
+                        "--batch-size sets the slot count")
+    p.add_argument("--serve-chunk", type=int, default=64,
+                   help="max decode steps per scheduler round under --serve "
+                        "(a chunk ends sooner once a backfill group's worth "
+                        "of slots finish)")
+    p.add_argument("--serve-admit", type=int, default=8,
+                   help="backfill group size under --serve (chunks exit "
+                        "early once this many slots sit finished while "
+                        "requests are queued)")
+    p.add_argument("--serve-paged", action="store_true",
+                   help="with --serve: paged KV (inference.paged) — the "
+                        "cache is a pool of fixed-size pages allocated "
+                        "per sequence on demand instead of a per-slot "
+                        "[max_length + cap] rectangle. Memory scales with "
+                        "tokens actually held; the pool may be "
+                        "oversubscribed (--kv-pages), preempting the "
+                        "youngest request when it runs dry")
+    p.add_argument("--page-size", type=int, default=64,
+                   help="tokens per KV page under --serve-paged")
+    p.add_argument("--kv-pages", type=int, default=None,
+                   help="per-layer page-pool size under --serve-paged; "
+                        "default fully provisions slots x (prompt + cap), "
+                        "lower it to oversubscribe device memory")
+    p.add_argument("--serve-kv-int8", action="store_true",
+                   help="int8 KV under --serve / --serve-paged (halves KV "
+                        "memory and bandwidth; ~1e-2 logit noise)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache in the batch engine (halves the "
+                        "[L,B,Nkv,S,2Dh] pool)")
+    # flags of the JAX CLI whose paths are not ported: parsed, then refused
+    p.add_argument("--decoding", default="engine",
+                   choices=["engine", "lookup"])
+    p.add_argument("--offline-ring", action="store_true")
+    p.add_argument("--ring-spec", type=int, default=0)
+    p.add_argument("--ring-spec-adapt", type=float, default=None)
+    p.add_argument("--serve-adapter", action="append", default=[])
+    p.add_argument("--api-serve", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only on "
                         "request)")
@@ -147,13 +194,48 @@ def _load_params(args, cfg, device):
     return params
 
 
+_UNPORTED = {
+    "offline_ring": ("--offline-ring", "queue 1 item 9 (inference/offline.py)"),
+    "ring_spec": ("--ring-spec", "queue 1 item 9 (inference/offline.py)"),
+    "ring_spec_adapt": ("--ring-spec-adapt",
+                        "queue 1 item 9 (inference/offline.py)"),
+    "api_serve": ("--api-serve", "queue 1 item 9 (inference/api_server.py)"),
+    "serve_adapter": ("--serve-adapter",
+                      "queue 1 item 9 (inference/api_server.py)"),
+}
+
+
+def refuse_unported(args) -> None:
+    """Stop on a flag whose path this package does not have yet."""
+    for dest, (flag, entry) in _UNPORTED.items():
+        if getattr(args, dest):
+            raise SystemExit(f"{flag} is not ported yet: ROADMAP.md, {entry}")
+    if args.decoding == "lookup":
+        raise SystemExit("--decoding lookup is not ported yet: ROADMAP.md, "
+                         "queue 1 item 9 (inference/speculative.py)")
+
+
+def _record(text_tok, gen, out_ids: np.ndarray, meta: Dict[str, Any]
+            ) -> Dict[str, Any]:
+    out_ids = out_ids[out_ids != gen.pad_token_id]
+    return {
+        "decoded_output": text_tok.decode(out_ids.tolist(),
+                                          skip_special_tokens=True),
+        "input": meta["raw_input"], "gt_output": meta["raw_output"],
+        "gt_label": meta["raw_label"], "task": meta["task"],
+        "kind": meta["kind"],
+    }
+
+
+_META_KEYS = ("raw_input", "raw_output", "raw_label", "task", "kind")
 
 
 def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
                 text_tok, out_fh, *, batch_size: int,
                 generator: Optional[torch.Generator] = None,
                 total: Optional[int] = None,
-                stats: Optional[Dict[str, float]] = None
+                stats: Optional[Dict[str, float]] = None,
+                kv_quant: Optional[str] = None
                 ) -> List[Dict[str, Any]]:
     """Collate encoded samples into batches, generate, and write one JSONL
     record per sample to ``out_fh``; returns the records. ``stats`` collects
@@ -168,20 +250,11 @@ def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
     def flush():
         batch = collate_test(buf)
         arrs = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        tokens = generate(params, cfg, arrs, gen, generator,
-                          stats).cpu().numpy()
+        tokens = generate(params, cfg, arrs, gen, generator, stats,
+                          kv_quant=kv_quant).cpu().numpy()
         for i in range(tokens.shape[0]):
-            out_ids = tokens[i]
-            out_ids = out_ids[out_ids != gen.pad_token_id]
-            rec = {
-                "decoded_output": text_tok.decode(out_ids.tolist(),
-                                                  skip_special_tokens=True),
-                "input": batch["raw_input"][i],
-                "gt_output": batch["raw_output"][i],
-                "gt_label": batch["raw_label"][i],
-                "task": batch["task"][i],
-                "kind": batch["kind"][i],
-            }
+            rec = _record(text_tok, gen, tokens[i],
+                          {k: batch[k][i] for k in _META_KEYS})
             out_fh.write(json.dumps(rec) + "\n")
             records.append(rec)
         buf.clear()
@@ -197,8 +270,78 @@ def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
     return records
 
 
+def run_serve(samples: Iterable[Dict[str, Any]], params, cfg, gen,
+              text_tok, out_fh, *, n_slots: int, max_length: int,
+              prefix_ids, paged: bool = False, page_size: int = 64,
+              kv_pages: Optional[int] = None, kv_int8: bool = False,
+              decode_chunk: int = 64, admit_batch: int = 8,
+              generator: Optional[torch.Generator] = None,
+              stats: Optional[Dict[str, Any]] = None
+              ) -> List[Dict[str, Any]]:
+    """Continuous batching over encoded samples: one Request per sample,
+    slots backfilled as generations finish; writes one JSONL record per
+    sample to ``out_fh`` in sample order and returns the records.
+
+    Every prompt starts with the dataset's fixed system prompt
+    (``prefix_ids``): the dense ring computes its KV once and copies it into
+    each slot, the paged engine stores its full pages once and shares them
+    across all slots' page tables (the sub-page remainder rides each
+    request's suffix). Buckets bound the per-request SUFFIX. ``stats``, when
+    given, receives the engine's counters, per-phase seconds (which
+    synchronizes the device at each phase) and whether every chosen token's
+    log-probability was finite (the engine then keeps them)."""
+    from ..data import collate_test
+    from .server import Request, ServingEngine
+
+    kv_quant = "int8" if kv_int8 else None
+    common = dict(n_slots=n_slots, decode_chunk=decode_chunk,
+                  admit_batch=admit_batch, kv_quant=kv_quant,
+                  prefix_ids=prefix_ids, generator=generator,
+                  time_phases=stats is not None, logprobs=stats is not None)
+    if paged:
+        from .paged import PagedServingEngine
+        P = page_size
+        s_share = (len(prefix_ids) // P) * P
+        bucket = -(-(max_length - s_share) // P) * P
+        eng = PagedServingEngine(params, cfg, gen, page_size=P,
+                                 n_pages=kv_pages, prefill_buckets=(bucket,),
+                                 **common)
+    else:
+        eng = ServingEngine(params, cfg, gen,
+                            max_len=max_length + gen.max_new_tokens,
+                            prefill_buckets=(max_length - len(prefix_ids),),
+                            **common)
+    meta = {}
+    arr_keys = ("input_ids", "attention_mask", "dna_rna_tokens",
+                "dna_rna_pos", "protein_tokens", "protein_pos")
+    for uid, sample in enumerate(samples):
+        row = collate_test([sample])
+        eng.submit(Request(uid=uid, batch={
+            k: row[k] for k in arr_keys if k in row}))
+        meta[uid] = {k: row[k][0] for k in _META_KEYS}
+    results = eng.run([])
+    records = []
+    for uid in sorted(results):
+        rec = _record(text_tok, gen, results[uid], meta[uid])
+        out_fh.write(json.dumps(rec) + "\n")
+        records.append(rec)
+    if stats is not None:
+        stats.update(eng.stats)
+        stats["tokens_out"] = int(sum(len(v) for v in results.values()))
+        stats["logprobs_finite"] = all(
+            bool(np.isfinite(eng.pop_logprobs(uid)).all())
+            for uid in results)
+        if paged:
+            stats["free_pages"] = len(eng._free_pages)
+            stats["n_pages"] = eng.n_pages
+            stats["n_shared_pages"] = eng._n_shared
+    print(f"[inference --serve] {len(results)}/{len(meta)} done", flush=True)
+    return records
+
+
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
+    refuse_unported(args)
 
     from ..data import (DataConfig, OmicsDataset,
                         default_modality_tokenizers, load_text_tokenizer)
@@ -234,10 +377,21 @@ def main(argv=None) -> None:
         pad_token_id=text_tok.pad_token_id or 0)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
+    samples = (ds[i] for i in range(len(ds)))
     with open(args.output_file, "a") as fh:
-        run_batches((ds[i] for i in range(len(ds))), params, cfg, gen,
-                    text_tok, fh, batch_size=args.batch_size,
-                    generator=generator, total=len(ds))
+        if args.serve:
+            run_serve(samples, params, cfg, gen, text_tok, fh,
+                      n_slots=args.batch_size, max_length=args.max_length,
+                      prefix_ids=ds.encoder.system_prompt_ids,
+                      paged=args.serve_paged, page_size=args.page_size,
+                      kv_pages=args.kv_pages, kv_int8=args.serve_kv_int8,
+                      decode_chunk=args.serve_chunk,
+                      admit_batch=args.serve_admit, generator=generator)
+        else:
+            run_batches(samples, params, cfg, gen, text_tok, fh,
+                        batch_size=args.batch_size, generator=generator,
+                        total=len(ds),
+                        kv_quant="int8" if args.kv_int8 else None)
     print(f"[inference] done in {time.perf_counter() - t0:.1f}s on {device}",
           flush=True)
 

@@ -59,6 +59,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     stats: Optional[Dict[str, float]] = None,
     lora_alpha: Optional[float] = None,
+    kv_quant: Optional[str] = None,
 ) -> torch.Tensor:
     """Returns new tokens only, [B, max_new_tokens], rows padded with
     pad_token_id after EOS. ``batch`` holds numpy arrays or tensors; they go
@@ -66,7 +67,9 @@ def generate(
     seconds per phase (``encode_s``, ``prefill_s``, ``decode_s``) and counts
     ``decode_steps``; it synchronizes the device between phases. An
     unmerged ``params["lora"]`` is merged first with ``lora_alpha`` (default
-    64)."""
+    64). ``kv_quant="int8"`` stores the KV cache as int8 with per-column
+    scales (half the cache bytes); prefill and decode then read it through
+    the plain attention path, as the JAX engine does."""
     lora = params.get("lora")
     if lora is not None:
         # fold adapters into the base weights (PEFT merge_and_unload).
@@ -90,7 +93,8 @@ def generate(
         clock.mark("encode_s")
     return _generate_from_embeds(
         params["text"], cfg.text, embeds,
-        _as_tensor(batch["attention_mask"], device), gen, generator, clock)
+        _as_tensor(batch["attention_mask"], device), gen, generator, clock,
+        kv_quant)
 
 
 @torch.inference_mode()
@@ -102,13 +106,14 @@ def _generate_from_embeds(
     gen: GenerationConfig,
     generator: Optional[torch.Generator] = None,
     clock: Optional[_Clock] = None,
+    kv_quant: Optional[str] = None,
 ) -> torch.Tensor:
     B, S, _ = embeds.shape
     T = gen.max_new_tokens
     total = S + T
     dev = embeds.device
 
-    cache = qwen3.init_cache(cfg, B, total, device=dev)
+    cache = qwen3.init_cache(cfg, B, total, device=dev, quant=kv_quant)
     full_mask = torch.zeros((B, total), dtype=torch.int32, device=dev)
     full_mask[:, :S] = attention_mask
 

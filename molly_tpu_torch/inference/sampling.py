@@ -99,3 +99,59 @@ def sample_tokens(
     if idx is None:
         return choice[:, 0]
     return torch.gather(idx, 1, choice)[:, 0]
+
+
+def filter_logits_rowwise(logits: torch.Tensor, samp: dict,
+                          presence: torch.Tensor, *, max_top_k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """The processors of ``sample_tokens_rowwise`` without the draw:
+    (greedy token [B], candidate logits, their vocab ids or None). With
+    ``max_top_k`` the candidates are [B, max_top_k] in descending order,
+    NEG_INF past each row's ``top_k`` and outside its nucleus; without, the
+    filtered full-vocab logits."""
+    logits = logits.to(torch.float32)
+    pen = samp["repetition_penalty"][:, None]
+    penalized = torch.where(logits > 0, logits / pen, logits * pen)
+    logits = torch.where(presence, penalized, logits)
+    greedy_tok = torch.argmax(logits, dim=-1)
+    logits = logits / samp["temperature"].clamp_min(1e-6)[:, None]
+    if max_top_k:
+        vals, idx = torch.topk(logits, max_top_k, dim=-1)  # [B, K] desc
+        pos = torch.arange(max_top_k, device=logits.device)[None, :]
+        vals = torch.where(pos < samp["top_k"][:, None], vals, NEG_INF)
+        probs = torch.softmax(vals, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        vals = torch.where((cum - probs) < samp["top_p"][:, None], vals,
+                           NEG_INF)
+        return greedy_tok, vals, idx
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < samp["top_p"][:, None]
+    thr = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1,
+                                                          keepdim=True)
+    return greedy_tok, torch.where(logits < thr, NEG_INF, logits), None
+
+
+def sample_tokens_rowwise(logits: torch.Tensor,
+                          generator: Optional[torch.Generator], samp: dict,
+                          presence: torch.Tensor, *, max_top_k: int
+                          ) -> torch.Tensor:
+    """Per-ROW sampling parameters for mixed-request serving, the
+    counterpart of ``molly_tpu.inference.sampling.sample_tokens_rowwise``.
+
+    ``samp`` carries [B] tensors — ``greedy`` (bool), ``temperature``,
+    ``top_k`` (1..max_top_k), ``top_p``, ``repetition_penalty`` — so one
+    decode step serves any parameter mix. Same processor order as
+    ``sample_tokens`` (penalty -> temperature -> top-k -> top-p) and one
+    categorical draw from ``generator`` for all rows. ``max_top_k`` is the
+    candidate width; 0 = no top-k path (full-vocab nucleus). Returns token
+    ids [B] (int64)."""
+    greedy_tok, vals, idx = filter_logits_rowwise(logits, samp, presence,
+                                                  max_top_k=max_top_k)
+    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
+                               generator=generator)
+    sampled = choice[:, 0] if idx is None else torch.gather(idx, 1,
+                                                            choice)[:, 0]
+    return torch.where(samp["greedy"], greedy_tok, sampled)

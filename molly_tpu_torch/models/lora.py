@@ -11,9 +11,9 @@ Effective weight is ``W + (alpha/r) * a @ b``; applied as the low-rank
 bypass ``y = x@W + scale * (drop(x) @ a) @ b`` (never materializes W + dW).
 The bypass products are plain ``torch.matmul``, as they are plain XLA there.
 
-Not ported yet (they belong to serving and MoE): the per-row adapter bank
-lookup (``lora_slots``) and the expert-stacked targets; the functions
-assert that they are absent.
+Multi-LoRA serving applies a stacked bank (``stack_adapters``) with a per-row
+adapter index (``lora_slots``). Not ported yet (they belong to MoE): the
+expert-stacked targets; the functions assert that they are absent.
 """
 
 from __future__ import annotations
@@ -82,8 +82,12 @@ def apply_lora(x: torch.Tensor, base_out: torch.Tensor,
                lora_slots=None) -> torch.Tensor:
     """base_out = x @ W already computed; adds the low-rank bypass. Dropout
     on the bypass input draws its keep mask from ``generator`` (on x's
-    device); no generator, no dropout."""
-    assert lora_slots is None, "multi-LoRA banks are not ported yet"
+    device); no generator, no dropout.
+
+    lora_slots: [B] per-ROW adapter index into a stacked bank (multi-LoRA
+    serving: ``lora_layer`` then holds ``a [N, d, r]``, ``b [N, r, o]``).
+    Every adapter's delta is computed for the whole batch and each row
+    selects its own, so no [B, d, r] gather materializes."""
     if lora_layer is None:
         return base_out
     if dropout_rate > 0.0 and generator is not None:
@@ -94,7 +98,13 @@ def apply_lora(x: torch.Tensor, base_out: torch.Tensor,
     a, b = lora_layer["a"], lora_layer["b"]
     if x.dtype != a.dtype:  # fp32 adapters on a bf16 stream promote, as in JAX
         x = x.to(torch.promote_types(x.dtype, a.dtype))
-    delta = (x @ a.to(x.dtype)) @ b.to(x.dtype)
+    if lora_slots is not None:
+        t = torch.einsum("bsd,ndr->nbsr", x, a.to(x.dtype))
+        delta_all = torch.einsum("nbsr,nro->nbso", t, b.to(x.dtype))
+        rows = torch.arange(x.shape[0], device=x.device)
+        delta = delta_all[lora_slots.long(), rows]
+    else:
+        delta = (x @ a.to(x.dtype)) @ b.to(x.dtype)
     return base_out + scale * delta.to(base_out.dtype)
 
 

@@ -13,7 +13,7 @@ here each layer writes its new rows into it in place. The training side
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import quant
 from ..ops.attention import dot_product_attention
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import PAGED_QUANT_MAX, paged_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import Qwen3Config
 from .lora import apply_lora, apply_lora_fused
@@ -76,13 +77,45 @@ def init_params(cfg: Qwen3Config, generator: torch.Generator,
 
 
 def init_cache(cfg: Qwen3Config, batch: int, max_len: int, device="cpu",
-               dtype=None) -> Dict[str, torch.Tensor]:
+               dtype=None, quant: Optional[str] = None
+               ) -> Dict[str, torch.Tensor]:
     """Dense KV cache: ONE head-major array [L, B, Nkv, Smax, 2*Dh] with
-    k ‖ v on the minor dim, in the model dtype."""
+    k ‖ v on the minor dim, in the model dtype.
+
+    quant="int8": K/V are stored as int8 with one symmetric scale per
+    (layer, row, head, column, k|v half) in ``kv_scale`` [..., Smax, 2].
+    The scales factor out of both attention products (the k scale multiplies
+    the logit column, the v scale folds into the softmax weights), so the
+    products read the int8 values directly (``ops.attention``)."""
     dt = dtype or torch_dtype(cfg.dtype)
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
              max_len, 2 * cfg.head_dim)
+    if quant == "int8":
+        return {"kv": torch.zeros(shape, dtype=torch.int8, device=device),
+                "kv_scale": torch.zeros(shape[:-1] + (2,),
+                                        dtype=torch.float32, device=device)}
+    assert quant is None, quant
     return {"kv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def quantize_kv(kv_new: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(row, head, column, k|v-half) int8 quantization of
+    fresh KV rows [..., S, 2*Dh] -> (int8 same shape, scales [..., S, 2])."""
+    lead, two_dh = kv_new.shape[:-1], kv_new.shape[-1]
+    halves = kv_new.float().reshape(lead + (2, two_dh // 2))
+    scale = halves.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q8 = torch.round(halves / scale[..., None]).clamp(-127, 127)
+    return q8.to(torch.int8).reshape(lead + (two_dh,)), scale
+
+
+def quantize_page_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the trailing (Dh) dim in the paged kernel's
+    convention: returns (int8 same shape, scales [..., 1] fp32) with
+    dequant = w * scale / 127.5."""
+    xf = x.float()
+    h = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    w = torch.round(xf * (PAGED_QUANT_MAX / h)).clamp(-127, 127)
+    return w.to(torch.int8), h
 
 
 def _unstack_layers(lp: Params, n_layers: int):
@@ -114,9 +147,11 @@ def _generator_for(seeds, device):
 
 
 def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
-                 lora_scale=1.0, lora_dropout=0.0, seeds=None):
+                 lora_scale=1.0, lora_dropout=0.0, seeds=None,
+                 lora_slots=None):
     """The part of a layer before attention: (q, k, v), q/k normed and
-    rotated."""
+    rotated. lora_slots: [B] per-row adapter index into a stacked bank
+    (multi-LoRA serving), or None."""
     B, S, H = hidden.shape
     Nq, Nkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
@@ -132,7 +167,8 @@ def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
             qkv = apply_lora_fused(
                 x, qkv, lora_layer,
                 (("q_proj", cfg.q_dim), ("k_proj", cfg.kv_dim),
-                 ("v_proj", cfg.kv_dim)), lora_scale, lora_dropout, gen_for)
+                 ("v_proj", cfg.kv_dim)), lora_scale, lora_dropout, gen_for,
+                lora_slots=lora_slots)
         qk = qkv[..., : cfg.q_dim + cfg.kv_dim].reshape(B, S, Nq + Nkv, Dh)
         v = qkv[..., cfg.q_dim + cfg.kv_dim:].reshape(B, S, Nkv, Dh)
         qk = rms_norm(qk, p["qk_norm"], cfg.rms_norm_eps)
@@ -142,7 +178,7 @@ def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
     def proj(name):
         ll = lora_layer.get(name) if lora_layer is not None else None
         return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
-                          lora_dropout, gen_for(name))
+                          lora_dropout, gen_for(name), lora_slots=lora_slots)
 
     q = proj("q_proj").reshape(B, S, Nq, Dh)
     kk = proj("k_proj").reshape(B, S, Nkv, Dh)
@@ -154,7 +190,8 @@ def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
 
 
 def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
-                lora_scale=1.0, lora_dropout=0.0, seeds=None):
+                lora_scale=1.0, lora_dropout=0.0, seeds=None,
+                lora_slots=None):
     """The part of a layer after attention: output projection, residual,
     MLP, residual."""
     B, S, H = hidden.shape
@@ -163,7 +200,7 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
     def proj(x, name):
         ll = lora_layer.get(name) if lora_layer is not None else None
         return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
-                          lora_dropout, gen_for(name))
+                          lora_dropout, gen_for(name), lora_slots=lora_slots)
 
     hidden = hidden + proj(attn.reshape(B, S, -1), "o_proj")
     x = rms_norm(hidden, p["post_attn_norm"], cfg.rms_norm_eps)
@@ -173,24 +210,97 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
             I = gu.shape[-1] // 2
             gu = apply_lora_fused(x, gu, lora_layer,
                                   (("gate_proj", I), ("up_proj", I)),
-                                  lora_scale, lora_dropout, gen_for)
+                                  lora_scale, lora_dropout, gen_for,
+                                  lora_slots=lora_slots)
         gate, up = gu.chunk(2, dim=-1)
     else:
         gate, up = proj(x, "gate_proj"), proj(x, "up_proj")
     return hidden + proj(F.silu(gate) * up, "down_proj")
 
 
+class PagedCache(NamedTuple):
+    """One layer's view of a paged KV pool (``ops.paged_attention``; the
+    pool and its allocator live in ``inference.paged``). All layers share
+    ONE page space: page p of layer li lives at pool row
+    ``li * pages_per_layer + p``, and the LAST pool row is a scratch page
+    that absorbs the writes of inactive slots. ``forward_hidden`` does the
+    index arithmetic once per step for all layers (``paged_layer_views``);
+    a layer only stores and attends."""
+    k_pages: torch.Tensor    # [Nkv, L * pages_per_layer + 1, P, Dh]
+    v_pages: torch.Tensor
+    table: torch.Tensor      # [B, pages_per_seq] int32, this layer's rows
+    lengths: torch.Tensor    # [B] int32: attend over positions [0, len)
+    write_page: torch.Tensor  # [B] pool row of this step's token
+    write_off: torch.Tensor   # [B] its offset in that page
+    # int8 pools: per-(head, page, offset) symmetric scales (|max| over the
+    # Dh row, dequant = w * scale / 127.5), stored once per row; None for
+    # pools in the model dtype
+    k_scales: Optional[torch.Tensor] = None  # [Nkv, rows, P] fp32
+    v_scales: Optional[torch.Tensor] = None
+
+
+def paged_layer_views(cache: Dict[str, torch.Tensor], n_layers: int,
+                      cache_index: torch.Tensor):
+    """Every layer's ``PagedCache`` for one decode step. cache_index [B] is
+    each slot's write POSITION (= tokens already held); < 0 marks an
+    inactive slot, whose row goes to the scratch page. The page table holds
+    layer-relative ids; no two active slots share a writable page (the
+    allocator's invariant), while several inactive slots all write the
+    scratch row, which nothing reads."""
+    kp, table = cache["k_pages"], cache["page_table"]
+    rows, P = kp.shape[1], kp.shape[2]
+    idx = cache_index.long()
+    live = idx >= 0
+    safe = idx.clamp(min=0)
+    page_of = table.gather(1, (safe // P)[:, None])[:, 0]
+    layer0 = (torch.arange(n_layers, device=kp.device, dtype=table.dtype)
+              * ((rows - 1) // n_layers))
+    write_pages = torch.where(live, layer0[:, None] + page_of,
+                              rows - 1).long()                  # [L, B]
+    write_off = torch.where(live, safe % P, 0)
+    tables = layer0[:, None, None] + table                      # [L, B, pps]
+    return [PagedCache(kp, cache["v_pages"], tables[li], cache["lengths"],
+                       write_pages[li], write_off, cache.get("k_scales"),
+                       cache.get("v_scales")) for li in range(n_layers)]
+
+
+def _paged_write_and_attend(cfg: Qwen3Config, q, kk, v, pc: PagedCache):
+    """Paged decode (S == 1): store this token's K/V row of every slot in
+    the slot's current page, in place, then attend over the slot's page
+    chain (length-masked, no per-column valid bits). The store is one
+    indexed write of a [Nkv, Dh] row per slot (the JAX package's
+    gather/select/scatter form is a layout workaround for its compiler)."""
+    assert q.shape[1] == 1, "paged KV is a decode-only path (S == 1)"
+    page, off = pc.write_page, pc.write_off
+    k_row = kk[:, 0].transpose(0, 1)  # [Nkv, B, Dh]
+    v_row = v[:, 0].transpose(0, 1)
+    if pc.k_scales is not None:  # int8 pool: quantize the fresh rows
+        k_row, k_sc = quantize_page_rows(k_row)
+        v_row, v_sc = quantize_page_rows(v_row)
+        pc.k_scales[:, page, off] = k_sc[..., 0]
+        pc.v_scales[:, page, off] = v_sc[..., 0]
+    pc.k_pages[:, page, off] = k_row.to(pc.k_pages.dtype)
+    pc.v_pages[:, page, off] = v_row.to(pc.v_pages.dtype)
+    return paged_attention(q[:, 0], pc.k_pages, pc.v_pages, pc.lengths,
+                           pc.table, scale=cfg.head_dim ** -0.5,
+                           k_scales=pc.k_scales,
+                           v_scales=pc.v_scales)[:, None]
+
+
 def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
-           cache_kv, cache_index: int, lora_layer=None, lora_scale=1.0,
-           lora_dropout=0.0, seeds=None, split_remat: bool = False):
-    """One decoder layer. cache_kv: None, or (kv [L, B, Nkv, Smax, 2*Dh],
-    layer index) — the layer's new rows are written into kv in place.
+           cache_kv, cache_index, lora_layer=None, lora_scale=1.0,
+           lora_dropout=0.0, seeds=None, lora_slots=None,
+           split_remat: bool = False):
+    """One decoder layer. cache_kv: None; or (kv [L, B, Nkv, Smax, 2*Dh],
+    kv_scale or None, layer index), the dense cache, whose new rows are
+    written in place at the scalar ``cache_index``; or a ``PagedCache``
+    (which carries its own write positions).
     seeds: LoRA target name -> dropout seed, or None for no dropout.
     split_remat: checkpoint the part before attention and the part after
     it, and leave the attention call outside (the ``attn`` / ``hot`` remat
     policies: the backward pass never re-runs flash attention)."""
     Dh = cfg.head_dim
-    lkw = (lora_layer, lora_scale, lora_dropout, seeds)
+    lkw = (lora_layer, lora_scale, lora_dropout, seeds, lora_slots)
     if split_remat:
         q, kk, v = checkpoint(_attn_inputs, cfg, hidden, p, cos, sin, *lkw,
                               use_reentrant=False)
@@ -200,17 +310,28 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     if cache_kv is None:
         attn = dot_product_attention(q, kk, v, mask=mask, causal=causal,
                                      scale=Dh ** -0.5)
+    elif isinstance(cache_kv, PagedCache):
+        attn = _paged_write_and_attend(cfg, q, kk, v, cache_kv)
     else:
         # write ONLY the new token rows (k ‖ v) at cache_index, in place of
         # JAX's dynamic_update_slice, then read this layer's window
+        if not isinstance(cache_index, int):
+            raise NotImplementedError(
+                "a per-row cache_index on the dense cache is not ported "
+                "(ROADMAP.md, queue 1 item 9: speculative decoding and the "
+                "offline ring); the serving ring writes one shared column")
         S = hidden.shape[1]
-        ckv, li = cache_kv
+        ckv, csc, li = cache_kv
         kv_new = torch.cat([kk.transpose(1, 2), v.transpose(1, 2)], dim=-1)
+        if csc is not None:  # int8 cache: quantize the fresh rows
+            kv_new, sc_new = quantize_kv(kv_new)
+            csc[li, :, :, cache_index:cache_index + S] = sc_new
         ckv[li, :, :, cache_index:cache_index + S] = kv_new.to(ckv.dtype)
         kv_l = ckv[li]
         attn = dot_product_attention(
             q, kv_l[..., :Dh], kv_l[..., Dh:], mask=mask, causal=causal,
-            scale=Dh ** -0.5, q_offset=cache_index, kv_layout="bnsd")
+            scale=Dh ** -0.5, q_offset=cache_index, kv_layout="bnsd",
+            kv_scales=csc[li] if csc is not None else None)
     if split_remat:
         return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
                           use_reentrant=False)
@@ -229,19 +350,25 @@ def forward_hidden(
     attention_mask: Optional[torch.Tensor] = None,  # [B, Skv] (S or Smax)
     positions: Optional[torch.Tensor] = None,      # [B, S] absolute positions
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_index: int = 0,
+    cache_index: Union[int, torch.Tensor] = 0,
     causal: bool = True,
     lora: Optional[Dict[str, Any]] = None,     # {"layers": {target: {a, b}}}
     lora_scale: float = 1.0,
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,  # LoRA dropout stream
+    lora_slots: Optional[torch.Tensor] = None,  # [B] adapter index per row
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the decoder stack; returns (final hidden states, cache).
 
     Without a cache this is a plain causal forward (training). With the
-    dense cache, the S new tokens are written at ``cache_index`` (in place)
-    and attention runs over the whole cache (prefill: S = prompt length,
-    index 0; decode: S = 1).
+    dense cache ``{kv[, kv_scale]}``, the S new tokens are written at the
+    scalar ``cache_index`` (in place) and attention runs over the whole
+    cache (prefill: S = prompt length, index 0; decode: S = 1). With the
+    paged cache ``{k_pages, v_pages, page_table, lengths[, k_scales,
+    v_scales]}`` (decode only, S = 1), ``cache_index`` is a [B] tensor of
+    write positions, < 0 for an inactive slot, and ``positions`` must be
+    given. ``lora`` may be a stacked multi-LoRA bank (``lora.stack_adapters``)
+    with ``lora_slots`` naming each row's adapter.
 
     Training memory: ``cfg.remat`` recomputes each layer in the backward
     pass with ``torch.utils.checkpoint`` where JAX uses ``jax.checkpoint``;
@@ -263,6 +390,8 @@ def forward_hidden(
                 torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1,
                 min=0)[:, :S]
         else:
+            assert isinstance(cache_index, int), (
+                "a per-row cache_index requires explicit positions")
             positions = (torch.arange(S, device=dev)[None, :]
                          + cache_index).expand(B, S)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
@@ -288,14 +417,24 @@ def forward_hidden(
     layer_params = _unstack_layers(params["layers"], L)
     lora_params = (_unstack_layers(lora_layers, L)
                    if lora_layers is not None else None)
+    # paged pool: every layer reads the same table and lengths (host-managed
+    # between dispatches) and writes its own rows of the shared pools
+    paged = (paged_layer_views(cache, L, cache_index)
+             if cache is not None and "k_pages" in cache else None)
     for li in range(L):
         p = layer_params[li]
         ll = lora_params[li] if lora_params is not None else None
         seeds = (dict(zip(lora_layers, all_seeds[li]))
                  if all_seeds is not None else None)
+        if cache is None:
+            cache_kv = None
+        elif paged is not None:
+            cache_kv = paged[li]
+        else:
+            cache_kv = (cache["kv"], cache.get("kv_scale"), li)
         args = (cfg, hidden, p, cos, sin, attention_mask, causal,
-                None if cache is None else (cache["kv"], li), cache_index,
-                ll, lora_scale, lora_dropout, seeds)
+                cache_kv, cache_index, ll, lora_scale, lora_dropout, seeds,
+                lora_slots)
         if remat and li >= n_skip:
             if cfg.remat_policy == "full":
                 hidden = checkpoint(_layer, *args, use_reentrant=False)

@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -27,25 +27,30 @@ def dot_product_attention(
     scale: Optional[float] = None,
     q_offset: Union[int, torch.Tensor] = 0,  # absolute position of q[0]
     kv_layout: str = "bsnd",  # or "bnsd" (head-major KV cache)
+    kv_scales: Optional[torch.Tensor] = None,  # int8 KV cache: [B,Nkv,Skv,2]
+    #   per-column symmetric scales (k half, v half); the k scale multiplies
+    #   the logit column, the v scale folds into the softmax weights
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA, padding mask, causal mask;
-    softmax in fp32 whatever the input dtype."""
-    if (q.shape[1] > 1 and isinstance(q_offset, int)
+    softmax in fp32 whatever the input dtype. Reads of an int8 cache
+    (``kv_scales``) take the plain path, as they are XLA-only there."""
+    if (q.shape[1] > 1 and isinstance(q_offset, int) and kv_scales is None
             and (mask is None or mask.ndim == 2)):
         if kv_layout == "bnsd":
             # views, not copies: the kernel reads the cache through strides
             k, v = k.transpose(1, 2), v.transpose(1, 2)
         return flash_attention(q, k, v, mask, causal, scale, q_offset)
     return plain_attention(q, k, v, mask=mask, causal=causal, scale=scale,
-                           q_offset=q_offset, kv_layout=kv_layout)
+                           q_offset=q_offset, kv_layout=kv_layout,
+                           kv_scales=kv_scales)
 
 
 def plain_attention(q, k, v, *, mask, causal, scale, q_offset=0,
-                    kv_layout="bsnd"):
-    """Port of ``molly_tpu.ops.attention._xla_attention`` (without the int8
-    KV-cache scales): grouped-query einsum that never repeats K/V, logits
-    and the P.V product accumulated in fp32 as ``preferred_element_type``
-    does there."""
+                    kv_layout="bsnd", kv_scales=None):
+    """Port of ``molly_tpu.ops.attention._xla_attention``: grouped-query
+    einsum that never repeats K/V, logits and the P.V product accumulated in
+    fp32 as ``preferred_element_type`` does there. With ``kv_scales`` k and v
+    are the int8 cache halves, converted to q's dtype for the products."""
     b, sq, nq, dh = q.shape
     if kv_layout == "bsnd":
         skv, nkv = k.shape[1], k.shape[2]
@@ -57,10 +62,16 @@ def plain_attention(q, k, v, *, mask, causal, scale, q_offset=0,
         scale = dh ** -0.5
     n_rep = nq // nkv
     qg = q.reshape(b, sq, nkv, n_rep, dh)
+    if kv_scales is not None:  # int8 KV cache (bnsd decode path only)
+        assert kv_layout == "bnsd", kv_layout
+        k, v = k.to(q.dtype), v.to(q.dtype)
 
     # [B, Nkv, G, Sq, Skv]
     logits = torch.einsum(f"bqngd,{k_sub}->bngqk", qg.float(), k.float())
     logits = logits * scale
+    if kv_scales is not None:
+        # per-column k scale multiplies its logit column
+        logits = logits * kv_scales[..., 0][:, :, None, None, :]
     neg = torch.finfo(torch.float32).min
     if mask is not None:
         if mask.ndim == 2:  # [B, Skv] padding mask
@@ -76,6 +87,9 @@ def plain_attention(q, k, v, *, mask, causal, scale, q_offset=0,
         logits = torch.where(causal_mask[:, None, None], logits, neg)
 
     probs = torch.softmax(logits, dim=-1)
+    if kv_scales is not None:
+        # per-column v scale folds into the softmax weights
+        probs = probs * kv_scales[..., 1][:, :, None, None, :]
     out = torch.einsum(f"bngqk,{k_sub}->bqngd",
                        probs.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, nq, dh).to(q.dtype)

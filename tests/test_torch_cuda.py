@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from molly_tpu_torch.ops import flash_attention as fa
+from molly_tpu_torch.ops import paged_attention as pa
 from molly_tpu_torch.ops import quant, rmsnorm_triton
 
 pytestmark = pytest.mark.cuda
@@ -286,3 +287,113 @@ def test_int8_autograd_function_gives_dx_only(dev):
     (dx,) = torch.autograd.grad((y * gr).sum(), (x,))
     ref = gr @ (q["w_q"].float() * q["scale"]).T
     assert (dx - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# ------------------------------------------------------------- paged decode
+
+
+def _paged_inputs(dev, dtype, quant, B, Nq, Nkv, Dh, P, lens, seed=7):
+    """q, shuffled page table, lengths and pools [Nkv, rows, P, Dh] (int8
+    with per-row scales when ``quant``) with more rows than the slots use."""
+    from molly_tpu_torch.models.qwen3 import quantize_page_rows
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pps = -(-max(max(lens), 1) // P)
+    rows = B * pps + 7
+    q = torch.randn((B, Nq, Dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((Nkv, rows, P, Dh), generator=g, device=dev)
+    v = torch.randn((Nkv, rows, P, Dh), generator=g, device=dev)
+    table = torch.randperm(rows - 1, generator=g, device=dev)[
+        :B * pps].reshape(B, pps).to(torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if quant:
+        k, ks = quantize_page_rows(k)
+        v, vs = quantize_page_rows(v)
+        scales = dict(k_scales=ks[..., 0].contiguous(),
+                      v_scales=vs[..., 0].contiguous())
+    else:
+        k, v, scales = k.to(dtype), v.to(dtype), {}
+    return q, k, v, lengths, table, scales
+
+
+_SERVING_LENS = (1, 3136, 63, 64, 65, 1000, 2047, 0, 129, 2500, 31, 777)
+
+
+@pytest.mark.parametrize("dtype,quant,B,Nq,Nkv,Dh,P,lens", [
+    (torch.bfloat16, False, 12, 16, 8, 128, 64, _SERVING_LENS),
+    (torch.bfloat16, True, 12, 16, 8, 128, 128, _SERVING_LENS),
+    (torch.float32, False, 5, 4, 4, 64, 16, (1, 17, 100, 0, 333)),
+    (torch.float32, True, 5, 4, 2, 64, 16, (1, 17, 100, 0, 333)),
+    (torch.float32, False, 4, 8, 2, 128, 16, (5, 170, 401, 16)),
+    (torch.bfloat16, True, 3, 8, 1, 64, 128, (5, 170, 400)),
+    (torch.float32, False, 3, 4, 2, 128, 4, (5, 170, 401)),
+])
+def test_paged_kernel_matches_plain(dev, dtype, quant, B, Nq, Nkv, Dh, P,
+                                    lens):
+    """bf16, fp32 and int8 pages, head dims 64 and 128, groups 1 to 8, page
+    sizes 4 to 128, lengths that end inside a page, a length-0 slot (a zero
+    row). fp32 1e-4; bf16 one rounding of the output."""
+    q, k, v, lengths, table, scales = _paged_inputs(dev, dtype, quant, B, Nq,
+                                                    Nkv, Dh, P, lens)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, k, v, lengths, table, **scales)
+    assert pa.paged_attention.launches == before + 1
+    ref = pa.paged_attention_plain(
+        q.float(), k if quant else k.float(), v if quant else v.float(),
+        lengths, table, **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref).abs().max().item() <= tol
+    empty = lengths == 0
+    assert (out[empty] == 0).all()
+
+
+def test_paged_kernel_never_reads_past_a_length(dev):
+    """Table entries past a slot's pages may name any row, and page rows
+    past its length may hold anything: the result does not change."""
+    q, k, v, lengths, table, _ = _paged_inputs(
+        dev, torch.float32, False, 3, 4, 2, 64, 16, (20, 1, 40))
+    base = pa.paged_attention(q, k, v, lengths, table)
+    table2 = table.clone()
+    table2[0, 2:] = 10 ** 6      # far outside the pool
+    table2[1, 1:] = -1
+    k2, v2 = k.clone(), v.clone()
+    k2[:, table[0, 1].long(), 4:] = float("nan")  # rows 20.. of slot 0
+    v2[:, table[0, 1].long(), 4:] = float("inf")
+    got = pa.paged_attention(q, k2, v2, lengths, table2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base)
+
+
+def test_paged_kernel_reads_strided_q(dev):
+    """q arrives as a slice of the fused q-k projection: rows strided."""
+    q, k, v, lengths, table, _ = _paged_inputs(
+        dev, torch.bfloat16, False, 4, 4, 2, 128, 16, (20, 1, 40, 64))
+    wide = torch.zeros((4, 6, 128), dtype=q.dtype, device=dev)
+    wide[:, :4] = q
+    view = wide[:, :4]
+    assert not view.is_contiguous()
+    assert torch.equal(pa.paged_attention(view, k, v, lengths, table),
+                       pa.paged_attention(q, k, v, lengths, table))
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v, lengths, table, sc = _paged_inputs(
+        dev, torch.float32, True, 2, 4, 2, 64, 16, (5, 9))
+    with pytest.raises(ValueError, match="scales"):
+        pa.paged_attention(q, k, v, lengths, table)  # int8 without scales
+    with pytest.raises(ValueError):  # head dim 32
+        pa.paged_attention(q[..., :32].contiguous(),
+                           k[..., :32].contiguous(),
+                           v[..., :32].contiguous(), lengths, table, **sc)
+    with pytest.raises(TypeError):  # bf16 q over fp32 pages
+        pa.paged_attention(q.bfloat16(), k.float(), v.float(), lengths,
+                           table)
+    with pytest.raises(ValueError):  # 3 q heads a kv head
+        pa.paged_attention(torch.zeros((2, 6, 64), device=dev), k.float(),
+                           v.float(), lengths, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(q, k.float().transpose(1, 2).contiguous()
+                           .transpose(1, 2)[:, :, :, :], v.float(), lengths,
+                           table)

@@ -249,6 +249,19 @@ recs = icli.run_batches(
                      pad_token_id=text_tok.pad_token_id or 0),
     text_tok, io.StringIO(), batch_size=2)
 assert len(recs) == 2
+# the serving entry point, dense ring and paged, on the same samples
+for paged in (False, True):
+    recs = icli.run_serve(
+        [enc.encode_test(r) for r in rows], params, cfg,
+        GenerationConfig(max_new_tokens=3, do_sample=False,
+                         eos_token_id=text_tok.eos_token_id,
+                         pad_token_id=text_tok.pad_token_id or 0),
+        text_tok, io.StringIO(), n_slots=2, max_length=192,
+        prefix_ids=enc.system_prompt_ids, paged=paged, page_size=32,
+        decode_chunk=2)
+    assert len(recs) == 2
+for mod in ("inference.server", "inference.paged", "ops.paged_attention"):
+    assert "molly_tpu_torch." + mod in sys.modules, mod
 tc = TrainConfig(total_steps=1)
 out = tcli.train_loop(init_train_state(params, tc), cfg, tc,
                       [enc.encode_train(r) for r in rows], batch_size=2,
@@ -262,8 +275,10 @@ print("imported", len(names) + 1, "modules")
 
 
 def test_port_imports_no_jax():
-    """Every molly_tpu_torch module and chip_smoke.py import, and the
-    --tiny batch loop and one --tiny train step run, with jax, optax, orbax
+    """Every molly_tpu_torch module (the serving engines and the paged
+    attention op among them) and chip_smoke.py import, and the --tiny batch
+    loop, the --tiny serving loops (dense ring and paged) and one --tiny
+    train step run, with jax, optax, orbax
     and the whole molly_tpu package blocked; none of them ends up in
     sys.modules. chip_smoke.py names no molly_tpu import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

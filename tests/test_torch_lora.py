@@ -183,10 +183,19 @@ def test_forward_hidden_with_lora_matches_jax():
 
 
 def test_unported_lora_options_are_refused():
-    x = torch.zeros((1, 2, 4))
-    ab = {"a": torch.zeros((4, 2)), "b": torch.zeros((2, 4))}
-    with pytest.raises(AssertionError, match="not ported"):
-        lora.apply_lora(x, x, ab, 1.0, lora_slots=torch.zeros(1))
+    # lora_slots is ported (multi-LoRA serving): each row of a stacked bank
+    # [N, d, r] / [N, r, o] gets its own adapter's delta
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 2, 4), generator=g)
+    bank = {"a": torch.randn((2, 4, 2), generator=g),
+            "b": torch.randn((2, 2, 4), generator=g)}
+    slots = torch.tensor([1, 0, 1])
+    got = lora.apply_lora(x, x, bank, 0.5, lora_slots=slots)
+    for row, n in enumerate(slots.tolist()):
+        one = {"a": bank["a"][n], "b": bank["b"][n]}
+        ref = lora.apply_lora(x[row:row + 1], x[row:row + 1], one, 0.5)
+        torch.testing.assert_close(got[row:row + 1], ref)
+    # expert-stacked targets are still refused
     with pytest.raises(AssertionError, match="not ported"):
         lora.init_lora(tiny_qwen3(num_experts=4), lora.LoraConfig(),
                        torch.Generator())
