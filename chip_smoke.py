@@ -9,8 +9,10 @@ Phases, each printed with its time; any failure exits non-zero:
      limit from nvidia-smi.
   2. build: compile every CUDA kernel in ``molly_tpu_torch/csrc`` with nvcc
      for sm_90a (all sources in parallel).
-  3. kernel parity: each of the eight kernels (the paged flash-decode
-     kernel counts twice: over bf16 pages and over int8 pages) against its
+  3. kernel parity: each of the ten kernels (the paged flash-decode
+     kernel counts twice: over bf16 pages and over int8 pages; the grouped
+     GEMM counts as the forward kernel, which also runs transposed and over
+     int8 experts, and the weight-gradient kernel tgmm) against its
      plain PyTorch version (run in fp32 from the same inputs) at the shapes
      the main paths give it, with the tolerances stated below; kernel and plain
      times by CUDA events, the time of the one PyTorch call that computes
@@ -19,7 +21,9 @@ Phases, each printed with its time; any failure exits non-zero:
      TB/s (each input read once, each output written once) and operations
      / peak rate (989 TFLOP/s for bf16 products, 67 TFLOP/s fp32
      otherwise), counting only the (query, key) pairs this run's masks
-     allow.
+     allow and only the weights of the experts this run's router chose. The
+     grouped GEMMs take their group sizes from a real ``router_topk`` with
+     one expert forced empty.
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
@@ -32,6 +36,10 @@ Phases, each printed with its time; any failure exits non-zero:
   6. small reference, training: the same model, one full fine-tune step and
      one LoRA step on the card against the CPU (loss and every trainable
      gradient), and five steps on one repeated batch must lower the loss.
+     Then the same three references with the decoder replaced by
+     ``tiny_moe`` (4 experts, top-2) at the same widths: logits and greedy
+     tokens (also over int8 experts), one paged serving run, one full
+     fine-tune step and one expert-LoRA step with the load-balance term.
   7. main path, generation, bf16: molly-1.7B width — qwen3-1.7b (vocab
      151,936, 28 layers) fused with nt-500m and esm2-650m, k = 1024 tokens
      and 4 slots per modality, max length 3072 — random weights from
@@ -58,11 +66,31 @@ Phases, each printed with its time; any failure exits non-zero:
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
      RMSNorm forward.
+ 13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
+     experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
+     untied head, 48 layers) fused with nt-500m and esm2-650m, after the
+     molly-1.7B weights are freed; the requests of phase 7 through
+     ``run_batches``, sampled, 32 new tokens.
+ 14. main path, MoE serving: the same weights through ``run_serve``, paged
+     bf16 pages of 64, 12 requests into 8 slots, 32 new tokens.
+ 15. main path, MoE generation, int8 experts: ``quantize_for_decode(
+     moe_experts=True, donate=True)`` (fused int8 gate-and-up stacks, the
+     bf16 stacks released leaf by leaf), greedy, 16 new tokens.
+ 16. main path, MoE training, full fine-tune: 3 steps of ``train_loop`` at
+     the train CLI's defaults at 4 of the 48 layers (router and expert
+     stacks train), with ``moe_load_balance`` printed.
+ 17. main path, MoE training, QLoRA with expert adapters (r 64) over int8
+     experts, 4 layers, 3 steps.
+     Each MoE phase prints its depth and peak device memory and must launch
+     the grouped GEMM (the training phases tgmm too).
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
 instead of 32, chunk 16 instead of 64, admission groups of 4 instead of 8
-and 32 new tokens instead of 3072; training runs 3 steps.
+and 32 new tokens instead of 3072; training runs 3 steps. The MoE phases
+keep every width of qwen3-30b-a3b; generation and serving run all 48
+layers, training 4 of the 48 (full fine-tune of 30.5 B parameters does not
+fit one card).
 The last two lines of standard output are the kernels JSON line and the
 device JSON line.
 """
@@ -99,6 +127,10 @@ PAGED_F32_ATOL = 1e-4   # fp32 pages: the kernel's fp32 sums run in another
 #                         order and its exp is the fast one
 SERVE_INT8_FLIPS = 3    # greedy tokens that may differ, card vs CPU, over
 #                         int8 pages (a quantization tie can flip an argmax)
+GG_BF16_REL = 1e-2      # grouped GEMMs with anything in bf16, of the plain
+#                         version's max-abs: operands (an fp32 dout is staged
+#                         as bf16) or the result rounded to bf16
+GG_F32_REL = 1e-4       # grouped GEMMs in fp32, of the max-abs: other sum order
 TRAIN_LOSS_ATOL = 1e-4  # fp32 small model, one step, card vs CPU
 TRAIN_GRAD_REL = 1e-3   # of each gradient's max-abs
 
@@ -114,10 +146,15 @@ REPLACES = {
     "int8_matmul": "molly_tpu/ops/quant.py:46",
     "paged_attention": "molly_tpu/ops/paged_attention.py:112",
     "paged_attention_int8": "molly_tpu/ops/paged_attention_int8.py:225",
+    # the launch site: the kernel bodies are megablox's (gmm, and tgmm
+    # through gmm's VJP), in jax.experimental.pallas.ops.tpu.megablox
+    "grouped_gemm": "molly_tpu/ops/moe.py:100",
+    "grouped_gemm_tgmm": "molly_tpu/ops/moe.py:100",
 }
 _FWD_CU = "molly_tpu_torch/csrc/flash_attention_fwd.cu"
 _BWD_CU = "molly_tpu_torch/csrc/flash_attention_bwd.cu"
 _PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
+_GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_CU),
     "flash_attention_dq": ("cuda", _BWD_CU),
@@ -127,6 +164,8 @@ SOURCES = {
     "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
     "paged_attention": ("cuda", _PAGED_CU),
     "paged_attention_int8": ("cuda", _PAGED_CU),
+    "grouped_gemm": ("cuda", _GG_CU),
+    "grouped_gemm_tgmm": ("cuda", _GG_CU),
 }
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "rmsnorm_fwd", "rmsnorm_bwd")
@@ -208,9 +247,22 @@ def eager_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def release():
+    """Return what is no longer referenced to the card: the serving engines
+    hold reference cycles, so their params live until a collection runs."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def counters():
-    from molly_tpu_torch.ops import flash_attention, quant, rmsnorm_triton
-    return {"flash_attention_fwd": flash_attention.flash_attention_fwd,
+    from molly_tpu_torch.ops import (flash_attention, grouped_gemm, quant,
+                                     rmsnorm_triton)
+    return {"grouped_gemm": grouped_gemm.grouped_gemm,
+            "grouped_gemm_tgmm": grouped_gemm.grouped_gemm_tgmm,
+            "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_dq": flash_attention.flash_attention_dq,
             "flash_attention_dkv": flash_attention.flash_attention_dkv,
             "rmsnorm_fwd": rmsnorm_triton.rms_norm,
@@ -262,7 +314,14 @@ def reset_counts():
     from molly_tpu_torch.ops.paged_attention import paged_attention
     for fn in counters().values():
         fn.launches = 0
+    counters()["grouped_gemm"].launches_int8 = 0
     paged_attention.launches = paged_attention.launches_int8 = 0
+
+
+def int8_grouped_launches() -> int:
+    """Grouped-GEMM launches over an int8 rhs since ``reset_counts`` (they
+    are part of ``grouped_gemm``'s count)."""
+    return counters()["grouped_gemm"].launches_int8
 
 
 def read_counts():
@@ -771,18 +830,209 @@ def parity_paged(g, results):
     ]
 
 
+
+
+def routed_group_sizes(g, tokens, hidden, experts, k, empty):
+    """Group sizes [experts] int32 as ``moe_mlp`` makes them: a real
+    ``router_topk`` over random activations and a random router, with
+    expert ``empty`` forced to receive nothing (its pairs go to the next
+    expert)."""
+    import torch
+
+    from molly_tpu_torch.ops.moe import router_topk
+    x = torch.randn((tokens, hidden), generator=g, device="cuda").to(
+        torch.bfloat16)
+    router = 0.02 * torch.randn((hidden, experts), generator=g, device="cuda")
+    flat = router_topk(x, router, k)[1].reshape(-1)
+    flat = torch.where(flat == empty, (empty + 1) % experts, flat)
+    counts = torch.zeros(experts, dtype=torch.int64, device="cuda")
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    return counts.to(torch.int32)
+
+
+def parity_grouped_gemm(g, results):
+    """The grouped-GEMM kernels (forward, transposed, int8, tgmm) against
+    their plain versions at qwen3-30b-a3b width: 128 experts, top-8, hidden
+    2048, per-expert width 768."""
+    import torch
+    import torch.nn.functional as F
+
+    from molly_tpu_torch.ops.grouped_gemm import (_bounds, grouped_gemm,
+                                                  grouped_gemm_plain,
+                                                  grouped_gemm_tgmm,
+                                                  grouped_gemm_tgmm_plain)
+    dev = "cuda"
+    E, TOPK, H = 128, 8, 2048
+    grouped_mm = getattr(F, "grouped_mm", None) or getattr(
+        torch, "_grouped_mm", None)
+
+    def library(name, fn):
+        """Time the one PyTorch call; None where it refuses the operands."""
+        if grouped_mm is None:
+            return None
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except Exception as exc:  # the yardstick's refusal, not the port's
+            log(f"  grouped {name}: the library call refused these "
+                f"operands ({type(exc).__name__}: {str(exc)[:120]})")
+            return None
+        return fn
+
+    def report(name, err, tol, ms, plain_ms, library_ms, bound_ms, bound_by,
+               extra):
+        log(f"  grouped {name}: max|err| {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {extra}")
+        if not err <= tol:
+            raise AssertionError(f"grouped {name}: parity miss")
+        return {"case": name, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def fwd_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
+                 rhs_dt=torch.bfloat16, out_dt=torch.float32,
+                 transpose_rhs=False, G=E, k=TOPK):
+        M = tokens * k
+        gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+        bounds = _bounds(gs, M)
+        active = sum(1 for a, b in bounds if b > a)
+        lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+        shape = (G, N, K) if transpose_rhs else (G, K, N)
+        scale = None
+        if rhs_dt == torch.int8:
+            rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8)
+            if not transpose_rhs:  # transposed: the caller scales dout
+                scale = (torch.rand((G, N), generator=g, device=dev) * 1e-3
+                         + 1e-4) * K ** -0.5
+        else:
+            rhs = torch.empty(shape, device=dev, dtype=rhs_dt)
+            for e in range(G):  # in slices: bounds the fp32 scratch
+                rhs[e] = (torch.randn(shape[1:], generator=g, device=dev)
+                          * K ** -0.5).to(rhs_dt)
+        kw = dict(transpose_rhs=transpose_rhs, scale=scale)
+        out = grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, **kw)
+        ref = grouped_gemm_plain(lhs, rhs, gs, bounds=bounds, **kw)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"grouped {name}: non-finite output")
+        err = (out.float() - ref).abs().max().item()
+        f32 = lhs_dt == out_dt == torch.float32 and rhs_dt != torch.bfloat16
+        tol = (GG_F32_REL if f32 else GG_BF16_REL) * ref.abs().max().item()
+        del ref
+        ms = time_ms(lambda: grouped_gemm(lhs, rhs, gs, out_dtype=out_dt,
+                                          **kw), iters)
+        plain_ms = time_ms(lambda: grouped_gemm_plain(
+            lhs, rhs, gs, bounds=bounds, **kw), max(1, iters // 4))
+        library_ms = None
+        if rhs_dt == torch.bfloat16:
+            offs = torch.cumsum(gs, 0).to(torch.int32)
+            a16 = lhs.to(torch.bfloat16)
+            b = rhs.transpose(1, 2) if transpose_rhs else rhs
+            call = library(name, lambda: grouped_mm(a16, b, offs=offs))
+            if call is not None:
+                library_ms = time_ms(call, iters)
+        # lhs once, only the ACTIVE groups' weights (and scales) once, the
+        # sizes, out once
+        w_bytes = active * K * N * rhs.element_size() + (
+            active * N * 4 if scale is not None else 0)
+        bound_ms, bound_by = bound(
+            nbytes(lhs, gs, out) + w_bytes, 2 * M * K * N,
+            "fp32" if f32 else "bf16")
+        return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
+                      bound_by, f"{M} rows over {active} of {G} groups, "
+                      f"largest {int(gs.max())}")
+
+    def tgmm_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
+                  dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK):
+        M = tokens * k
+        gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+        bounds = _bounds(gs, M)
+        lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+        dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
+        out = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+        again = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+        ref = grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32,
+                                      bounds=bounds)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        f32 = lhs_dt == dout_dt == out_dt == torch.float32
+        tol = (GG_F32_REL if f32 else GG_BF16_REL) * ref.abs().max().item()
+        del ref
+        if not torch.equal(out, again):
+            raise AssertionError(f"grouped {name}: two runs differ")
+        if bool(out[G // 2].any()):
+            raise AssertionError(f"grouped {name}: the empty group's "
+                                 f"gradient is not zero")
+        ms = time_ms(lambda: grouped_gemm_tgmm(lhs, dout, gs, out_dt), iters)
+        plain_ms = time_ms(lambda: grouped_gemm_tgmm_plain(
+            lhs, dout, gs, torch.float32, bounds=bounds), max(1, iters // 4))
+        library_ms = None
+        if not f32:
+            offs = torch.cumsum(gs, 0).to(torch.int32)
+            at, d16 = lhs.to(torch.bfloat16).t(), dout.to(torch.bfloat16)
+            call = library(name, lambda: grouped_mm(at, d16, offs=offs))
+            if call is not None:
+                library_ms = time_ms(call, iters)
+        bound_ms, bound_by = bound(nbytes(lhs, dout, gs, out), 2 * M * K * N,
+                                   "fp32" if f32 else "bf16")
+        return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
+                      bound_by, f"{M} rows, empty group exact zero, two "
+                      f"runs bit-equal")
+
+    i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
+    results["grouped_gemm"] = [
+        fwd_case("prefill_gate_bf16[98304,2048]x[128,2048,768]", 12288, 2048,
+                 768, 4),
+        fwd_case("prefill_down_bf16[98304,768]x[128,768,2048]", 12288, 768,
+                 2048, 4),
+        fwd_case("decode_gate_bf16[32,2048]x[128,2048,768]", 4, 2048, 768,
+                 20),
+        fwd_case("serving_gate_bf16[64,2048]x[128,2048,768]", 8, 2048, 768,
+                 20),
+        fwd_case("decode_gateup_int8[32,2048]x[128,2048,1536]", 4, 2048,
+                 1536, 20, rhs_dt=i8),
+        fwd_case("prefill_gateup_int8[98304,2048]x[128,2048,1536]", 12288,
+                 2048, 1536, 2, rhs_dt=i8),
+        fwd_case("train_dlhs_f32xbf16T[32768,768]x[128,2048,768]T->bf16",
+                 4096, 768, 2048, 4, lhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
+        fwd_case("qlora_dlhs_f32xint8T[32768,768]x[128,2048,768]T->bf16",
+                 4096, 768, 2048, 4, lhs_dt=f32, rhs_dt=i8, out_dt=b16,
+                 transpose_rhs=True),
+        fwd_case("lora_a_fp32[32768,2048]x[128,2048,64]", 4096, 2048, 64, 4,
+                 lhs_dt=f32, rhs_dt=f32),
+        fwd_case("small_fp32[300,64]x[4,64,128]", 150, 64, 128, 20,
+                 lhs_dt=f32, rhs_dt=f32, G=4, k=2),
+    ]
+    results["grouped_gemm_tgmm"] = [
+        tgmm_case("train_bf16xf32[2048,32768].[32768,768]->[128,2048,768]",
+                  4096, 2048, 768, 4),
+        tgmm_case("train_down_bf16xf32[768,32768].[32768,2048]", 4096, 768,
+                  2048, 4),
+        tgmm_case("lora_a_fp32[2048,32768].[32768,64]", 4096, 2048, 64, 4,
+                  lhs_dt=f32, out_dt=f32),
+        tgmm_case("small_fp32[64,300].[300,128]->[4,64,128]", 150, 64, 128,
+                  20, lhs_dt=f32, out_dt=f32, G=4, k=2),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # small reference and main path
 # ---------------------------------------------------------------------------
 
 
-def small_config():
-    """A small fp32 fusion model with head dims the kernels take."""
-    from molly_tpu_torch.models import FusionConfig, tiny_esm, tiny_qwen3
+def small_config(moe: bool = False):
+    """A small fp32 fusion model with head dims the kernels take; ``moe``:
+    its decoder is ``tiny_moe`` (4 experts, top-2) at the same widths."""
+    from molly_tpu_torch.models import (FusionConfig, tiny_esm, tiny_moe,
+                                        tiny_qwen3)
     return FusionConfig(
-        text=tiny_qwen3(vocab_size=384, hidden_size=256,
-                        intermediate_size=512, num_attention_heads=4,
-                        num_key_value_heads=2, head_dim=64),
+        text=(tiny_moe if moe else tiny_qwen3)(
+            vocab_size=384, hidden_size=256, intermediate_size=512,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=64),
         dna_rna=tiny_esm(vocab_size=4107, hidden_size=128,
                          intermediate_size=256, num_attention_heads=2,
                          mask_token_id=2, mlp_type="swiglu", mlp_bias=False),
@@ -791,16 +1041,18 @@ def small_config():
         dna_rna_k_tokens=16, protein_k_tokens=16)
 
 
-def small_reference(seed: int):
+def small_reference(seed: int, moe: bool = False):
     """The small model on the card (through the kernels) against the same
-    weights on the CPU (plain versions): logits and greedy tokens."""
+    weights on the CPU (plain versions): logits and greedy tokens, in the
+    model dtype and after ``quantize_for_decode`` (an MoE decoder's expert
+    stacks quantized and fused with it)."""
     import torch
 
     from molly_tpu_torch.inference.engine import generate
     from molly_tpu_torch.models import GenerationConfig, fusion, qwen3
     from molly_tpu_torch.utils.tree import tree_to
 
-    cfg = small_config()
+    cfg = small_config(moe)
     cpu = fusion.init_params(cfg, torch.Generator().manual_seed(seed))
     gpu = tree_to(cpu, "cuda")
     g = torch.Generator().manual_seed(seed + 1)
@@ -822,8 +1074,8 @@ def small_reference(seed: int):
             dev = "cpu" if name == "plain" else "cuda"
             b = {k: t.to(dev) for k, t in batch.items()}
             for tag, params in (("", p), ("_int8", {
-                    **p, "text": qwen3.quantize_for_decode(p["text"],
-                                                           cfg.text)})):
+                    **p, "text": qwen3.quantize_for_decode(
+                        p["text"], cfg.text, moe_experts=moe)})):
                 logits = fusion.forward_logits(params, cfg, b)
                 toks = generate(params, cfg, b, GenerationConfig(
                     max_new_tokens=8, do_sample=False, eos_token_id=-1))
@@ -837,7 +1089,8 @@ def small_reference(seed: int):
         valid = mask.bool()[:, :, None]
         err = ((lk - lp).abs() * valid).max().item()
         errs[tag or "_bf"] = err
-        log(f"  small reference{tag or ''}: max|dlogits| {err:.3e} "
+        log(f"  small{' MoE' if moe else ''} reference{tag or ''}: "
+            f"max|dlogits| {err:.3e} "
             f"(tol {SMALL_LOGIT_ATOL}); greedy tokens equal: "
             f"{bool(torch.equal(tk, tp))}")
         if err > SMALL_LOGIT_ATOL or not torch.equal(tk, tp):
@@ -846,8 +1099,9 @@ def small_reference(seed: int):
     return errs
 
 
-def small_reference_serving(seed: int):
-    """The small model through both serving engines on the card (through
+def small_reference_serving(seed: int, moe: bool = False):
+    """(``moe``: the MoE decoder through the paged engine over fp32 pages
+    only.) The small model through both serving engines on the card (through
     the kernels: flash prefill behind a shared prefix, RMSNorm, the paged
     kernel over fp32 and int8 pages) against the same engines on the CPU
     (plain versions): greedy tokens, the scheduler's counters, and every
@@ -860,7 +1114,7 @@ def small_reference_serving(seed: int):
     from molly_tpu_torch.models import GenerationConfig, fusion
     from molly_tpu_torch.utils.tree import tree_to
 
-    cfg = small_config()
+    cfg = small_config(moe)
     cpu = fusion.init_params(cfg, torch.Generator().manual_seed(seed))
     gpu = tree_to(cpu, "cuda")
     rng = np.random.default_rng(seed + 3)
@@ -895,6 +1149,8 @@ def small_reference_serving(seed: int):
         "paged, int8 pages": (PagedServingEngine,
                               dict(kv_quant="int8", **paged)),
     }
+    if moe:
+        engines = {"MoE, paged, fp32 pages": engines["paged, fp32 pages"]}
     for name, (cls, kw) in engines.items():
         runs = {}
         for where, params in (("cpu", cpu), ("card", gpu)):
@@ -922,11 +1178,13 @@ def small_reference_serving(seed: int):
                                      f"pages were not returned")
 
 
-def small_reference_training(seed: int):
+def small_reference_training(seed: int, moe: bool = False):
     """The small model's train step on the card (through the kernels)
     against the same step on the CPU (plain versions): loss and every
-    trainable gradient for a full fine-tune step and a LoRA step; then five
-    steps on one repeated batch at lr 1e-3 must lower the loss."""
+    trainable gradient for a full fine-tune step and a LoRA step (``moe``:
+    router and expert stacks among the leaves, adapters on the expert
+    stacks, and the load-balance term); then five steps on one repeated
+    batch at lr 1e-3 must lower the loss."""
     import torch
 
     from molly_tpu_torch.models import fusion
@@ -934,10 +1192,11 @@ def small_reference_training(seed: int):
     from molly_tpu_torch.training.trainer import (TrainConfig, attach_lora,
                                                   init_train_state,
                                                   make_grad_fn,
-                                                  make_train_step)
+                                                  make_train_step,
+                                                  trainable_paths)
     from molly_tpu_torch.utils.tree import tree_to
 
-    cfg = small_config()
+    cfg = small_config(moe)
     g = torch.Generator().manual_seed(seed + 2)
     B, S = 4, 96
     mask = torch.ones((B, S), dtype=torch.int32)
@@ -976,6 +1235,13 @@ def small_reference_training(seed: int):
         gc, mc = grad_fn(cpu, batch)
         gg, mg = grad_fn(gpu, gpu_batch)
         dloss = abs(float(mc["loss"]) - float(mg["loss"]))
+        if moe:
+            name = "MoE " + name
+            dloss = max(dloss, abs(float(mc["moe_load_balance"])
+                                   - float(mg["moe_load_balance"])))
+            paths = trainable_paths(gpu, tc)
+            if not any("expert_" in p for p in paths):
+                raise AssertionError(f"{name}: no expert leaf trains")
         worst = 0.0
         for a, b in zip(gc, gg):
             ref = a.abs().max().item()
@@ -1133,7 +1399,9 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
     hist = result["history"]
     for h in hist:
         ph = h["phases"]
-        log(f"  {label}: step {h['step']}: loss {h['loss']:.4f}, grad norm "
+        lb = (f"moe_load_balance {h['moe_load_balance']:.4f}, "
+              if "moe_load_balance" in h else "")
+        log(f"  {label}: step {h['step']}: loss {h['loss']:.4f}, {lb}grad norm "
             f"{h['grad_norm']:.4f}, {h['seconds']:.3f} s (device: forward "
             f"{ph['forward_s']:.3f}, backward {ph['backward_s']:.3f}, "
             f"optimizer {ph['optimizer_s']:.3f}), skipped {h['skipped']}")
@@ -1244,7 +1512,7 @@ def drive_main_paths(seed: int, profile_dir=None):
             if counts[name] != 0:
                 raise AssertionError(f"{label} main path launched {name}")
         add(counts)
-        torch.cuda.empty_cache()
+        release()
 
     run_serve_path(
         "serving, paged bf16 pages of 64, sampled", serve_samples,
@@ -1312,7 +1580,160 @@ def drive_main_paths(seed: int, profile_dir=None):
              ("flash_attention_fwd", "rmsnorm_fwd", "int8_matmul"))
     log(f"  peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params  # the 30B-A3B weights need the room
+    release()
+    drive_moe_paths(seed, launches, dict(
+        text_tok=text_tok, enc=enc, train_enc=train_enc, requests=requests,
+        samples=samples, serve_samples=serve_samples,
+        train_samples=train_samples, common=common))
     return launches
+
+
+# depth of the MoE phases (the preset has 48 layers; only depth is ever cut)
+MOE_LAYERS = 48        # generation and serving, bf16
+MOE_INT8_LAYERS = 48   # generation over int8 experts
+MOE_TRAIN_LAYERS = 4   # full fine-tune and QLoRA
+
+
+def drive_moe_paths(seed: int, launches, inp):
+    """Phases 13-17: the Qwen3-MoE decoder at qwen3-30b-a3b width (hidden
+    2048, 128 experts of width 768, top-8, 32 q heads over 4 kv heads, vocab
+    151,936, untied head) fused with nt-500m and esm2-650m, through the
+    same entry points and requests as the molly-1.7B phases. ``launches``
+    gains each run's counts."""
+    import dataclasses
+
+    import torch
+
+    from molly_tpu_torch.models import (ESM_PRESETS, QWEN3_PRESETS,
+                                        FusionConfig, GenerationConfig,
+                                        fusion, qwen3)
+    from molly_tpu_torch.models.lora import LoraConfig
+    from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
+    from molly_tpu_torch.utils.tree import leaves
+
+    text_tok, enc, common = inp["text_tok"], inp["enc"], inp["common"]
+    preset = QWEN3_PRESETS["qwen3-30b-a3b"]
+
+    def config(layers, k_tokens):
+        return FusionConfig(
+            text=dataclasses.replace(preset, num_hidden_layers=layers),
+            dna_rna=ESM_PRESETS["nt-500m"], protein=ESM_PRESETS["esm2-650m"],
+            dna_rna_k_tokens=k_tokens, protein_k_tokens=k_tokens)
+
+    def init(cfg, what):
+        release()
+        with Phase(f"init qwen3-30b-a3b-width params, "
+                   f"{cfg.text.num_hidden_layers} of {preset.num_hidden_layers}"
+                   f" layers ({what})"):
+            params = fusion.init_params(
+                cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+        n = sum(t.numel() for t in leaves(params))
+        log(f"  {n / 1e9:.3f} B params, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        return params
+
+    def check(label, counts, needed, depth):
+        for name in needed:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label} never launched {name}")
+        for name, n in counts.items():
+            launches[name] += n
+        log(f"  {label}: depth {depth} of {preset.num_hidden_layers} layers, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"grouped_gemm launches {counts['grouped_gemm']} "
+            f"({int8_grouped_launches()} over int8 experts), tgmm "
+            f"{counts['grouped_gemm_tgmm']}")
+
+    gen_kernels = ("grouped_gemm", "flash_attention_fwd", "rmsnorm_fwd")
+    cfg = config(MOE_LAYERS, 1024)
+    params = init(cfg, "generation and serving")
+
+    label = "MoE generation, bf16 sampled"
+    with Phase(f"main path {label}, 32 new tokens, {MOE_LAYERS} layers"):
+        torch.cuda.reset_peak_memory_stats()
+        counts = main_path(
+            params, cfg, inp["samples"], text_tok,
+            GenerationConfig(max_new_tokens=32, do_sample=True, **common),
+            seed, label)
+        check(label, counts, gen_kernels, MOE_LAYERS)
+
+    label = "MoE serving, paged bf16 pages of 64, sampled"
+    with Phase(f"main path {label}, {len(inp['serve_samples'])} requests, "
+               f"32 new tokens, {MOE_LAYERS} layers"):
+        counts = serve_main_path(
+            params, cfg, inp["serve_samples"], text_tok,
+            GenerationConfig(max_new_tokens=32, do_sample=True, **common),
+            seed, label, enc.system_prompt_ids, n_slots=8, paged=True,
+            page_size=64)
+        check(label, counts, gen_kernels + ("paged_attention",), MOE_LAYERS)
+    release()
+
+    if MOE_INT8_LAYERS != MOE_LAYERS:
+        del params
+        cfg = config(MOE_INT8_LAYERS, 1024)
+        params = init(cfg, "generation over int8 experts")
+    with Phase("quantize_for_decode(moe_experts=True), the bf16 stacks "
+               "released leaf by leaf"), torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        params["text"] = qwen3.quantize_for_decode(
+            params["text"], cfg.text, moe_experts=True, donate=True)
+        release()
+        log(f"  int8 tree {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+            f"peak while quantizing "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    label = "MoE generation, int8 experts, greedy"
+    with Phase(f"main path {label}, 16 new tokens, {MOE_INT8_LAYERS} layers"):
+        torch.cuda.reset_peak_memory_stats()
+        counts = main_path(
+            params, cfg, inp["samples"], text_tok,
+            GenerationConfig(max_new_tokens=16, do_sample=False, **common),
+            seed, label)
+        check(label, counts, gen_kernels + ("int8_matmul",), MOE_INT8_LAYERS)
+        if int8_grouped_launches() != counts["grouped_gemm"]:
+            raise AssertionError(f"{label}: a grouped GEMM ran over "
+                                 f"unquantized experts")
+    del params
+    release()
+
+    # training: the train CLI's defaults (batch 4, max length 1024, k = 128)
+    train_cfg = config(MOE_TRAIN_LAYERS, 128)
+    train_kernels = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_tgmm")
+    params = init(train_cfg, "training")
+    label = "MoE full fine-tune"
+    with Phase(f"main path training, {label}, 3 steps, {MOE_TRAIN_LAYERS} "
+               f"layers"):
+        counts, state = train_main_path(
+            params, train_cfg, inp["train_samples"],
+            TrainConfig(total_steps=3), label, seed, train_kernels)
+        check(label, counts, train_kernels, MOE_TRAIN_LAYERS)
+    del state
+    release()
+
+    lora_cfg = LoraConfig(r=64, alpha=64.0, dropout=0.05)
+    label = "MoE QLoRA, expert adapters"
+    with Phase(f"main path training, {label}, 3 steps, {MOE_TRAIN_LAYERS} "
+               f"layers"):
+        qparams = attach_lora(params, train_cfg, lora_cfg,
+                              torch.Generator("cuda").manual_seed(seed + 1))
+        if "expert_down" not in qparams["lora"]["layers"]:
+            raise AssertionError(f"{label}: no adapter on the expert stacks")
+        with torch.no_grad():
+            qparams["text"] = qwen3.quantize_for_training(
+                qparams["text"], train_cfg.text)
+        del params
+        release()
+        counts, state = train_main_path(
+            qparams, train_cfg, inp["train_samples"],
+            TrainConfig(total_steps=3, lora=lora_cfg), label, seed,
+            train_kernels + ("int8_matmul",))
+        check(label, counts, train_kernels + ("int8_matmul",),
+              MOE_TRAIN_LAYERS)
+        if int8_grouped_launches() <= 0:
+            raise AssertionError(f"{label}: no grouped GEMM over int8 experts")
+    del state, qparams
+    release()
 
 
 def run(args) -> int:
@@ -1350,12 +1771,18 @@ def run(args) -> int:
         parity_int8(g, parity)
     with Phase("parity paged_attention, paged_attention_int8"):
         parity_paged(g, parity)
+    with Phase("parity grouped_gemm, grouped_gemm_tgmm"):
+        parity_grouped_gemm(g, parity)
     with Phase("small reference, generation"):
         small_reference(args.seed)
     with Phase("small reference, serving"):
         small_reference_serving(args.seed)
     with Phase("small reference, training"):
         small_reference_training(args.seed)
+    with Phase("small MoE reference, generation, serving, training"):
+        small_reference(args.seed, moe=True)
+        small_reference_serving(args.seed, moe=True)
+        small_reference_training(args.seed, moe=True)
 
     launches = drive_main_paths(args.seed, args.profile_dir)
 

@@ -73,6 +73,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--int8", action="store_true",
                    help="int8 weight-only decode of the text model")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="make the text decoder a sparse MoE with this many "
+                        "experts (matches the train CLI flag; needed to "
+                        "load a checkpoint trained with --moe-experts)")
+    p.add_argument("--moe-topk", type=int, default=2,
+                   help="experts per token under --moe-experts")
     p.add_argument("--read-nums", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tiny", action="store_true",
@@ -130,7 +136,7 @@ def build_config(args, text_tok, dna_tok, prot_tok):
     from ..models.configs import (ESM_PRESETS, QWEN3_PRESETS, FusionConfig,
                                   tiny_esm, tiny_qwen3)
     if args.tiny:
-        return FusionConfig(
+        cfg = FusionConfig(
             text=tiny_qwen3(vocab_size=-(-text_tok.vocab_size // 128) * 128,
                             dtype="float32"),
             dna_rna=tiny_esm(vocab_size=dna_tok.vocab_size, mask_token_id=2,
@@ -140,19 +146,25 @@ def build_config(args, text_tok, dna_tok, prot_tok):
                              dtype="float32"),
             dna_rna_k_tokens=args.dna_rna_k_tokens,
             protein_k_tokens=args.protein_k_tokens)
-    text_cfg = QWEN3_PRESETS[args.preset]
-    if text_tok.vocab_size > text_cfg.vocab_size or \
-            args.text_model_path is None:
-        # byte-fallback tokenizer / demo mode: size the embedding to the
-        # tokenizer (rounded to a multiple of 128)
-        text_cfg = dataclasses.replace(
-            text_cfg, vocab_size=-(-text_tok.vocab_size // 128) * 128)
-    return FusionConfig(
-        text=text_cfg,
-        dna_rna=ESM_PRESETS[args.dna_rna_preset],
-        protein=ESM_PRESETS[args.protein_preset],
-        dna_rna_k_tokens=args.dna_rna_k_tokens,
-        protein_k_tokens=args.protein_k_tokens)
+    else:
+        text_cfg = QWEN3_PRESETS[args.preset]
+        if text_tok.vocab_size > text_cfg.vocab_size or \
+                args.text_model_path is None:
+            # byte-fallback tokenizer / demo mode: size the embedding to the
+            # tokenizer (rounded to a multiple of 128)
+            text_cfg = dataclasses.replace(
+                text_cfg, vocab_size=-(-text_tok.vocab_size // 128) * 128)
+        cfg = FusionConfig(
+            text=text_cfg,
+            dna_rna=ESM_PRESETS[args.dna_rna_preset],
+            protein=ESM_PRESETS[args.protein_preset],
+            dna_rna_k_tokens=args.dna_rna_k_tokens,
+            protein_k_tokens=args.protein_k_tokens)
+    if args.moe_experts:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, num_experts=args.moe_experts,
+            num_experts_per_tok=args.moe_topk))
+    return cfg
 
 
 def _load_params(args, cfg, device):
@@ -366,7 +378,11 @@ def main(argv=None) -> None:
 
     params = _load_params(args, cfg, device)
     if args.int8:
-        params["text"] = qwen3.quantize_for_decode(params["text"], cfg.text)
+        # the expert stacks of an MoE decoder are quantized too, and the
+        # bf16 ones released as their int8 replacements are built
+        params["text"] = qwen3.quantize_for_decode(
+            params["text"], cfg.text,
+            moe_experts=bool(cfg.text.num_experts), donate=True)
     from ..models.configs import GenerationConfig
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens,

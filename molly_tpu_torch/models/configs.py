@@ -36,7 +36,10 @@ class Qwen3Config:
     context_parallel: bool = False
     context_parallel_prepermuted: bool = False
     context_parallel_zigzag: bool = False
-    # mixture of experts (0 = dense); the MoE slice is not ported yet
+    # mixture of experts (Qwen3-MoE family; 0 = dense). num_experts > 0
+    # replaces the dense SwiGLU MLP of every layer with a dropless top-k
+    # sparse FFN (ops.moe); intermediate_size is then the PER-EXPERT width.
+    # expert_parallel belongs to the multi-device slice and is refused.
     num_experts: int = 0
     num_experts_per_tok: int = 8
     norm_topk_prob: bool = True
@@ -157,6 +160,13 @@ def tiny_qwen3(**kw) -> Qwen3Config:
                 num_key_value_heads=2, head_dim=16, dtype="float32")
     base.update(kw)
     return Qwen3Config(**base)
+
+
+def tiny_moe(**kw) -> Qwen3Config:
+    """Small MoE config for tests/smoke runs (4 experts, top-2)."""
+    base = dict(num_experts=4, num_experts_per_tok=2)
+    base.update(kw)
+    return tiny_qwen3(**base)
 
 
 def tiny_esm(**kw) -> EsmConfig:

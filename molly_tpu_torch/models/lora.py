@@ -12,8 +12,12 @@ bypass ``y = x@W + scale * (drop(x) @ a) @ b`` (never materializes W + dW).
 The bypass products are plain ``torch.matmul``, as they are plain XLA there.
 
 Multi-LoRA serving applies a stacked bank (``stack_adapters``) with a per-row
-adapter index (``lora_slots``). Not ported yet (they belong to MoE): the
-expert-stacked targets; the functions assert that they are absent.
+adapter index (``lora_slots``); a bank holds dense targets only.
+
+MoE expert stacks take adapters stacked per expert (``a`` [L, E, d_in, r],
+``b`` [L, E, r, d_out]), applied as grouped low-rank bypasses inside the
+sparse dispatch (``ops.moe``): on an MoE config the MLP targets map onto
+``expert_gate`` / ``expert_up`` / ``expert_down``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from .configs import Qwen3Config
 
 LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                 "gate_proj", "up_proj", "down_proj")
+EXPERT_TARGETS = ("expert_gate", "expert_up", "expert_down")
 
 
 @dataclass(frozen=True)
@@ -51,6 +56,9 @@ def target_dims(cfg: Qwen3Config) -> Dict[str, tuple]:
         "gate_proj": (H, I),
         "up_proj": (H, I),
         "down_proj": (I, H),
+        "expert_gate": (H, I),
+        "expert_up": (H, I),
+        "expert_down": (I, H),
     }
 
 
@@ -59,18 +67,28 @@ def init_lora(cfg: Qwen3Config, lora_cfg: LoraConfig,
               device="cpu") -> Dict[str, Any]:
     """Gaussian A (std 1/r, PEFT's init_lora_weights='gaussian'), zero B.
     ``generator`` must live on ``device``."""
-    assert not cfg.num_experts, "expert LoRA targets are not ported yet"
     dims = target_dims(cfg)
+    targets = lora_cfg.targets
+    if cfg.num_experts:
+        # MoE layers have no dense gate/up/down Linears; the MLP targets
+        # map onto the per-expert stacks instead (all-Linear discovery)
+        targets = tuple(t for t in targets
+                        if t in ("q_proj", "k_proj", "v_proj", "o_proj"))
+        targets += tuple(t for t in EXPERT_TARGETS
+                         if t in lora_cfg.targets
+                         or t.replace("expert_", "") + "_proj"
+                         in lora_cfg.targets)
     L, r = cfg.num_hidden_layers, lora_cfg.r
     layers = {}
-    for name in lora_cfg.targets:
-        assert name in dims, f"unknown or unported LoRA target {name!r}"
+    for name in targets:
+        assert name in dims, f"unknown LoRA target {name!r}"
         d_in, d_out = dims[name]
-        a = torch.randn((L, d_in, r), generator=generator,
+        lead = (L, cfg.num_experts) if name in EXPERT_TARGETS else (L,)
+        a = torch.randn((*lead, d_in, r), generator=generator,
                         dtype=torch.float32, device=device)
         layers[name] = {
             "a": (a / r).to(dtype),
-            "b": torch.zeros((L, r, d_out), dtype=dtype, device=device),
+            "b": torch.zeros((*lead, r, d_out), dtype=dtype, device=device),
         }
     return {"layers": layers}
 
@@ -173,8 +191,9 @@ def merge_lora(params: Dict[str, Any], lora: Dict[str, Any],
     out = dict(params)
     new_layers = dict(out["layers"])
     for name, ab in lora["layers"].items():
-        assert ab["a"].ndim == 3, "expert LoRA targets are not ported yet"
-        delta = torch.einsum("lir,lro->lio", ab["a"].float(),
+        eq = ("leir,lero->leio" if ab["a"].ndim == 4  # expert stacks
+              else "lir,lro->lio")
+        delta = torch.einsum(eq, ab["a"].float(),
                              ab["b"].float()) * lora_cfg.scale
         base = new_layers[name]
         if isinstance(base, dict) and "w_q" in base:

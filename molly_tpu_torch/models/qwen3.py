@@ -1,5 +1,5 @@
-"""Qwen3 dense decoder in PyTorch, the counterpart of
-``molly_tpu/models/qwen3.py``.
+"""Qwen3 decoder (dense, and the Qwen3-MoE family) in PyTorch, the
+counterpart of ``molly_tpu/models/qwen3.py``.
 
 Params keep the JAX layout so the converter (``models.convert``) is a plain
 tree map: every layer weight is STACKED on a leading [L, ...] axis, linear
@@ -9,6 +9,12 @@ cache is the same single head-major array [L, B, Nkv, Smax, 2*Dh] (k ‖ v
 on the minor dim); where JAX threads it functionally through the scan,
 here each layer writes its new rows into it in place. The training side
 (LoRA bypasses, remat, the int8 QLoRA base) rides the same ``_layer``.
+
+With ``cfg.num_experts > 0`` every layer's MLP is the dropless top-k sparse
+FFN of ``ops.moe`` over expert stacks ``expert_gate`` / ``expert_up``
+[L, E, H, I] and ``expert_down`` [L, E, I, H] behind an fp32 ``router``
+[L, H, E]; the no-cache forward hands the router's aux losses back in its
+second slot.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import quant
+from ..ops import moe, quant
 from ..ops.attention import dot_product_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import PAGED_QUANT_MAX, paged_attention
@@ -40,8 +46,6 @@ def init_params(cfg: Qwen3Config, generator: torch.Generator,
                 device="cpu") -> Params:
     """Random init, normal(0.02) like HF, drawn from ``generator`` (which
     must live on ``device``). Real runs convert a checkpoint instead."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE decoders are not ported yet")
     dt = torch_dtype(cfg.dtype)
     H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     Dq, Dkv, Dh = cfg.q_dim, cfg.kv_dim, cfg.head_dim
@@ -54,6 +58,15 @@ def init_params(cfg: Qwen3Config, generator: torch.Generator,
                         device=device)
         return w.mul_(0.02).to(dt)
 
+    def lin_stack(*shape):
+        # an expert stack is drawn layer by layer into its preallocated
+        # leaf: the fp32 draw of a whole [48, 128, 2048, 768] leaf would be
+        # 38.7 GB beside its 19.3 GB bf16 copy
+        out = torch.empty(shape, dtype=dt, device=device)
+        for li in range(shape[0]):
+            out[li] = lin(*shape[1:])
+        return out
+
     params: Params = {
         "embed": lin(cfg.vocab_size, H),
         "layers": {
@@ -65,12 +78,22 @@ def init_params(cfg: Qwen3Config, generator: torch.Generator,
             "o_proj": lin(L, Dq, H),
             "q_norm": norm(L, Dh),
             "k_norm": norm(L, Dh),
-            "gate_proj": lin(L, H, I),
-            "up_proj": lin(L, H, I),
-            "down_proj": lin(L, I, H),
         },
         "final_norm": norm(H),
     }
+    lp = params["layers"]
+    if cfg.num_experts:
+        E = cfg.num_experts
+        # router in fp32 (tiny; top-k is precision-sensitive), experts
+        # stacked [L, E, H, I]
+        lp["router"] = lin(L, H, E).to(torch.float32)
+        lp["expert_gate"] = lin_stack(L, E, H, I)
+        lp["expert_up"] = lin_stack(L, E, H, I)
+        lp["expert_down"] = lin_stack(L, E, I, H)
+    else:
+        lp["gate_proj"] = lin(L, H, I)
+        lp["up_proj"] = lin(L, H, I)
+        lp["down_proj"] = lin(L, I, H)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = lin(H, cfg.vocab_size)
     return params
@@ -189,11 +212,16 @@ def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
     return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), v
 
 
+EXPERT_STACKS = ("expert_gate", "expert_up", "expert_down")
+
+
 def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
                 lora_scale=1.0, lora_dropout=0.0, seeds=None,
-                lora_slots=None):
+                lora_slots=None, with_aux: bool = False):
     """The part of a layer after attention: output projection, residual,
-    MLP, residual."""
+    MLP (dense or sparse), residual. Returns (hidden, aux): aux is the
+    [load_balance, router_z] pair of a sparse layer when ``with_aux`` asks
+    for it (the no-cache forward), else None."""
     B, S, H = hidden.shape
     gen_for = _generator_for(seeds, hidden.device)
 
@@ -204,6 +232,29 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
 
     hidden = hidden + proj(attn.reshape(B, S, -1), "o_proj")
     x = rms_norm(hidden, p["post_attn_norm"], cfg.rms_norm_eps)
+    if "router" in p:  # sparse MoE FFN (dropless top-k, ops.moe)
+        if cfg.expert_parallel:
+            raise NotImplementedError(
+                "expert_parallel (moe_mlp_expert_sharded over an expert "
+                "mesh axis) is not ported: ROADMAP.md queue 1 item 11")
+        moe_lora = None
+        if lora_layer is not None:
+            moe_lora = {k: lora_layer[k] for k in EXPERT_STACKS
+                        if k in lora_layer} or None
+        if "expert_gateup" in p:  # fused decode stack (w_up=None)
+            wg, wu = p["expert_gateup"], None
+            moe_lora = None  # serving weights are post-merge
+        else:
+            wg, wu = p["expert_gate"], p["expert_up"]
+        out2d, aux = moe.moe_mlp(
+            x.reshape(B * S, H), p["router"], wg, wu, p["expert_down"],
+            num_experts_per_tok=cfg.num_experts_per_tok,
+            norm_topk_prob=cfg.norm_topk_prob, lora=moe_lora,
+            lora_scale=lora_scale, lora_dropout=lora_dropout,
+            generator_for=gen_for, with_aux=with_aux)
+        if aux is not None:
+            aux = torch.stack([aux["load_balance"], aux["router_z"]])
+        return hidden + out2d.reshape(B, S, H), aux
     if "gateup_proj" in p:  # fused decode weights
         gu = quant.linear(x, p["gateup_proj"])
         if lora_layer is not None:
@@ -215,7 +266,7 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
         gate, up = gu.chunk(2, dim=-1)
     else:
         gate, up = proj(x, "gate_proj"), proj(x, "up_proj")
-    return hidden + proj(F.silu(gate) * up, "down_proj")
+    return hidden + proj(F.silu(gate) * up, "down_proj"), None
 
 
 class PagedCache(NamedTuple):
@@ -298,7 +349,9 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     seeds: LoRA target name -> dropout seed, or None for no dropout.
     split_remat: checkpoint the part before attention and the part after
     it, and leave the attention call outside (the ``attn`` / ``hot`` remat
-    policies: the backward pass never re-runs flash attention)."""
+    policies: the backward pass never re-runs flash attention).
+    Returns (hidden, aux) as ``_layer_tail`` does; a sparse layer computes
+    its aux losses only on the no-cache path."""
     Dh = cfg.head_dim
     lkw = (lora_layer, lora_scale, lora_dropout, seeds, lora_slots)
     if split_remat:
@@ -334,8 +387,8 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
             kv_scales=csc[li] if csc is not None else None)
     if split_remat:
         return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
-                          use_reentrant=False)
-    return _layer_tail(cfg, hidden, attn, p, *lkw)
+                          cache_kv is None, use_reentrant=False)
+    return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None)
 
 
 REMAT_POLICIES = ("full", "attn", "hot")
@@ -359,6 +412,12 @@ def forward_hidden(
     lora_slots: Optional[torch.Tensor] = None,  # [B] adapter index per row
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the decoder stack; returns (final hidden states, cache).
+
+    MoE models (``cfg.num_experts > 0``), no-cache path: the second slot
+    (training has no KV cache) carries ``{"moe_aux": {"load_balance",
+    "router_z"}}``, each the mean over the layers; the trainer folds the
+    load-balance term into the loss. With a cache the aux losses are not
+    computed at all.
 
     Without a cache this is a plain causal forward (training). With the
     dense cache ``{kv[, kv_scale]}``, the S new tokens are written at the
@@ -421,6 +480,7 @@ def forward_hidden(
     # between dispatches) and writes its own rows of the shared pools
     paged = (paged_layer_views(cache, L, cache_index)
              if cache is not None and "k_pages" in cache else None)
+    aux_layers = []
     for li in range(L):
         p = layer_params[li]
         ll = lora_params[li] if lora_params is not None else None
@@ -437,12 +497,17 @@ def forward_hidden(
                 lora_slots)
         if remat and li >= n_skip:
             if cfg.remat_policy == "full":
-                hidden = checkpoint(_layer, *args, use_reentrant=False)
+                hidden, aux = checkpoint(_layer, *args, use_reentrant=False)
             else:
-                hidden = _layer(*args, split_remat=True)
+                hidden, aux = _layer(*args, split_remat=True)
         else:
-            hidden = _layer(*args)
+            hidden, aux = _layer(*args)
+        if aux is not None:
+            aux_layers.append(aux)
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    if aux_layers:  # only without a cache
+        lb, z = torch.stack(aux_layers).mean(dim=0)
+        return hidden, {"moe_aux": {"load_balance": lb, "router_z": z}}
     return hidden, cache
 
 
@@ -460,7 +525,8 @@ QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
 
 
 def quantize_for_training(params: Params, cfg: Qwen3Config) -> Params:
-    """QLoRA-style base quantization: int8 the frozen decoder linears IN
+    """QLoRA-style base quantization: int8 the frozen decoder linears
+    (the MoE expert stacks included, the router not) IN
     PLACE of their storage in the model dtype, keeping names, embedding, lm
     head and norms untouched — so LoRA adapters (``models.lora``) apply on
     top and the trainer's loss path (fused LCE on the head in the model
@@ -469,7 +535,29 @@ def quantize_for_training(params: Params, cfg: Qwen3Config) -> Params:
     for name in QUANT_TARGETS:
         if name in new_layers:
             new_layers[name] = quant.quantize_int8(new_layers[name])
+    if "router" in new_layers:  # MoE: quantize the expert stacks too
+        for name in EXPERT_STACKS:
+            new_layers[name] = _quantize_stack(new_layers[name])
     return {**params, "layers": new_layers}
+
+
+def _quantize_stack(w: torch.Tensor, out=None, col0: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+    """``moe.quantize_experts`` of a stacked [L, E, K, N] leaf, one layer at
+    a time (the fp32 copy of a whole leaf is twice its size), into columns
+    col0 .. col0 + N of ``out``'s preallocated ``w_q`` / ``scale`` when given
+    (the fused gate-and-up stack)."""
+    L, E, K, N = w.shape
+    if out is None:
+        out = {"w_q": torch.empty((L, E, K, N), dtype=torch.int8,
+                                  device=w.device),
+               "scale": torch.empty((L, E, N), dtype=torch.float32,
+                                    device=w.device)}
+    for li in range(L):
+        q = moe.quantize_experts(w[li])
+        out["w_q"][li, :, :, col0:col0 + N] = q["w_q"]
+        out["scale"][li, :, col0:col0 + N] = q["scale"]
+    return out
 
 
 def _stacked_qk_norm(cfg: Qwen3Config, lp: Params) -> torch.Tensor:
@@ -481,22 +569,65 @@ def _stacked_qk_norm(cfg: Qwen3Config, lp: Params) -> torch.Tensor:
     return torch.cat([qn, kn], dim=1)
 
 
-def quantize_for_decode(params: Params, cfg: Qwen3Config) -> Params:
+def quantize_for_decode(params: Params, cfg: Qwen3Config,
+                        moe_experts: bool = False,
+                        donate: bool = False) -> Params:
     """Int8-quantize the layer linears + lm head for decode (weight-only,
     per-output-channel scales), merging q/k/v and gate/up into single
     products (the JAX function with fuse=True, the batch CLI's --int8). The
-    embedding stays in the model dtype."""
-    lp = params["layers"]
+    embedding stays in the model dtype.
+
+    An MoE decoder's gate and up stacks fuse into ``expert_gateup``
+    [L, E, H, 2I]; ``moe_experts=True`` also quantizes the expert stacks
+    (``moe.quantize_experts``; quantized BEFORE fusing: per-column scales
+    make quantize(concat) == concat(quantize) exactly). The router stays
+    fp32. The new stacks are built layer by layer into preallocated leaves.
+
+    donate=True: the caller gives ``params`` up. Each source leaf is
+    removed from ``params["layers"]`` as soon as its replacement exists, so
+    that the old and new expert stacks are never all alive together (at
+    qwen3-30b-a3b width the bf16 stacks are 58 GB)."""
+    lp = params["layers"] if donate else dict(params["layers"])
     new_layers = dict(lp)
+
+    def drop(*names):
+        for name in names:
+            del new_layers[name]
+            lp.pop(name, None)
+
+    if "router" in lp:
+        down, gate, up = (lp[n] for n in ("expert_down", "expert_gate",
+                                          "expert_up"))
+        L, E, H, I = gate.shape
+        if moe_experts:
+            drop("expert_down")
+            new_layers["expert_down"] = _quantize_stack(down)
+            del down
+            gu = {"w_q": torch.empty((L, E, H, 2 * I), dtype=torch.int8,
+                                     device=gate.device),
+                  "scale": torch.empty((L, E, 2 * I), dtype=torch.float32,
+                                       device=gate.device)}
+            _quantize_stack(gate, gu, 0)
+            _quantize_stack(up, gu, I)
+        else:  # fused [L, E, H, 2I] gate-and-up stack in the model dtype
+            gu = torch.empty((L, E, H, 2 * I), dtype=gate.dtype,
+                             device=gate.device)
+            for li in range(L):
+                gu[li, :, :, :I] = gate[li]
+                gu[li, :, :, I:] = up[li]
+        drop("expert_gate", "expert_up")
+        del gate, up
+        new_layers["expert_gateup"] = gu
+    else:
+        new_layers["gateup_proj"] = quant.quantize_int8(
+            torch.cat([lp["gate_proj"], lp["up_proj"]], dim=-1))
+        new_layers["down_proj"] = quant.quantize_int8(lp["down_proj"])
+        del new_layers["gate_proj"], new_layers["up_proj"]
     new_layers["qkv_proj"] = quant.quantize_int8(
         torch.cat([lp["q_proj"], lp["k_proj"], lp["v_proj"]], dim=-1))
-    new_layers["gateup_proj"] = quant.quantize_int8(
-        torch.cat([lp["gate_proj"], lp["up_proj"]], dim=-1))
-    new_layers["down_proj"] = quant.quantize_int8(lp["down_proj"])
     new_layers["o_proj"] = quant.quantize_int8(lp["o_proj"])
     new_layers["qk_norm"] = _stacked_qk_norm(cfg, lp)
-    for name in ("q_proj", "k_proj", "v_proj", "q_norm", "k_norm",
-                 "gate_proj", "up_proj"):
+    for name in ("q_proj", "k_proj", "v_proj", "q_norm", "k_norm"):
         del new_layers[name]
     out = {**params, "layers": new_layers}
     head = (params["embed"].T if cfg.tie_word_embeddings

@@ -6,3 +6,7 @@ CPU tensor it runs the kernel's plain PyTorch version, which lives in the
 same module. Every wrapper carries a ``launches`` counter that only its
 kernel launch increments.
 """
+
+from .moe import moe_mlp, moe_mlp_reference, quantize_experts, router_topk
+
+__all__ = ["moe_mlp", "moe_mlp_reference", "quantize_experts", "router_topk"]

@@ -1,0 +1,279 @@
+"""Grouped matrix products for the mixture-of-experts FFN: the wrappers of
+the hand-written CUDA kernels (``csrc/grouped_gemm.cu``) and their plain
+PyTorch versions.
+
+Replaces the megablox kernels that ``molly_tpu/ops/moe.py:_grouped_dot``
+launches: ``gmm`` (forward, and with ``transpose_rhs`` for the lhs gradient)
+and ``tgmm`` (the weight gradient, reached through ``gmm``'s VJP).
+
+  grouped_gemm       out[r] = lhs[r] @ rhs[g(r)]         [M, K] x [G, K, N]
+                     (transpose_rhs: rhs is [G, N, K], read through strides)
+  grouped_gemm_tgmm  out[g] = lhs[rows_g]^T @ dout[rows_g]     -> [G, K, N]
+
+Row r belongs to the group whose row range holds it; the ranges are the
+prefix sums of ``group_sizes`` [G] int32. The sizes are data (the router
+decides them on the device): nothing here reads them on the host when the
+tensors live on a card. Products accumulate in fp32. Rows past
+``sum(group_sizes)`` come out as zeros, and so does the weight gradient of
+an empty group.
+
+An int8 rhs (``ops.moe.quantize_experts``) is converted tile by tile inside
+the kernel; its per-(group, column) ``scale`` multiplies the fp32
+accumulator once at the end (the scale factors out of the contraction).
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises. ``grouped_gemm.launches`` / ``grouped_gemm_tgmm.launches`` count
+kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+MAX_GROUPS = 1024  # the kernels stage the group sizes in shared memory
+
+
+def row_groups(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[M] int64: the group of each row (G for rows past the last group),
+    from the prefix sums, without a host read."""
+    ends = torch.cumsum(group_sizes, dim=0)
+    rows = torch.arange(n_rows, device=group_sizes.device, dtype=ends.dtype)
+    return torch.searchsorted(ends, rows, right=True)
+
+
+def _bounds(group_sizes: torch.Tensor, n_rows: int):
+    """Python (start, end) row ranges, clipped to n_rows (a host read: the
+    plain versions only)."""
+    ends = torch.cumsum(group_sizes, dim=0).clamp(max=n_rows).tolist()
+    return list(zip([0] + ends[:-1], ends))
+
+
+def grouped_gemm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+                       group_sizes: torch.Tensor, *,
+                       transpose_rhs: bool = False, out_dtype=None,
+                       scale: Optional[torch.Tensor] = None,
+                       bounds=None) -> torch.Tensor:
+    """The forward kernel's plain version: one fp32 product per non-empty
+    group over that group's rows, zeros elsewhere. ``bounds`` (the row
+    ranges as Python ints) spares the host read of ``group_sizes``."""
+    M = lhs.shape[0]
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    out = torch.zeros((M, N), dtype=torch.float32, device=lhs.device)
+    lf = lhs.to(torch.float32)
+    for g, (a, b) in enumerate(bounds or _bounds(group_sizes, M)):
+        if b <= a:
+            continue
+        w = rhs[g].to(torch.float32)
+        y = lf[a:b] @ (w.T if transpose_rhs else w)
+        if scale is not None:
+            y = y * scale[g].reshape(1, N).to(torch.float32)
+        out[a:b] = y
+    return out.to(out_dtype or torch.float32)
+
+
+def grouped_gemm_tgmm_plain(lhs: torch.Tensor, dout: torch.Tensor,
+                            group_sizes: torch.Tensor, out_dtype,
+                            bounds=None) -> torch.Tensor:
+    """The weight-gradient kernel's plain version: per group, lhs_g^T @
+    dout_g in fp32; exact zeros for an empty group."""
+    G, M = group_sizes.shape[0], lhs.shape[0]
+    out = torch.zeros((G, lhs.shape[1], dout.shape[1]), dtype=torch.float32,
+                      device=lhs.device)
+    lf, df = lhs.to(torch.float32), dout.to(torch.float32)
+    for g, (a, b) in enumerate(bounds or _bounds(group_sizes, M)):
+        if b > a:
+            out[g] = lf[a:b].T @ df[a:b]
+    return out.to(out_dtype)
+
+
+def _check_sizes(name: str, group_sizes: torch.Tensor, G: int, like):
+    if group_sizes.shape != (G,) or group_sizes.dtype != torch.int32:
+        raise ValueError(f"{name}: group_sizes must be int32 [{G}], got "
+                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+    if group_sizes.device != like.device:
+        raise ValueError(f"{name}: group_sizes on {group_sizes.device}, "
+                         f"operands on {like.device}")
+    if not 0 < G <= MAX_GROUPS:
+        raise ValueError(f"{name}: {G} groups (the kernels take 1 to "
+                         f"{MAX_GROUPS})")
+
+
+def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
+    """One forward product, no autograd."""
+    out_dtype = out_dtype or torch.float32
+    if lhs.ndim != 2 or rhs.ndim != 3:
+        raise ValueError(f"grouped_gemm: lhs {tuple(lhs.shape)}, rhs "
+                         f"{tuple(rhs.shape)}")
+    M, K = lhs.shape
+    G = rhs.shape[0]
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    if rhs.shape[2 if transpose_rhs else 1] != K:
+        raise ValueError(f"grouped_gemm: lhs {tuple(lhs.shape)} does not "
+                         f"contract with rhs {tuple(rhs.shape)} "
+                         f"(transpose_rhs={transpose_rhs})")
+    if scale is not None:
+        if transpose_rhs:
+            raise ValueError("grouped_gemm: a column scale lies on the "
+                             "contraction axis of a transposed rhs; scale "
+                             "the lhs rows instead")
+        if scale.numel() != G * N or scale.dtype != torch.float32:
+            raise ValueError(f"grouped_gemm: scale {scale.dtype} "
+                             f"{tuple(scale.shape)} for [{G}, {N}]")
+    elif rhs.dtype == torch.int8 and not transpose_rhs:
+        raise ValueError("grouped_gemm: an int8 rhs needs its scale")
+    if lhs.device.type == "cpu":
+        return grouped_gemm_plain(lhs, rhs, group_sizes,
+                                  transpose_rhs=transpose_rhs,
+                                  out_dtype=out_dtype, scale=scale)
+    if lhs.device.type != "cuda":
+        raise RuntimeError(f"grouped_gemm: unsupported device {lhs.device}")
+    _check_sizes("grouped_gemm", group_sizes, G, lhs)
+    if lhs.dtype not in (torch.float32, torch.bfloat16) or \
+            rhs.dtype not in _DTYPES or \
+            out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grouped_gemm: dtypes lhs {lhs.dtype}, rhs "
+                        f"{rhs.dtype}, out {out_dtype}")
+    if rhs.device != lhs.device or (scale is not None
+                                    and scale.device != lhs.device):
+        raise ValueError("grouped_gemm: operands on different devices")
+    if not rhs.is_contiguous() or (scale is not None
+                                   and not scale.is_contiguous()):
+        raise ValueError("grouped_gemm: rhs and scale must be contiguous")
+    lhs = lhs.contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=lhs.device)
+    if M == 0:
+        return out
+
+    from . import _cuda_build
+    lib = _lib()
+    with torch.cuda.device(lhs.device):
+        stream = torch.cuda.current_stream(lhs.device).cuda_stream
+        err = lib.molly_grouped_gemm(
+            lhs.data_ptr(), rhs.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
+            _DTYPES[rhs.dtype], _DTYPES[out_dtype], int(transpose_rhs),
+            stream)
+    _cuda_build.check(lib, err, "grouped_gemm")
+    grouped_gemm.launches += 1
+    if rhs.dtype == torch.int8:
+        grouped_gemm.launches_int8 += 1
+    return out
+
+
+def grouped_gemm_tgmm(lhs: torch.Tensor, dout: torch.Tensor,
+                      group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
+    """out[g] = lhs[rows_g]^T @ dout[rows_g]: [M, K], [M, N] -> [G, K, N]
+    in ``out_dtype``, fp32 accumulation, zeros for an empty group. One block
+    per (group, K tile, N tile) walks the group's rows, so there are no
+    atomics and the bits are the same on every run."""
+    if lhs.ndim != 2 or dout.ndim != 2 or lhs.shape[0] != dout.shape[0]:
+        raise ValueError(f"grouped_gemm_tgmm: lhs {tuple(lhs.shape)}, dout "
+                         f"{tuple(dout.shape)}")
+    if lhs.device.type == "cpu":
+        return grouped_gemm_tgmm_plain(lhs, dout, group_sizes, out_dtype)
+    if lhs.device.type != "cuda":
+        raise RuntimeError(f"grouped_gemm_tgmm: unsupported device "
+                           f"{lhs.device}")
+    G = group_sizes.shape[0]
+    _check_sizes("grouped_gemm_tgmm", group_sizes, G, lhs)
+    floats = (torch.float32, torch.bfloat16)
+    if lhs.dtype not in floats or dout.dtype not in floats or \
+            out_dtype not in floats:
+        raise TypeError(f"grouped_gemm_tgmm: dtypes lhs {lhs.dtype}, dout "
+                        f"{dout.dtype}, out {out_dtype}")
+    if dout.device != lhs.device:
+        raise ValueError("grouped_gemm_tgmm: operands on different devices")
+    (M, K), N = lhs.shape, dout.shape[1]
+    lhs, dout = lhs.contiguous(), dout.contiguous()
+    out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
+    if out.numel() == 0:
+        return out
+
+    from . import _cuda_build
+    lib = _lib()
+    with torch.cuda.device(lhs.device):
+        stream = torch.cuda.current_stream(lhs.device).cuda_stream
+        err = lib.molly_grouped_gemm_tgmm(
+            lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
+            _DTYPES[dout.dtype], _DTYPES[out_dtype], stream)
+    _cuda_build.check(lib, err, "grouped_gemm_tgmm")
+    grouped_gemm_tgmm.launches += 1
+    return out
+
+
+grouped_gemm_tgmm.launches = 0
+
+
+class _GroupedGemm(torch.autograd.Function):
+    """Forward: the grouped kernel. Backward, as megablox's VJP: the lhs
+    gradient is the same kernel over the transposed rhs (in the lhs dtype),
+    the rhs gradient is tgmm (in the rhs dtype). Each is skipped when its
+    operand needs no gradient: a frozen (LoRA) or int8 (QLoRA) base never
+    pays for a weight gradient."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
+        ctx.save_for_backward(lhs, rhs, group_sizes, scale)
+        ctx.transpose_rhs = transpose_rhs
+        return _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype,
+                        scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs, group_sizes, scale = ctx.saved_tensors
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            g = dout
+            if scale is not None:
+                # the scale lies on the contraction axis of the transposed
+                # product: fold it into dout's rows, then contract with w_q
+                eid = row_groups(group_sizes, dout.shape[0]).clamp(
+                    max=rhs.shape[0] - 1)
+                g = dout * scale.reshape(rhs.shape[0], -1)[eid].to(dout.dtype)
+            dlhs = _forward(g, rhs, group_sizes, not ctx.transpose_rhs,
+                            lhs.dtype, None)
+        if ctx.needs_input_grad[1]:
+            drhs = (grouped_gemm_tgmm(dout, lhs, group_sizes, rhs.dtype)
+                    if ctx.transpose_rhs else
+                    grouped_gemm_tgmm(lhs, dout, group_sizes, rhs.dtype))
+        return dlhs, drhs, None, None, None, None
+
+
+def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
+                 group_sizes: torch.Tensor, *, transpose_rhs: bool = False,
+                 out_dtype=None,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """lhs [M, K] x rhs [G, K, N] (or [G, N, K] with ``transpose_rhs``)
+    -> [M, N] in ``out_dtype`` (fp32 by default), each row against its
+    group's matrix. ``scale`` [G, N] (or [G, 1, N]) fp32 goes with an int8
+    rhs. Differentiable in lhs, and in a floating-point rhs, when autograd
+    records."""
+    if torch.is_grad_enabled() and (lhs.requires_grad or (
+            rhs.is_floating_point() and rhs.requires_grad)):
+        return _GroupedGemm.apply(lhs, rhs, group_sizes, transpose_rhs,
+                                  out_dtype, scale)
+    return _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale)
+
+
+grouped_gemm.launches = 0
+grouped_gemm.launches_int8 = 0
+
+
+def _lib():
+    from . import _cuda_build
+    lib = _cuda_build.library("grouped_gemm")
+    fn = lib.molly_grouped_gemm
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+        fn.restype = I
+        lib.molly_grouped_gemm_tgmm.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                                                I, P]
+        lib.molly_grouped_gemm_tgmm.restype = I
+    return lib

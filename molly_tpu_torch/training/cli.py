@@ -10,9 +10,11 @@ Usage:
       [--eval-dataset-path eval.parquet] [--tiny] [--device cpu] ...
 
 The flags and defaults are the JAX CLI's. The mesh flags are accepted and
-must be 1 (or -1 for ``--mesh-fsdp``): the multi-device slice is not ported.
-``--moe-experts``, ``--offload-opt-state`` and the HF model paths are refused
-with the ROADMAP.md item that carries them. The loop itself is
+must be 1 (or -1 for ``--mesh-fsdp``): the multi-device slice is not ported
+(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state`` and
+the HF model paths are refused with the ROADMAP.md item that carries them.
+``--moe-experts`` / ``--moe-topk`` turn the text decoder into a sparse MoE
+(as does an MoE ``--text-preset``); its ``moe_load_balance`` is logged. The loop itself is
 ``train_loop``, which takes datasets or in-memory lists of encoded samples
 (``OmicsSampleEncoder.encode_train`` rows), so a caller without pandas can
 drive it; ``run_training`` builds the datasets and calls it.
@@ -58,8 +60,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny random model (CI smoke)")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="MoE decoder override (not ported: must be 0)")
-    p.add_argument("--moe-topk", type=int, default=2)
+                   help="override the text config to a MoE decoder with "
+                        "this many experts (0 keeps the preset)")
+    p.add_argument("--moe-topk", type=int, default=2,
+                   help="experts per token under --moe-experts")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--gradient-checkpointing", type=str2bool, default=False)
     p.add_argument("--remat-policy", default="full",
@@ -168,8 +172,6 @@ def _refuse_unported(args) -> None:
     if bad:
         raise SystemExit(f"{', '.join(bad)}: one device only; the mesh "
                          f"paths are ROADMAP.md queue 1 item 11")
-    if args.moe_experts:
-        raise SystemExit("--moe-experts: MoE is ROADMAP.md queue 1 item 10")
     if args.offload_opt_state:
         raise SystemExit("--offload-opt-state: ROADMAP.md queue 1 item 11")
     if not args.tiny and not args.no_load_pretrained and (
@@ -205,8 +207,9 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
     ``batch_size * tc.accum_steps`` rows). ``output_dir`` None disables
     checkpoints. ``stats`` collects seconds per phase (see
     ``make_train_step``). Returns the summary dict of the JAX CLI plus ``state`` and
-    ``history`` (per step: loss, grad_norm, skipped, tokens, seconds, and with
-    ``stats`` the step's phase seconds)."""
+    ``history`` (per step: loss, grad_norm, skipped, tokens, seconds, an MoE
+    decoder's moe_load_balance, and with ``stats`` the step's phase
+    seconds)."""
     import signal
 
     import numpy as np
@@ -279,6 +282,9 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
                     "grad_norm": float(metrics["grad_norm"]),
                     "skipped": bool(metrics["skipped"]),
                     "tokens": int(metrics["tokens"]), "seconds": seconds})
+                if "moe_load_balance" in metrics:
+                    history[-1]["moe_load_balance"] = float(
+                        metrics["moe_load_balance"])
                 if stats is not None:  # this step's share of each phase
                     history[-1]["phases"] = {
                         k: v - seen.get(k, 0.0) for k, v in stats.items()}
@@ -288,6 +294,9 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
                               "grad_norm": metrics["grad_norm"],
                               "learning_rate": metrics["learning_rate"],
                               "epoch": epoch}
+                    if "moe_load_balance" in metrics:
+                        record["moe_load_balance"] = (
+                            metrics["moe_load_balance"])
                     if compute_domain_losses:
                         record.update(domain_loss_metrics(
                             {k: v.cpu().numpy() for k, v in metrics.items()
@@ -396,6 +405,10 @@ def run_training(args) -> dict:
                                       dtype=args.dtype)
         prot_cfg = dataclasses.replace(ESM_PRESETS[args.protein_preset],
                                        dtype=args.dtype)
+    if args.moe_experts:
+        text_cfg = dataclasses.replace(
+            text_cfg, num_experts=args.moe_experts,
+            num_experts_per_tok=args.moe_topk)
     cfg = FusionConfig(text=text_cfg, dna_rna=dna_cfg, protein=prot_cfg,
                        dna_rna_k_tokens=args.dna_rna_k_tokens,
                        protein_k_tokens=args.protein_k_tokens)

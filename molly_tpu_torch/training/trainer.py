@@ -14,6 +14,9 @@ Feature map:
     every step in the parameter's dtype, as optax keeps it
   - grad accumulation: a Python loop over microbatches, each microbatch's
     loss normalised by its own tokens, gradients averaged
+  - an MoE decoder adds ``router_aux_coef * load_balance`` to the loss and
+    reports ``moe_load_balance`` (1.0 = balanced routing), averaged over
+    the microbatches
   - the non-finite guard keeps the old state when the loss or the gradient
     norm is not finite
 
@@ -262,7 +265,7 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
 
     def loss_fn(params, batch, generator):
         embeds = fusion.build_inputs_embeds(params, model_cfg, batch)
-        hidden, _ = qwen3.forward_hidden(
+        hidden, aux_out = qwen3.forward_hidden(
             params["text"], model_cfg.text, inputs_embeds=embeds,
             attention_mask=batch.get("attention_mask"),
             lora=params.get("lora"),
@@ -270,12 +273,19 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
             lora_dropout=lora_cfg.dropout if lora_cfg else 0.0,
             generator=generator if (lora_cfg and lora_cfg.dropout > 0)
             else None)
-        return fusion.loss_from_hidden(
+        loss, metrics = fusion.loss_from_hidden(
             params, model_cfg, hidden, batch, z_loss=train_cfg.z_loss,
             fused_lce=train_cfg.fused_lce, chunk_size=train_cfg.lce_chunk,
             # frozen head (LoRA or --train-llm false): the lm-head /
             # tied-embed weight gradient is dead — skip its matmul
             lce_need_dw=(train_cfg.lora is None and train_cfg.train_llm))
+        if model_cfg.text.num_experts and aux_out is not None:
+            # MoE router load-balance aux loss (ops.moe), with the HF
+            # Qwen3-MoE config's coefficient (router_aux_loss_coef)
+            lb = aux_out["moe_aux"]["load_balance"]
+            loss = loss + model_cfg.text.router_aux_coef * lb
+            metrics = {**metrics, "moe_load_balance": lb}
+        return loss, metrics
 
     def grads_of(params, train, batch, generator):
         clock = clock_of() if clock_of is not None else None
@@ -305,7 +315,9 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
             else:
                 grads = [a.add_(b) for a, b in zip(grads, g)]
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-        metrics["loss"] = metrics["loss"] / accum
+        for mk in ("loss", "moe_load_balance"):
+            if mk in metrics:
+                metrics[mk] = metrics[mk] / accum
         return [g / accum for g in grads], metrics
 
     return grad_fn

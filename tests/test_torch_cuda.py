@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from molly_tpu_torch.ops import flash_attention as fa
+from molly_tpu_torch.ops import grouped_gemm as gg
 from molly_tpu_torch.ops import paged_attention as pa
 from molly_tpu_torch.ops import quant, rmsnorm_triton
 
@@ -397,3 +398,151 @@ def test_paged_kernel_refuses_what_it_does_not_take(dev):
         pa.paged_attention(q, k.float().transpose(1, 2).contiguous()
                            .transpose(1, 2)[:, :, :, :], v.float(), lengths,
                            table)
+
+
+# ------------------------------------------------------------ grouped GEMMs
+
+_GG_SIZES = {
+    # an empty group, a one-row group, a group larger than one tile, and
+    # rows past the last group (M = 300 > 271)
+    "ragged": (300, [100, 0, 1, 170]),
+    "decode": (32, [0, 3, 0, 0, 1, 0, 9, 0, 0, 0, 2, 0, 0, 0, 0, 1,
+                    0, 0, 4, 0, 0, 0, 0, 0, 0, 6, 0, 0, 0, 0, 5, 1]),
+}
+
+
+def _gg_tol(ref, *dtypes):
+    """fp32 throughout: 1e-4 relative (another summation order); anything in
+    bf16: 1e-2 of the reference's max-abs (operands or result rounded to
+    bf16)."""
+    rel = 1e-4 if all(d == torch.float32 for d in dtypes) else 1e-2
+    return rel * max(ref.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("sizes", sorted(_GG_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 128), (136, 72), (50, 9), (8, 64)])
+@pytest.mark.parametrize("lhs_dt,rhs_dt,out_dt", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.int8, torch.float32),
+    (torch.float32, torch.int8, torch.float32),
+    (torch.float32, torch.int8, torch.bfloat16)])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_grouped_gemm_kernel_matches_plain(dev, sizes, K, N, lhs_dt, rhs_dt,
+                                           out_dt, transpose_rhs):
+    M, counts = _GG_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(5)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+    shape = (G, N, K) if transpose_rhs else (G, K, N)
+    scale = None
+    if rhs_dt == torch.int8:
+        rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8)
+        if not transpose_rhs:
+            scale = torch.rand((G, N), generator=g, device=dev) * 1e-2 + 1e-3
+    else:
+        rhs = torch.randn(shape, generator=g, device=dev).to(rhs_dt)
+    before = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_int8)
+    out = gg.grouped_gemm(lhs, rhs, gs, transpose_rhs=transpose_rhs,
+                          out_dtype=out_dt, scale=scale)
+    assert gg.grouped_gemm.launches == before[0] + 1
+    assert gg.grouped_gemm.launches_int8 == before[1] + (rhs_dt == torch.int8)
+    ref = gg.grouped_gemm_plain(lhs, rhs, gs, transpose_rhs=transpose_rhs,
+                                scale=scale)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (M, N)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(
+        ref, lhs_dt, rhs_dt if rhs_dt != torch.int8 else torch.float32,
+        out_dt)
+    assert bool((out[sum(counts):] == 0).all())   # rows no group owns
+
+
+@pytest.mark.parametrize("sizes", sorted(_GG_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 128), (136, 72), (50, 9), (8, 200)])
+@pytest.mark.parametrize("lhs_dt,dout_dt,out_dt", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32, torch.bfloat16)])
+def test_grouped_gemm_tgmm_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
+                                                dout_dt, out_dt):
+    M, counts = _GG_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(6)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+    dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
+    before = gg.grouped_gemm_tgmm.launches
+    out = gg.grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+    assert gg.grouped_gemm_tgmm.launches == before + 1
+    again = gg.grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+    ref = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (G, K, N)
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(
+        ref, lhs_dt, dout_dt, out_dt)
+    assert torch.equal(out, again)                 # no atomics: same bits
+    for e, n in enumerate(counts):                 # empty group: exact zeros
+        if n == 0:
+            assert bool((out[e] == 0).all())
+
+
+def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
+    """Gradients of a bf16 product through the transposed kernel and tgmm
+    against the plain versions; a frozen rhs launches no tgmm; an int8 rhs
+    folds its scale into dout before the transposed kernel."""
+    M, counts = _GG_SIZES["ragged"]
+    K, N, G = 64, 128, len(counts)
+    g = torch.Generator(device=dev).manual_seed(7)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    rhs = (0.1 * torch.randn((G, K, N), generator=g, device=dev)).to(
+        torch.bfloat16).requires_grad_(True)
+    dout = torch.randn((M, N), generator=g, device=dev)
+    out = gg.grouped_gemm(lhs, rhs, gs)
+    assert out.dtype == torch.float32
+    t0 = gg.grouped_gemm_tgmm.launches
+    dl, dr = torch.autograd.grad(out, (lhs, rhs), dout)
+    assert gg.grouped_gemm_tgmm.launches == t0 + 1
+    assert dl.dtype == torch.bfloat16 and dr.dtype == torch.bfloat16
+    rl = gg.grouped_gemm_plain(dout, rhs.detach(), gs, transpose_rhs=True)
+    rr = gg.grouped_gemm_tgmm_plain(lhs.detach(), dout, gs, torch.float32)
+    assert (dl.float() - rl).abs().max().item() <= _gg_tol(rl, torch.bfloat16)
+    assert (dr.float() - rr).abs().max().item() <= _gg_tol(rr, torch.bfloat16)
+    assert bool((dr[1] == 0).all())
+
+    frozen = rhs.detach()
+    out = gg.grouped_gemm(lhs, frozen, gs)
+    (dl2,) = torch.autograd.grad(out, (lhs,), dout)
+    assert gg.grouped_gemm_tgmm.launches == t0 + 1
+    assert torch.equal(dl2, dl)
+
+    w_q = torch.randint(-127, 128, (G, K, N), generator=g, device=dev,
+                        dtype=torch.int8)
+    scale = torch.rand((G, N), generator=g, device=dev) * 1e-2 + 1e-3
+    out = gg.grouped_gemm(lhs, w_q, gs, scale=scale)
+    (dl3,) = torch.autograd.grad(out, (lhs,), dout)
+    dense = (w_q.float() * scale[:, None, :])
+    r3 = gg.grouped_gemm_plain(dout, dense, gs, transpose_rhs=True)
+    assert (dl3.float() - r3).abs().max().item() <= _gg_tol(r3, torch.bfloat16)
+
+
+def test_grouped_gemm_refuses_what_the_kernel_does_not_take(dev):
+    lhs = torch.zeros((4, 8), device=dev)
+    rhs = torch.zeros((2, 8, 8), device=dev)
+    with pytest.raises(ValueError):     # int64 sizes
+        gg.grouped_gemm(lhs, rhs, torch.tensor([2, 2], device=dev))
+    gs = torch.tensor([2, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):     # sizes on the host
+        gg.grouped_gemm(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError):     # int8 without its scale
+        gg.grouped_gemm(lhs, rhs.to(torch.int8), gs)
+    with pytest.raises(TypeError):
+        gg.grouped_gemm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(ValueError):     # a strided rhs view
+        gg.grouped_gemm(lhs, rhs.transpose(1, 2), gs)

@@ -268,6 +268,29 @@ out = tcli.train_loop(init_train_state(params, tc), cfg, tc,
                       total_steps=1, device="cpu", output_dir=None)
 assert out["steps"] == 1 and out["final_loss"] > 0
 
+# the MoE decoder family: one --tiny --moe-experts batch and one train step
+from molly_tpu_torch.ops import grouped_gemm, moe
+margs = icli.build_argparser().parse_args(
+    ["--input-file", "unused", "--output-file", "unused", "--tiny",
+     "--moe-experts", "4", "--moe-topk", "2",
+     "--dna-rna-k-tokens", "4", "--protein-k-tokens", "4"])
+mcfg = icli.build_config(margs, text_tok, dna_tok, prot_tok)
+assert mcfg.text.num_experts == 4 and mcfg.text.num_experts_per_tok == 2
+mparams = fusion.init_params(mcfg, torch.Generator().manual_seed(0))
+assert mparams["text"]["layers"]["expert_gate"].shape[:2] == (2, 4)
+recs = icli.run_batches(
+    [enc.encode_test(r) for r in rows], mparams, mcfg,
+    GenerationConfig(max_new_tokens=2, do_sample=False,
+                     eos_token_id=text_tok.eos_token_id,
+                     pad_token_id=text_tok.pad_token_id or 0),
+    text_tok, io.StringIO(), batch_size=2)
+assert len(recs) == 2
+out = tcli.train_loop(init_train_state(mparams, tc), mcfg, tc,
+                      [enc.encode_train(r) for r in rows], batch_size=2,
+                      total_steps=1, device="cpu", output_dir=None)
+assert out["steps"] == 1 and out["history"][0]["moe_load_balance"] > 0
+assert grouped_gemm.grouped_gemm.launches == 0   # the CPU ran the plain path
+
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("imported", len(names) + 1, "modules")
@@ -275,10 +298,12 @@ print("imported", len(names) + 1, "modules")
 
 
 def test_port_imports_no_jax():
-    """Every molly_tpu_torch module (the serving engines and the paged
-    attention op among them) and chip_smoke.py import, and the --tiny batch
-    loop, the --tiny serving loops (dense ring and paged) and one --tiny
-    train step run, with jax, optax, orbax
+    """Every molly_tpu_torch module (the serving engines, the paged
+    attention op, ``ops.moe`` and ``ops.grouped_gemm`` among them) and
+    chip_smoke.py import, and the --tiny batch
+    loop, the --tiny serving loops (dense ring and paged), one --tiny
+    train step, and one MoE batch and MoE train step (--moe-experts 4
+    --moe-topk 2) run, with jax, optax, orbax
     and the whole molly_tpu package blocked; none of them ends up in
     sys.modules. chip_smoke.py names no molly_tpu import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -195,7 +195,14 @@ def test_unported_lora_options_are_refused():
         one = {"a": bank["a"][n], "b": bank["b"][n]}
         ref = lora.apply_lora(x[row:row + 1], x[row:row + 1], one, 0.5)
         torch.testing.assert_close(got[row:row + 1], ref)
-    # expert-stacked targets are still refused
-    with pytest.raises(AssertionError, match="not ported"):
-        lora.init_lora(tiny_qwen3(num_experts=4), lora.LoraConfig(),
-                       torch.Generator())
+    # expert-stacked targets are ported; expert PARALLELISM (the sparse FFN
+    # sharded over an expert mesh axis) is still refused
+    cfg = tiny_qwen3(num_experts=4, num_experts_per_tok=2,
+                     expert_parallel=True)
+    ad = lora.init_lora(cfg, lora.LoraConfig(r=2), torch.Generator())
+    assert ad["layers"]["expert_down"]["a"].shape == (2, 4, 128, 2)
+    params = qwen3.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        qwen3.forward_hidden(params, cfg,
+                             input_ids=torch.zeros((1, 4), dtype=torch.long),
+                             lora=ad)
