@@ -23,7 +23,10 @@ Phases, each printed with its time; any failure exits non-zero:
      otherwise), counting only the (query, key) pairs this run's masks
      allow and only the weights of the experts this run's router chose. The
      grouped GEMMs take their group sizes from a real ``router_topk`` with
-     one expert forced empty.
+     one expert forced empty; each case names the source whose kernel ran
+     (the TMA and wgmma kernels at prefill and training shapes in bf16, the
+     mma.sync and SIMT kernels elsewhere), and a case with an fp32 ``dout``
+     times the wrapper, its one rounding pass to bf16 included.
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
@@ -82,7 +85,9 @@ Phases, each printed with its time; any failure exits non-zero:
  17. main path, MoE training, QLoRA with expert adapters (r 64) over int8
      experts, 4 layers, 3 steps.
      Each MoE phase prints its depth and peak device memory and must launch
-     the grouped GEMM (the training phases tgmm too).
+     the grouped GEMM (the training phases tgmm too), and prints how many of
+     those launches ran on the TMA and wgmma kernels: every prefill product
+     over bf16 experts, and every product of the full fine-tune.
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
@@ -155,6 +160,8 @@ _FWD_CU = "molly_tpu_torch/csrc/flash_attention_fwd.cu"
 _BWD_CU = "molly_tpu_torch/csrc/flash_attention_bwd.cu"
 _PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
 _GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
+# the kernels of each table row's first case: prefill and training in bf16
+_GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_CU),
     "flash_attention_dq": ("cuda", _BWD_CU),
@@ -164,8 +171,8 @@ SOURCES = {
     "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
     "paged_attention": ("cuda", _PAGED_CU),
     "paged_attention_int8": ("cuda", _PAGED_CU),
-    "grouped_gemm": ("cuda", _GG_CU),
-    "grouped_gemm_tgmm": ("cuda", _GG_CU),
+    "grouped_gemm": ("cuda", _GG_TMA_CU),
+    "grouped_gemm_tgmm": ("cuda", _GG_TMA_CU),
 }
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "rmsnorm_fwd", "rmsnorm_bwd")
@@ -248,12 +255,8 @@ def eager_ms(fn, iters: int) -> float:
 
 
 def release():
-    """Return what is no longer referenced to the card: the serving engines
-    hold reference cycles, so their params live until a collection runs."""
-    import gc
-
+    """Return what is no longer referenced to the card."""
     import torch
-    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -315,6 +318,8 @@ def reset_counts():
     for fn in counters().values():
         fn.launches = 0
     counters()["grouped_gemm"].launches_int8 = 0
+    counters()["grouped_gemm"].launches_tma = 0
+    counters()["grouped_gemm_tgmm"].launches_tma = 0
     paged_attention.launches = paged_attention.launches_int8 = 0
 
 
@@ -322,6 +327,14 @@ def int8_grouped_launches() -> int:
     """Grouped-GEMM launches over an int8 rhs since ``reset_counts`` (they
     are part of ``grouped_gemm``'s count)."""
     return counters()["grouped_gemm"].launches_int8
+
+
+def tma_launches():
+    """(forward, tgmm) launches since ``reset_counts`` that ran on the TMA
+    and wgmma kernels (they are part of the two kernels' counts)."""
+    c = counters()
+    return (c["grouped_gemm"].launches_tma,
+            c["grouped_gemm_tgmm"].launches_tma)
 
 
 def read_counts():
@@ -880,7 +893,9 @@ def parity_grouped_gemm(g, results):
         return fn
 
     def report(name, err, tol, ms, plain_ms, library_ms, bound_ms, bound_by,
-               extra):
+               extra, tma):
+        source = _GG_TMA_CU if tma else _GG_CU
+        extra = f"{extra}; {source.rsplit('/', 1)[1]}"
         log(f"  grouped {name}: max|err| {err:.3e} (tol {tol:.3e}); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
@@ -889,7 +904,7 @@ def parity_grouped_gemm(g, results):
             raise AssertionError(f"grouped {name}: parity miss")
         return {"case": name, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by, "source": source}
 
     def fwd_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
                  rhs_dt=torch.bfloat16, out_dt=torch.float32,
@@ -913,7 +928,9 @@ def parity_grouped_gemm(g, results):
                 rhs[e] = (torch.randn(shape[1:], generator=g, device=dev)
                           * K ** -0.5).to(rhs_dt)
         kw = dict(transpose_rhs=transpose_rhs, scale=scale)
+        tma0 = grouped_gemm.launches_tma
         out = grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, **kw)
+        tma = grouped_gemm.launches_tma > tma0
         ref = grouped_gemm_plain(lhs, rhs, gs, bounds=bounds, **kw)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
@@ -943,7 +960,7 @@ def parity_grouped_gemm(g, results):
             "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
                       bound_by, f"{M} rows over {active} of {G} groups, "
-                      f"largest {int(gs.max())}")
+                      f"largest {int(gs.max())}", tma)
 
     def tgmm_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
                   dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK):
@@ -952,7 +969,9 @@ def parity_grouped_gemm(g, results):
         bounds = _bounds(gs, M)
         lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
         dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
+        tma0 = grouped_gemm_tgmm.launches_tma
         out = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+        tma = grouped_gemm_tgmm.launches_tma > tma0
         again = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
         ref = grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32,
                                       bounds=bounds)
@@ -980,7 +999,7 @@ def parity_grouped_gemm(g, results):
                                    "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
                       bound_by, f"{M} rows, empty group exact zero, two "
-                      f"runs bit-equal")
+                      f"runs bit-equal", tma)
 
     i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
     results["grouped_gemm"] = [
@@ -999,6 +1018,11 @@ def parity_grouped_gemm(g, results):
         fwd_case("train_dlhs_f32xbf16T[32768,768]x[128,2048,768]T->bf16",
                  4096, 768, 2048, 4, lhs_dt=f32, out_dt=b16,
                  transpose_rhs=True),
+        fwd_case("train_gate_bf16[32768,2048]x[128,2048,768]", 4096, 2048,
+                 768, 4),
+        fwd_case("train_dlhs_down_f32xbf16T[32768,2048]x[128,768,2048]T"
+                 "->bf16", 4096, 2048, 768, 4, lhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
         fwd_case("qlora_dlhs_f32xint8T[32768,768]x[128,2048,768]T->bf16",
                  4096, 768, 2048, 4, lhs_dt=f32, rhs_dt=i8, out_dt=b16,
                  transpose_rhs=True),
@@ -1007,11 +1031,21 @@ def parity_grouped_gemm(g, results):
         fwd_case("small_fp32[300,64]x[4,64,128]", 150, 64, 128, 20,
                  lhs_dt=f32, rhs_dt=f32, G=4, k=2),
     ]
+    for case in results["grouped_gemm"]:
+        big_bf16 = case["case"].startswith(("prefill_", "train_")) and \
+            "int8" not in case["case"]
+        if (case["source"] == _GG_TMA_CU) != big_bf16:
+            raise AssertionError(f"grouped {case['case']}: ran from "
+                                 f"{case['source']}")
     results["grouped_gemm_tgmm"] = [
         tgmm_case("train_bf16xf32[2048,32768].[32768,768]->[128,2048,768]",
                   4096, 2048, 768, 4),
         tgmm_case("train_down_bf16xf32[768,32768].[32768,2048]", 4096, 768,
                   2048, 4),
+        tgmm_case("train_bf16xbf16[2048,32768].[32768,768]->[128,2048,768]",
+                  4096, 2048, 768, 4, dout_dt=b16),
+        tgmm_case("train_down_bf16xbf16[768,32768].[32768,2048]", 4096, 768,
+                  2048, 4, dout_dt=b16),
         tgmm_case("lora_a_fp32[2048,32768].[32768,64]", 4096, 2048, 64, 4,
                   lhs_dt=f32, out_dt=f32),
         tgmm_case("small_fp32[64,300].[300,128]->[4,64,128]", 150, 64, 128,
@@ -1643,8 +1677,10 @@ def drive_moe_paths(seed: int, launches, inp):
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"grouped_gemm launches {counts['grouped_gemm']} "
-            f"({int8_grouped_launches()} over int8 experts), tgmm "
-            f"{counts['grouped_gemm_tgmm']}")
+            f"({int8_grouped_launches()} over int8 experts, "
+            f"{tma_launches()[0]} on the TMA and wgmma kernel), tgmm "
+            f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
+            f"and wgmma kernel)")
 
     gen_kernels = ("grouped_gemm", "flash_attention_fwd", "rmsnorm_fwd")
     cfg = config(MOE_LAYERS, 1024)
@@ -1658,6 +1694,11 @@ def drive_moe_paths(seed: int, launches, inp):
             GenerationConfig(max_new_tokens=32, do_sample=True, **common),
             seed, label)
         check(label, counts, gen_kernels, MOE_LAYERS)
+        # one prefill: gate, up and down of every layer at M >= 64 G
+        if tma_launches()[0] != 3 * MOE_LAYERS:
+            raise AssertionError(f"{label}: {tma_launches()[0]} grouped "
+                                 f"GEMMs on the TMA and wgmma kernel, "
+                                 f"expected the prefill's {3 * MOE_LAYERS}")
 
     label = "MoE serving, paged bf16 pages of 64, sampled"
     with Phase(f"main path {label}, {len(inp['serve_samples'])} requests, "
@@ -1708,6 +1749,11 @@ def drive_moe_paths(seed: int, launches, inp):
             params, train_cfg, inp["train_samples"],
             TrainConfig(total_steps=3), label, seed, train_kernels)
         check(label, counts, train_kernels, MOE_TRAIN_LAYERS)
+        # every expert product of a bf16 step is at M >= 64 G
+        if tma_launches() != (counts["grouped_gemm"],
+                              counts["grouped_gemm_tgmm"]):
+            raise AssertionError(f"{label}: a grouped GEMM missed the TMA "
+                                 f"and wgmma kernels: {tma_launches()}")
     del state
     release()
 

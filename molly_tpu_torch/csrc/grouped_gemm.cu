@@ -24,26 +24,30 @@
 // padding, no straddling, and a slot past the real tile count exits at
 // once. An empty group owns no tile, so it reads no weights.
 //
-// What bounds it on this card. Prefill and training send hundreds of rows
-// to each expert (M = 98,304 over 128 experts at qwen3-30b-a3b width): the
-// product is bound by operations, so it runs on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, fp32 accumulators; 128 x 128 tiles).
+// What bounds it on this card, and which kernel takes what. Prefill and
+// training send hundreds of rows to each expert (M = 98,304 over 128 experts
+// at qwen3-30b-a3b width): the product is bound by operations. Its bf16
+// form (a bf16 rhs, no scale, K a multiple of 64) is not in this file: it
+// runs on TMA and wgmma in grouped_gemm_tma.cu, and so does the bf16 tgmm;
+// ops/grouped_gemm.py picks the source. What stays here is everything else.
 // Decode sends one to a few rows to at most 32 of 128 experts: the call
 // streams ~3 MB of weights an active expert and is bound by bytes; it takes
 // 32-row tiles so that more blocks share the stream. Three forward kernels
-// sit behind the one entry point:
-//   - bf16 on both sides with aligned rows (the model's own products): a
-//     ring of k-tiles filled by cp.async, 3 deep for the 128-row tiles and 6
-//     deep for decode, so a block that walks K alone keeps tens of KB of
-//     loads in flight; fragments by ldmatrix;
-//   - an fp32 lhs (the lhs gradient: dout is fp32) or an int8 rhs: the tile
-//     is converted to bf16 (int8 exactly) on its way to shared memory, the
-//     next tile's loads started before the current tile's products; the int8
-//     per-(group, column) scale multiplies the accumulator in the epilogue;
+// sit behind the one entry point (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators, 128-column tiles of 32 or 128 rows):
+//   - bf16 on both sides with aligned rows and few rows a group (decode,
+//     the serving tick): a ring of k-tiles filled by cp.async, 6 deep, so a
+//     block that walks K alone keeps tens of KB of loads in flight;
+//     fragments by ldmatrix;
+//   - an fp32 lhs, an int8 rhs, or a bf16 product whose shape the wgmma
+//     kernel does not take: the tile is converted to bf16 (int8 exactly) on
+//     its way to shared memory, the next tile's loads started before the
+//     current tile's products; the int8 per-(group, column) scale multiplies
+//     the accumulator in the epilogue;
 //   - nothing in bf16 (the fp32 test models, fp32 adapters): fp32 SIMT tiles.
-// Not done yet: wgmma and TMA (the library's grouped GEMM is ~3x faster at
-// prefill), a split-K weight stream for decode, an int8 forward whose
-// conversions overlap its loads.
+// Not done yet: a split-K weight stream for decode, an int8 forward whose
+// conversions overlap its loads (or wgmma with the int8 tile converted in
+// registers).
 
 #include <type_traits>
 
@@ -367,7 +371,7 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---------------------------------------------------------------------------
 // The same forward tile with bf16 on both sides and aligned rows (the model's
-// own products: prefill, decode, the training forward): nothing has to be
+// own products at decode and in the serving tick): nothing has to be
 // converted, so the tiles go from device memory to shared memory with
 // cp.async, several k-tiles ahead of the one being multiplied. Decode is a
 // stream of weights that one block walks alone along K; with STAGES tiles in
@@ -427,8 +431,8 @@ struct AsyncShape {
   static constexpr int LSB = TRANS ? BK + PAD : BN + PAD;
   static constexpr int A_ELEMS = BM * LSA;
   static constexpr int B_ELEMS = TRANS ? BN * LSB : BK * LSB;
-  // few rows a group: a deeper ring, the call is a weight stream
-  static constexpr int STAGES = WM == 1 ? 6 : 3;
+  // few rows a group: a deep ring, the call is a weight stream
+  static constexpr int STAGES = 6;
   static constexpr int SMEM_BYTES =
       STAGES * (A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16);
 };
@@ -888,12 +892,10 @@ int launch_mma(const void* lhs, int lhs_dtype, const void* rhs,
   // tiles, more blocks on the weight stream (bound by bytes)
   const bool big = (long long)M >= 64LL * G;
   if constexpr (std::is_same<TB, __nv_bfloat16>::value) {
-    // bf16 on both sides, aligned rows, no scale: the cp.async pipeline
-    if (!lhs_f32 && vec_a && vec_b && scale == nullptr)
-      return big ? launch_async<TRANS, 4>(lhs, rhs, out, out_f32,
-                                          group_sizes, M, K, N, G, stream)
-                 : launch_async<TRANS, 1>(lhs, rhs, out, out_f32,
-                                          group_sizes, M, K, N, G, stream);
+    // few rows of bf16 on both sides, aligned, no scale: the cp.async ring
+    if (!big && !lhs_f32 && vec_a && vec_b && scale == nullptr)
+      return launch_async<TRANS, 1>(lhs, rhs, out, out_f32, group_sizes, M, K,
+                                    N, G, stream);
   }
   if (big) {
     const dim3 grid((N + BN - 1) / BN, (M + 127) / 128 + G);

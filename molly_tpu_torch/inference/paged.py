@@ -291,10 +291,12 @@ class PagedServingEngine(ServingEngine):
         self.n_pages = n_pages
         self._partial: Dict[Any, np.ndarray] = {}
         if stream_cb is not None:
-            user_cb = stream_cb
+            # the closure holds the dict, not the engine: an engine that
+            # refers to itself keeps its pools until a garbage collection
+            user_cb, partial_out = stream_cb, self._partial
 
             def stream_cb(uid, toks):  # continuation-aware delivery
-                pre = self._partial.get(uid)
+                pre = partial_out.get(uid)
                 user_cb(uid, toks if pre is None
                         else np.concatenate([pre, toks]))
 

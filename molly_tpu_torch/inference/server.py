@@ -469,10 +469,12 @@ class ServingEngine:
         self._clock = (_Clock(self.stats, self.device) if time_phases
                        else None)
         self._build_dispatch_fns(decode_chunk)
-        self._init_state = partial(
-            self._make_state, kv_quant=kv_quant, logprobs=logprobs,
-            multi_lora=lora_bank is not None)
-        self.hot, self.cold = _split_state(self._init_state())
+        # plain values, not a bound method: the engine must not refer to
+        # itself, or its pools would wait for a garbage collection
+        self._state_kw = dict(kv_quant=kv_quant, logprobs=logprobs,
+                              multi_lora=lora_bank is not None)
+        self.hot, self.cold = _split_state(
+            self._make_state(**self._state_kw))
         self._slot_uid: List[Any] = [None] * n_slots
         self._pending: List[Request] = []
         self._cancel: set = set()
@@ -552,7 +554,8 @@ class ServingEngine:
                                if (1 << i) <= self.n_slots]
 
     def _reset_after_warmup(self) -> None:
-        self.hot, self.cold = _split_state(self._init_state())
+        self.hot, self.cold = _split_state(
+            self._make_state(**self._state_kw))
         self._slot_uid = [None] * self.n_slots
         self._cancel = set()
         self._streamed = [0] * self.n_slots

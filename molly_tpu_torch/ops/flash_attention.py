@@ -32,19 +32,13 @@ NEG_INF = -1e30  # finite, like the kernel: fully masked rows stay finite
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
-                          q_offset: int = 0
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain PyTorch version: (O [B, Sq, N, D] in q's dtype,
-    LSE [B, N, Sq] fp32), math in fp32. A row with no valid key gets a
-    uniform average over all keys (finite), where the kernel averages over
-    the keys it visited; callers compare only rows with a valid key."""
+def _scores(q, k, mask, causal, scale, q_offset):
+    """Masked fp32 scores [B, Nkv, g, Sq, Skv] (NEG_INF where masked) and
+    ``no_key`` [B, 1, 1, Sq, 1]: the rows with no valid key (left-padded
+    positions)."""
     B, Sq, N, D = q.shape
     Skv, Nkv = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = D ** -0.5
-    g = N // Nkv
-    qg = q.float().reshape(B, Sq, Nkv, g, D)
+    qg = q.float().reshape(B, Sq, Nkv, N // Nkv, D)
     s = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) * scale
     valid = torch.ones((B, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
     if mask is not None:
@@ -52,10 +46,32 @@ def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
     if causal:
         q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
         valid = valid & (q_pos >= torch.arange(Skv, device=q.device))
-    s = s.masked_fill(~valid, NEG_INF)
-    lse = torch.logsumexp(s, dim=-1)                       # [B, Nkv, g, Sq]
+    return s.masked_fill(~valid, NEG_INF), ~valid.any(dim=-1, keepdim=True)
+
+
+def _probs(s, lse, no_key):
+    """P = exp(S - LSE). A row with no valid key weighs every key 1 / Skv,
+    the uniform mean over ALL keys that both attention routes of the JAX
+    package give it. (All its scores are NEG_INF, the fp32 LSE absorbs
+    log(Skv), and exp(S - LSE) alone would weigh every key 1: the sum.)"""
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bngqk,bknd->bqngd", p, v.float())
+    return torch.where(no_key, 1.0 / s.shape[-1], p)
+
+
+def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
+                          q_offset: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain PyTorch version: (O [B, Sq, N, D] in q's dtype,
+    LSE [B, N, Sq] fp32), math in fp32. A row with no valid key gets the
+    uniform average over all keys (see ``_probs``), where the kernel
+    averages over the keys it visited; callers that compare the two
+    compare only rows with a valid key."""
+    B, Sq, N, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    s, no_key = _scores(q, k, mask, causal, scale, q_offset)
+    lse = torch.logsumexp(s, dim=-1)                       # [B, Nkv, g, Sq]
+    o = torch.einsum("bngqk,bknd->bqngd", _probs(s, lse, no_key), v.float())
     return (o.reshape(B, Sq, N, D).to(q.dtype),
             lse.reshape(B, N, Sq))
 
@@ -121,21 +137,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
-def _scores(q, k, mask, causal, scale, q_offset):
-    """Masked fp32 scores [B, Nkv, g, Sq, Skv] (NEG_INF where masked)."""
-    B, Sq, N, D = q.shape
-    Skv, Nkv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Sq, Nkv, N // Nkv, D)
-    s = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) * scale
-    valid = torch.ones((B, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
-    if mask is not None:
-        valid = valid & (mask != 0)[:, None, None, None, :]
-    if causal:
-        q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
-        valid = valid & (q_pos >= torch.arange(Skv, device=q.device))
-    return s.masked_fill(~valid, NEG_INF)
-
-
 def flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout, causal=True,
                               scale=None, q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -150,8 +151,8 @@ def flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout, causal=True,
     if scale is None:
         scale = D ** -0.5
     g = N // Nkv
-    s = _scores(q, k, mask, causal, scale, q_offset)
-    p = torch.exp(s - lse.reshape(B, Nkv, g, Sq)[..., None])
+    s, no_key = _scores(q, k, mask, causal, scale, q_offset)
+    p = _probs(s, lse.reshape(B, Nkv, g, Sq), no_key)
     dog = dout.float().reshape(B, Sq, Nkv, g, D)
     dp = torch.einsum("bqngd,bknd->bngqk", dog, v.float())
     ds = p * (dp - delta.reshape(B, Nkv, g, Sq)[..., None])

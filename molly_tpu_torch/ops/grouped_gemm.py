@@ -1,6 +1,7 @@
 """Grouped matrix products for the mixture-of-experts FFN: the wrappers of
-the hand-written CUDA kernels (``csrc/grouped_gemm.cu``) and their plain
-PyTorch versions.
+the hand-written CUDA kernels (``csrc/grouped_gemm.cu``, and
+``csrc/grouped_gemm_tma.cu`` for bf16 operands at prefill and training
+shapes) and their plain PyTorch versions.
 
 Replaces the megablox kernels that ``molly_tpu/ops/moe.py:_grouped_dot``
 launches: ``gmm`` (forward, and with ``transpose_rhs`` for the lhs gradient)
@@ -21,9 +22,19 @@ An int8 rhs (``ops.moe.quantize_experts``) is converted tile by tile inside
 the kernel; its per-(group, column) ``scale`` multiplies the fp32
 accumulator once at the end (the scale factors out of the contraction).
 
+Two sources hold the kernels. ``takes_tma`` / ``tgmm_takes_tma`` say which
+one a call goes to: bf16 products with many rows a group run on the TMA and
+wgmma kernels, everything else (decode and serving tiles, int8 experts,
+fp32, unaligned shapes) on the ``mma.sync`` and SIMT kernels. Both routes
+multiply bf16 operands, so an fp32 operand of a bf16 product is rounded to
+bf16 once: inside the older kernels as they stage it, before the launch for
+the newer ones (the autograd function rounds ``dout`` once for both of its
+products). The fp32 products and the CPU route are not touched by this.
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. ``grouped_gemm.launches`` / ``grouped_gemm_tgmm.launches`` count
-kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs).
+kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs;
+``.launches_tma`` on either: those that went to the TMA and wgmma kernels).
 """
 
 from __future__ import annotations
@@ -35,6 +46,30 @@ import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_GROUPS = 1024  # the kernels stage the group sizes in shared memory
+
+
+def takes_tma(M: int, K: int, N: int, G: int, rhs_dtype, has_scale: bool,
+              aligned: bool = True) -> bool:
+    """Does this forward product (transposed or not) go to the TMA and wgmma
+    kernel? A bf16 rhs without a scale, at least 64 rows a group on average
+    (below that the call is a stream of weights and takes 32-row tiles), K
+    a multiple of the 64-element stage, rows of 16 bytes, 16-byte aligned
+    bases. The lhs may be bf16 or fp32 (rounded once before the launch)."""
+    return (rhs_dtype == torch.bfloat16 and not has_scale and M >= 64 * G
+            and K % 64 == 0 and N % 8 == 0 and aligned)
+
+
+def tgmm_takes_tma(M: int, K: int, N: int, dtypes, aligned: bool = True
+                   ) -> bool:
+    """Does this weight gradient go to the TMA and wgmma kernel? Anything
+    but an all-fp32 product (``dtypes``: lhs, dout, out) runs in bf16 and
+    does, given rows of 16 bytes on both operands and aligned bases."""
+    return (any(d == torch.bfloat16 for d in dtypes) and M > 0
+            and K % 8 == 0 and N % 8 == 0 and aligned)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def row_groups(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -143,23 +178,35 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
     if not rhs.is_contiguous() or (scale is not None
                                    and not scale.is_contiguous()):
         raise ValueError("grouped_gemm: rhs and scale must be contiguous")
-    lhs = lhs.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=lhs.device)
     if M == 0:
         return out
+    tma = takes_tma(M, K, N, G, rhs.dtype, scale is not None, _aligned(rhs))
+    if tma:
+        lhs = lhs.to(torch.bfloat16)
+    lhs = lhs.contiguous()
+    tma = tma and _aligned(lhs, out)
 
     from . import _cuda_build
-    lib = _lib()
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        err = lib.molly_grouped_gemm(
-            lhs.data_ptr(), rhs.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
-            _DTYPES[rhs.dtype], _DTYPES[out_dtype], int(transpose_rhs),
-            stream)
+        if tma:
+            lib = _lib_tma()
+            err = lib.molly_grouped_gemm_tma(
+                lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
+                int(transpose_rhs), stream)
+        else:
+            lib = _lib()
+            err = lib.molly_grouped_gemm(
+                lhs.data_ptr(), rhs.data_ptr(),
+                None if scale is None else scale.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
+                _DTYPES[rhs.dtype], _DTYPES[out_dtype], int(transpose_rhs),
+                stream)
     _cuda_build.check(lib, err, "grouped_gemm")
     grouped_gemm.launches += 1
+    grouped_gemm.launches_tma += int(tma)
     if rhs.dtype == torch.int8:
         grouped_gemm.launches_int8 += 1
     return out
@@ -189,25 +236,38 @@ def grouped_gemm_tgmm(lhs: torch.Tensor, dout: torch.Tensor,
     if dout.device != lhs.device:
         raise ValueError("grouped_gemm_tgmm: operands on different devices")
     (M, K), N = lhs.shape, dout.shape[1]
-    lhs, dout = lhs.contiguous(), dout.contiguous()
     out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out
+    tma = tgmm_takes_tma(M, K, N, (lhs.dtype, dout.dtype, out_dtype))
+    if tma:
+        lhs, dout = lhs.to(torch.bfloat16), dout.to(torch.bfloat16)
+    lhs, dout = lhs.contiguous(), dout.contiguous()
+    tma = tma and _aligned(lhs, dout, out)
 
     from . import _cuda_build
-    lib = _lib()
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        err = lib.molly_grouped_gemm_tgmm(
-            lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
-            group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
-            _DTYPES[dout.dtype], _DTYPES[out_dtype], stream)
+        if tma:
+            lib = _lib_tma()
+            err = lib.molly_grouped_gemm_tgmm_tma(
+                lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
+                stream)
+        else:
+            lib = _lib()
+            err = lib.molly_grouped_gemm_tgmm(
+                lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
+                _DTYPES[dout.dtype], _DTYPES[out_dtype], stream)
     _cuda_build.check(lib, err, "grouped_gemm_tgmm")
     grouped_gemm_tgmm.launches += 1
+    grouped_gemm_tgmm.launches_tma += int(tma)
     return out
 
 
 grouped_gemm_tgmm.launches = 0
+grouped_gemm_tgmm.launches_tma = 0
 
 
 class _GroupedGemm(torch.autograd.Function):
@@ -228,6 +288,10 @@ class _GroupedGemm(torch.autograd.Function):
     def backward(ctx, dout):
         lhs, rhs, group_sizes, scale = ctx.saved_tensors
         dlhs = drhs = None
+        if dout.is_cuda and dout.dtype == torch.float32 and \
+                lhs.dtype == rhs.dtype == torch.bfloat16:
+            # both products below run in bf16: round dout once for both
+            dout = dout.to(torch.bfloat16)
         if ctx.needs_input_grad[0]:
             g = dout
             if scale is not None:
@@ -263,6 +327,7 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
 
 grouped_gemm.launches = 0
 grouped_gemm.launches_int8 = 0
+grouped_gemm.launches_tma = 0
 
 
 def _lib():
@@ -276,4 +341,18 @@ def _lib():
         lib.molly_grouped_gemm_tgmm.argtypes = [P, P, P, P, I, I, I, I, I, I,
                                                 I, P]
         lib.molly_grouped_gemm_tgmm.restype = I
+    return lib
+
+
+def _lib_tma():
+    from . import _cuda_build
+    lib = _cuda_build.library("grouped_gemm_tma")
+    fn = lib.molly_grouped_gemm_tma
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+        fn.restype = I
+        lib.molly_grouped_gemm_tgmm_tma.argtypes = [P, P, P, P, I, I, I, I, I,
+                                                    P]
+        lib.molly_grouped_gemm_tgmm_tma.restype = I
     return lib

@@ -173,7 +173,9 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"{', '.join(bad)}: one device only; the mesh "
                          f"paths are ROADMAP.md queue 1 item 11")
     if args.offload_opt_state:
-        raise SystemExit("--offload-opt-state: ROADMAP.md queue 1 item 11")
+        raise SystemExit("--offload-opt-state (optimizer moments in host "
+                         "memory, a one-device option) is not ported: "
+                         "ROADMAP.md queue 1 item 8")
     if not args.tiny and not args.no_load_pretrained and (
             args.text_model_path or args.dna_rna_model_path
             or args.protein_model_path):

@@ -22,8 +22,10 @@ Feature map:
 
 Parameters and moments are updated IN PLACE (JAX returns a new state): the
 state a step returns shares its tensors with the one it was given. The
-mesh branches, pipeline microbatching (``pp_micro``) and
-``offload_opt_state`` belong to the multi-device slice and are refused.
+mesh branches and pipeline microbatching (``pp_micro``) belong to the
+multi-device slice and are refused; ``offload_opt_state`` (a one-device
+option: the moments live in host memory between steps) is not ported yet
+and is refused too.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ class TrainConfig:
     # chunked linear+CE (ops.lce) instead of [B,S,V] logits
     fused_lce: bool = True
     lce_chunk: int = 256  # tokens per LCE chunk ([C, V] logit peak)
-    # multi-device options of the JAX package, refused here
+    # options of the JAX package that are refused here: pipeline
+    # microbatching (multi-device) and the host-resident optimizer state
     pp_micro: int = 0
     offload_opt_state: bool = False
 
@@ -155,7 +158,8 @@ def _refuse_multi_device(cfg: TrainConfig) -> None:
             "queue 1 item 11")
     if cfg.offload_opt_state:
         raise NotImplementedError(
-            "offload_opt_state is not ported: ROADMAP.md queue 1 item 11")
+            "offload_opt_state (optimizer moments in host memory, a "
+            "one-device option) is not ported: ROADMAP.md queue 1 item 8")
 
 
 def init_train_state(params: Dict[str, Any], cfg: TrainConfig) -> TrainState:

@@ -491,6 +491,125 @@ def test_grouped_gemm_tgmm_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
             assert bool((out[e] == 0).all())
 
 
+# The TMA and wgmma kernels (csrc/grouped_gemm_tma.cu): an empty first and
+# last group, a one-row group, a group of several tiles, one row more than a
+# tile, rows past the last group, M not a multiple of 128.
+_TMA_SIZES = {
+    "ragged": (517, [1, 0, 300, 64, 129, 0]),           # 494 rows owned
+    "empty_ends": (700, [0, 128, 5, 0, 200, 256, 111, 0]),   # all owned
+}
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("sizes", sorted(_TMA_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 64), (128, 768), (768, 128), (64, 72)])
+@pytest.mark.parametrize("lhs_dt,out_dt", [(_BF16, _F32), (_BF16, _BF16),
+                                           (_F32, _BF16)])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_grouped_gemm_tma_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
+                                               out_dt, transpose_rhs):
+    """The forward at many rows a group: the launch goes to the TMA and
+    wgmma kernel, agrees with the plain version over the operands as bf16
+    (an fp32 lhs is rounded once before the launch), writes zeros past the
+    last group and the same bits on a second run."""
+    M, counts = _TMA_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(15)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+    shape = (G, N, K) if transpose_rhs else (G, K, N)
+    rhs = (torch.randn(shape, generator=g, device=dev) * K ** -0.5).to(_BF16)
+    assert gg.takes_tma(M, K, N, G, rhs.dtype, False)
+    before = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma)
+    out = gg.grouped_gemm(lhs, rhs, gs, transpose_rhs=transpose_rhs,
+                          out_dtype=out_dt)
+    again = gg.grouped_gemm(lhs, rhs, gs, transpose_rhs=transpose_rhs,
+                            out_dtype=out_dt)
+    assert gg.grouped_gemm.launches == before[0] + 2
+    assert gg.grouped_gemm.launches_tma == before[1] + 2
+    ref = gg.grouped_gemm_plain(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (M, N)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(ref, _BF16)
+    assert bool((out[sum(counts):] == 0).all())
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("sizes", sorted(_TMA_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 64), (128, 768), (768, 128), (72, 8)])
+@pytest.mark.parametrize("lhs_dt,dout_dt,out_dt", [
+    (_BF16, _BF16, _BF16), (_BF16, _F32, _BF16), (_BF16, _BF16, _F32),
+    (_F32, _BF16, _BF16)])
+def test_grouped_gemm_tgmm_tma_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
+                                                    dout_dt, out_dt):
+    """tgmm in bf16: the launch goes to the TMA and wgmma kernel; parity
+    with the plain version, exact zeros for every empty group, two runs
+    bit-equal (one block a tile, rows in order, no atomics)."""
+    M, counts = _TMA_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(16)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+    dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
+    before = (gg.grouped_gemm_tgmm.launches, gg.grouped_gemm_tgmm.launches_tma)
+    out = gg.grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+    again = gg.grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+    assert gg.grouped_gemm_tgmm.launches == before[0] + 2
+    assert gg.grouped_gemm_tgmm.launches_tma == before[1] + 2
+    ref = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (G, K, N)
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(ref, _BF16)
+    assert torch.equal(out, again)
+    for e, n in enumerate(counts):
+        if n == 0:
+            assert bool((out[e] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["k_not_a_multiple_of_64", "int8_rhs",
+                                  "few_rows_a_group", "tgmm_k_not_of_8",
+                                  "tgmm_all_fp32"])
+def test_grouped_gemm_falls_to_the_mma_sync_kernels(dev, case):
+    """What the TMA and wgmma kernels do not take still launches (on the
+    mma.sync or SIMT kernels) and still agrees with the plain version."""
+    M, counts = _TMA_SIZES["ragged"]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(17)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    fwd0 = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma)
+    tg0 = (gg.grouped_gemm_tgmm.launches, gg.grouped_gemm_tgmm.launches_tma)
+    if case.startswith("tgmm"):
+        K, dt = (68, _BF16) if case == "tgmm_k_not_of_8" else (64, _F32)
+        lhs = torch.randn((M, K), generator=g, device=dev).to(dt)
+        dout = torch.randn((M, 128), generator=g, device=dev).to(dt)
+        out = gg.grouped_gemm_tgmm(lhs, dout, gs, dt)
+        ref = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32)
+        assert gg.grouped_gemm_tgmm.launches == tg0[0] + 1
+        assert gg.grouped_gemm_tgmm.launches_tma == tg0[1]
+        tol = _gg_tol(ref, dt)
+    else:
+        K = 96 if case == "k_not_a_multiple_of_64" else 64
+        scale = None
+        if case == "few_rows_a_group":     # M < 64 G: the 32-row tiles
+            M, gs = 40, torch.tensor([3, 0, 20, 9, 7, 0], dtype=torch.int32,
+                                     device=dev)
+        lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+        if case == "int8_rhs":
+            rhs = torch.randint(-127, 128, (G, K, 128), generator=g,
+                                device=dev, dtype=torch.int8)
+            scale = torch.rand((G, 128), generator=g, device=dev) * 1e-2 + 1e-3
+        else:
+            rhs = torch.randn((G, K, 128), generator=g, device=dev).to(_BF16)
+        out = gg.grouped_gemm(lhs, rhs, gs, scale=scale)
+        ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale)
+        assert gg.grouped_gemm.launches == fwd0[0] + 1
+        assert gg.grouped_gemm.launches_tma == fwd0[1]
+        tol = _gg_tol(ref, _BF16)
+    torch.cuda.synchronize()
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
 def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
     """Gradients of a bf16 product through the transposed kernel and tgmm
     against the plain versions; a frozen rhs launches no tgmm; an int8 rhs
@@ -517,10 +636,14 @@ def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
     assert bool((dr[1] == 0).all())
 
     frozen = rhs.detach()
+    tma0 = gg.grouped_gemm.launches_tma
     out = gg.grouped_gemm(lhs, frozen, gs)
     (dl2,) = torch.autograd.grad(out, (lhs,), dout)
     assert gg.grouped_gemm_tgmm.launches == t0 + 1
     assert torch.equal(dl2, dl)
+    # 300 rows over 4 groups of bf16: the forward and the lhs gradient (its
+    # fp32 dout rounded to bf16 once) both ran on the TMA and wgmma kernel
+    assert gg.grouped_gemm.launches_tma == tma0 + 2
 
     w_q = torch.randint(-127, 128, (G, K, N), generator=g, device=dev,
                         dtype=torch.int8)

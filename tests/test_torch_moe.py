@@ -42,7 +42,7 @@ from molly_tpu_torch.inference import cli, engine
 from molly_tpu_torch.inference.paged import PagedServingEngine
 from molly_tpu_torch.inference.server import ServingEngine
 from molly_tpu_torch.models import configs as tcfg
-from molly_tpu_torch.models import lora, qwen3
+from molly_tpu_torch.models import fusion, lora, qwen3
 from molly_tpu_torch.models.convert import params_from_jax
 from molly_tpu_torch.ops import grouped_gemm as gg
 from molly_tpu_torch.ops import moe
@@ -153,6 +153,78 @@ def test_grouped_gemm_transposed_and_tgmm_plain():
     exact = gg.grouped_gemm(_t(lhs).bfloat16().float(),
                             _t(rhs).bfloat16().float(), _t(gs))
     assert torch.equal(b16, exact.bfloat16())   # one rounding, at the end
+
+
+B16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+# (M, K, N, G, rhs dtype, scale?, aligned?) -> the forward goes to the TMA
+# and wgmma kernel. The first five are what MoE prefill and training launch
+# at qwen3-30b-a3b width (gate/up, down, their lhs gradients).
+FORWARD_ROUTES = {
+    "prefill_gate": ((98304, 2048, 768, 128, B16, False, True), True),
+    "prefill_down": ((98304, 768, 2048, 128, B16, False, True), True),
+    "train_forward": ((32768, 2048, 768, 128, B16, False, True), True),
+    "train_dlhs_gate": ((32768, 768, 2048, 128, B16, False, True), True),
+    "train_dlhs_down": ((32768, 2048, 768, 128, B16, False, True), True),
+    "ragged_small": ((494, 64, 128, 6, B16, False, True), True),
+    "decode": ((32, 2048, 768, 128, B16, False, True), False),
+    "serving_tick": ((64, 2048, 768, 128, B16, False, True), False),
+    "one_row_short_of_64_a_group": ((64 * 128 - 1, 2048, 768, 128, B16,
+                                    False, True), False),
+    "int8_experts": ((98304, 2048, 1536, 128, I8, True, True), False),
+    "int8_transposed": ((32768, 768, 2048, 128, I8, False, True), False),
+    "fp32_rhs": ((32768, 2048, 64, 128, F32, False, True), False),
+    "k_not_a_multiple_of_64": ((32768, 2048 + 32, 768, 128, B16, False,
+                               True), False),
+    "n_not_a_multiple_of_8": ((32768, 2048, 772, 128, B16, False, True),
+                              False),
+    "unaligned_base": ((32768, 2048, 768, 128, B16, False, False), False),
+}
+# (M, K, N, (lhs, dout, out dtypes), aligned?) -> tgmm goes there
+TGMM_ROUTES = {
+    "train_gate": ((32768, 2048, 768, (B16, F32, B16), True), True),
+    "train_down": ((32768, 768, 2048, (B16, F32, B16), True), True),
+    "bf16_dout": ((32768, 2048, 768, (B16, B16, B16), True), True),
+    "transposed_product": ((32768, 2048, 768, (F32, B16, B16), True), True),
+    "ragged_small_fp32_out": ((494, 64, 128, (B16, B16, F32), True), True),
+    "all_fp32": ((32768, 2048, 64, (F32, F32, F32), True), False),
+    "k_not_a_multiple_of_8": ((494, 68, 128, (B16, B16, B16), True), False),
+    "n_not_a_multiple_of_8": ((494, 64, 132, (B16, B16, B16), True), False),
+    "unaligned_base": ((494, 64, 128, (B16, B16, B16), False), False),
+}
+
+
+@pytest.mark.parametrize("case", FORWARD_ROUTES)
+def test_forward_route_rule(case):
+    args, takes = FORWARD_ROUTES[case]
+    assert gg.takes_tma(*args) is takes
+
+
+@pytest.mark.parametrize("case", TGMM_ROUTES)
+def test_tgmm_route_rule(case):
+    args, takes = TGMM_ROUTES[case]
+    assert gg.tgmm_takes_tma(*args) is takes
+
+
+def test_cpu_backward_does_not_round_dout():
+    """The card's bf16 route rounds an fp32 ``dout`` to bf16 once for both
+    backward products. The CPU route must not: bf16 operands with an fp32
+    ``dout`` give exactly the plain versions over the unrounded ``dout``,
+    and an all-fp32 product is the plain version bit for bit."""
+    lhs, rhs, dout, gs = _gg_inputs()
+    assert not np.array_equal(_t(dout).bfloat16().float().numpy(), dout)
+    for dt in (torch.bfloat16, torch.float32):
+        tl = _t(lhs).to(dt).requires_grad_(True)
+        tr = _t(rhs).to(dt).requires_grad_(True)
+        out = gg.grouped_gemm(tl, tr, _t(gs))      # fp32 out: fp32 dout
+        gl, gr = torch.autograd.grad(out, (tl, tr), _t(dout))
+        assert gl.dtype == gr.dtype == dt
+        assert torch.equal(gl, gg.grouped_gemm_plain(
+            _t(dout), tr.detach(), _t(gs), transpose_rhs=True, out_dtype=dt))
+        assert torch.equal(gr, gg.grouped_gemm_tgmm_plain(
+            tl.detach(), _t(dout), _t(gs), dt))
+    assert gg.grouped_gemm.launches == gg.grouped_gemm_tgmm.launches == 0
+    assert gg.grouped_gemm.launches_tma == 0
+    assert gg.grouped_gemm_tgmm.launches_tma == 0
 
 
 def test_grouped_gemm_int8_scale_and_its_gradient():
@@ -532,14 +604,16 @@ def _moe_fusion_setup():
         cfg.text, num_experts=4, num_experts_per_tok=2))
 
 
-def _moe_batch(cfg, **kw):
-    """The fusion test batch, right-padded as training batches are. (A
-    left-padded row has no key to attend to: its hidden state is
-    unspecified, the two packages fill it differently, and an MoE layer
-    routes every row, so the load-balance term would see the difference.)"""
+def _moe_batch(cfg, left_padded=False, **kw):
+    """The fusion test batch, right-padded as training batches are, or
+    ``left_padded`` as ``_fusion_batch`` makes it: then row 3's first six
+    positions have no key to attend to. An MoE layer routes every row, so
+    the load-balance term sees what attention gives such a position (both
+    packages: the uniform mean over all keys)."""
     batch = _fusion_batch(cfg, **kw)
-    batch["attention_mask"][3, :6] = 1
-    batch["attention_mask"][3, -6:] = 0
+    if not left_padded:
+        batch["attention_mask"][3, :6] = 1
+        batch["attention_mask"][3, -6:] = 0
     return batch
 
 
@@ -579,13 +653,70 @@ def _moe_regime(name):
     return cfg, jp, jtc, tp, ttc
 
 
-@pytest.mark.parametrize("name", ["full", "lora", "qlora"])
+def test_left_padded_moe_batch_agrees_tensor_by_tensor(monkeypatch):
+    """The same left-padded MoE batch through both packages on the CPU in
+    fp32, stage by stage, each within 1e-5 of the reference (fp32 sums in
+    another order; the first stage beyond it is reported): the embeddings,
+    what each layer's attention hands its MoE block (positions without a
+    key included), the block's output, each layer's load balance, and the
+    decoder's output and aux losses."""
+    cfg = _moe_fusion_setup()
+    jp = jfusion.init_params(cfg, jax.random.key(11))
+    tp = params_from_jax(_np_tree(jp))
+    batch = _moe_batch(cfg, left_padded=True, B=4, S=48, seed=4)
+    assert not batch["attention_mask"][3, :6].any()
+    jrec, trec = [], []
+    jorig, torig = jmoe.moe_mlp, moe.moe_mlp
+
+    def jpatched(x, *a, **kw):
+        out, aux = jorig(x, *a, **kw)
+        jax.debug.callback(
+            lambda *v: jrec.append([np.asarray(t) for t in v]), x, out,
+            aux["load_balance"])
+        return out, aux
+
+    def tpatched(x, *a, **kw):
+        out, aux = torig(x, *a, **kw)
+        trec.append([x.detach().numpy(), out.detach().numpy(),
+                     aux["load_balance"].detach().numpy()])
+        return out, aux
+
+    monkeypatch.setattr(jmoe, "moe_mlp", jpatched)
+    monkeypatch.setattr(moe, "moe_mlp", tpatched)
+    jb, tb = _jbatch(batch), _tbatch(batch)
+    je = jfusion.build_inputs_embeds(jp, cfg, jb)
+    te = fusion.build_inputs_embeds(tp, _tcfg_of(cfg), tb)
+    jh, jaux = jqwen3.forward_hidden(jp["text"], cfg.text, inputs_embeds=je,
+                                     attention_mask=jb["attention_mask"])
+    with torch.no_grad():
+        th, taux = qwen3.forward_hidden(
+            tp["text"], _tcfg_of(cfg).text, inputs_embeds=te,
+            attention_mask=tb["attention_mask"])
+    jax.effects_barrier()
+    L = cfg.text.num_hidden_layers
+    assert len(jrec) == len(trec) == L
+    stages = [("embeddings", np.asarray(je), te.numpy())]
+    for li in range(L):
+        for name, j, t in zip(("MoE input", "MoE output", "load balance"),
+                              jrec[li], trec[li]):
+            stages.append((f"layer {li} {name}", j, t))
+    stages += [("hidden", np.asarray(jh), th.numpy())] + [
+        (k, np.asarray(jaux["moe_aux"][k]), taux["moe_aux"][k].numpy())
+        for k in ("load_balance", "router_z")]
+    for name, j, t in stages:
+        err = np.abs(j.reshape(t.shape) - t).max()
+        assert err <= 1e-5, f"first stage that differs: {name} ({err:.3e})"
+
+
+@pytest.mark.parametrize("name", ["full", "lora", "qlora", "full-left-padded"])
 def test_moe_one_step_loss_and_gradients_match_make_train_step(name):
     """Loss (1e-5), moe_load_balance (1e-5 relative) and every trainable
     gradient (1e-3 of its max-abs) of one step: full fine-tune (router and
-    expert stacks train), expert LoRA, QLoRA over int8 experts."""
+    expert stacks train), expert LoRA, QLoRA over int8 experts; and the full
+    fine-tune over a left-padded batch (positions without a key)."""
+    name, _, padding = name.partition("-")
     cfg, jp, jtc, tp, ttc = _moe_regime(name)
-    batch = _moe_batch(cfg, B=4, S=48, seed=4)
+    batch = _moe_batch(cfg, left_padded=bool(padding), B=4, S=48, seed=4)
     jstate = jtrainer.init_train_state(jp, jtc)
     jstate, jm = jtrainer.make_train_step(cfg, jtc)(
         jstate, _jbatch(batch), jax.random.key(0))

@@ -32,8 +32,9 @@ from molly_tpu_torch.inference.server import Request
 from molly_tpu_torch.models import qwen3
 from molly_tpu_torch.ops import paged_attention as tpaged
 from test_torch_models import _tcfg_of
-from test_torch_serving import (assert_same_run, both, fusion_batch,
-                                greedy_gen, serving_setup, text_batch)
+from test_torch_serving import (assert_released_without_gc, assert_same_run,
+                                both, fusion_batch, greedy_gen, serving_setup,
+                                text_batch)
 
 ATOL = 1e-5
 
@@ -436,3 +437,14 @@ def test_paged_allocator_keeps_chains_disjoint(setup):
     eng._free_pages.append(6)  # a page on the free list AND in a chain
     with pytest.raises(AssertionError):
         eng._alloc(1)
+
+
+def test_dropped_paged_engine_frees_its_pool_without_gc(setup):
+    cfg, jp, tcfg, tp = setup
+    assert_released_without_gc(
+        lambda: PagedServingEngine(tp, tcfg, _tcfg_of(greedy_gen(4)),
+                                   n_slots=2, page_size=4, n_pages=16,
+                                   prefill_buckets=(16,), decode_chunk=2,
+                                   time_phases=True,
+                                   stream_cb=lambda uid, toks: None),
+        "k_pages")

@@ -482,6 +482,36 @@ def test_cold_rows_are_never_written_in_place(setup):
     assert {k: v.data_ptr() for k, v in eng.hot.items()} == hot_ptrs
 
 
+def assert_released_without_gc(make_engine, pool_key):
+    """Build an engine, serve one request, drop the engine: the engine and
+    its KV pool must die by reference counting alone (no cycle through the
+    engine), so a card gets its memory back without a collection."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        eng = make_engine()
+        out = eng.run([Request(uid=0, batch=text_batch(6, seed=1))])
+        assert len(out[0]) > 0
+        pool_ref = weakref.ref(eng.hot[pool_key])
+        eng_ref = weakref.ref(eng)
+        del eng
+        assert eng_ref() is None, "the engine sits in a reference cycle"
+        assert pool_ref() is None, "the KV pool outlives its engine"
+    finally:
+        gc.enable()
+
+
+def test_dropped_engine_frees_its_pool_without_gc(setup):
+    cfg, jp, tcfg, tp = setup
+    assert_released_without_gc(
+        lambda: ServingEngine(tp, tcfg, _tcfg_of(greedy_gen(4)), n_slots=2,
+                              max_len=48, prefill_buckets=(16,),
+                              decode_chunk=2, time_phases=True,
+                              stream_cb=lambda uid, toks: None), "cache")
+
+
 # ---------------------------------------------------------------- CLI
 
 

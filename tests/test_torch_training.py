@@ -355,8 +355,12 @@ def test_non_finite_guard_keeps_the_old_state():
 
 
 def test_multi_device_options_are_refused():
-    for kw in (dict(pp_micro=2), dict(offload_opt_state=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # pp_micro waits for the multi-device slice (item 11);
+    # offload_opt_state is a one-device option and waits under item 8
+    for kw, message in ((dict(pp_micro=2), "ROADMAP.*item 11"),
+                        (dict(offload_opt_state=True),
+                         "one-device.*ROADMAP.*item 8")):
+        with pytest.raises(NotImplementedError, match=message):
             trainer.make_train_step(_tcfg_of(_fusion_setup()),
                                     trainer.TrainConfig(**kw))
 
@@ -511,5 +515,8 @@ def test_train_cli_flags_match_the_jax_cli_and_refuse_the_unported():
                   ["--text-model-path", "/some/hf/dir"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             _refuse_unported(build_argparser().parse_args(base + extra))
+    with pytest.raises(SystemExit, match="one-device.*ROADMAP.*item 8"):
+        _refuse_unported(build_argparser().parse_args(
+            base + ["--offload-opt-state", "true"]))
     _refuse_unported(build_argparser().parse_args(
         base + ["--mesh-fsdp", "-1"]))
