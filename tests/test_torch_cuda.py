@@ -494,9 +494,12 @@ def test_grouped_gemm_tgmm_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
 # The TMA and wgmma kernels (csrc/grouped_gemm_tma.cu): an empty first and
 # last group, a one-row group, a group of several tiles, one row more than a
 # tile, rows past the last group, M not a multiple of 128.
+_MANY = [(37 * i) % 129 for i in range(300)]   # 300 groups of 0 .. 128 rows
 _TMA_SIZES = {
     "ragged": (517, [1, 0, 300, 64, 129, 0]),           # 494 rows owned
     "empty_ends": (700, [0, 128, 5, 0, 200, 256, 111, 0]),   # all owned
+    # more groups than blocks: several tiles of different groups a block
+    "many_groups": (max(sum(_MANY), 64 * len(_MANY)) + 5, _MANY),
 }
 _BF16, _F32 = torch.bfloat16, torch.float32
 
