@@ -26,7 +26,10 @@ Phases, each printed with its time; any failure exits non-zero:
      one expert forced empty; each case names the source whose kernel ran
      (the TMA and wgmma kernels at prefill and training shapes in bf16, the
      mma.sync and SIMT kernels elsewhere), and a case with an fp32 ``dout``
-     times the wrapper, its one rounding pass to bf16 included.
+     times the wrapper, its one rounding pass to bf16 included. The flash
+     forward runs five cases (decoder, serving and MoE prefill, encoder,
+     training), each on the TMA and wgmma kernel (its route is printed),
+     with its rows without a valid key exactly zero and two runs bit-equal.
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
@@ -68,7 +71,8 @@ Phases, each printed with its time; any failure exits non-zero:
  12. checks: every kernel of each main-path run launched at least once in
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
-     RMSNorm forward.
+     RMSNorm forward; every flash-forward launch of every main-path run
+     (the MoE ones too) ran on the TMA and wgmma kernel.
  13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
      experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
      untied head, 48 layers) fused with nt-500m and esm2-650m, after the
@@ -103,6 +107,7 @@ device JSON line.
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import os
@@ -156,14 +161,16 @@ REPLACES = {
     "grouped_gemm": "molly_tpu/ops/moe.py:100",
     "grouped_gemm_tgmm": "molly_tpu/ops/moe.py:100",
 }
-_FWD_CU = "molly_tpu_torch/csrc/flash_attention_fwd.cu"
+# every bf16 forward of the main paths (fp32 and unaligned views run the
+# SIMT kernel of flash_attention_fwd.cu)
+_FWD_TMA_CU = "molly_tpu_torch/csrc/flash_attention_fwd_tma.cu"
 _BWD_CU = "molly_tpu_torch/csrc/flash_attention_bwd.cu"
 _PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
 _GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
 # the kernels of each table row's first case: prefill and training in bf16
 _GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
 SOURCES = {
-    "flash_attention_fwd": ("cuda", _FWD_CU),
+    "flash_attention_fwd": ("cuda", _FWD_TMA_CU),
     "flash_attention_dq": ("cuda", _BWD_CU),
     "flash_attention_dkv": ("cuda", _BWD_CU),
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
@@ -197,8 +204,16 @@ class Phase:
             torch.cuda.synchronize()
         dt = time.perf_counter() - self.t0
         status = "ok" if exc_type is None else f"FAILED ({exc_type.__name__})"
-        log(f"[phase] {self.name}: {status} in {dt:.2f} s")
+        log(f"[phase] {self.name}: {status} in {dt:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
         return False
+
+
+@functools.cache
+def side_stream():
+    """The one stream every timing captures on."""
+    import torch
+    return torch.cuda.Stream()
 
 
 def time_ms(fn, iters: int, warmup: int = 1, setup=None) -> float:
@@ -208,9 +223,14 @@ def time_ms(fn, iters: int, warmup: int = 1, setup=None) -> float:
     which would otherwise be all that is measured) does not count.
     ``setup``, when given, runs once on the capturing stream and its result
     is handed to ``fn`` (a forward pass whose backward is what is timed:
-    autograd runs a backward on its forward's stream)."""
+    autograd runs a backward on its forward's stream).
+
+    Every call captures on the same side stream: cuBLAS keeps a workspace
+    for each stream it has run on for the life of the process, so a new
+    stream per timing (the pool hands out 32 in turn) left up to one more
+    workspace allocated after each timed plain version."""
     import torch
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         if setup is not None:
@@ -320,7 +340,19 @@ def reset_counts():
     counters()["grouped_gemm"].launches_int8 = 0
     counters()["grouped_gemm"].launches_tma = 0
     counters()["grouped_gemm_tgmm"].launches_tma = 0
+    counters()["flash_attention_fwd"].launches_tma = 0
     paged_attention.launches = paged_attention.launches_int8 = 0
+
+
+def check_flash_tma(label: str) -> None:
+    """Every flash-forward launch since ``reset_counts`` ran on the TMA and
+    wgmma kernel: the main paths give it bf16 at aligned strides only."""
+    fwd = counters()["flash_attention_fwd"]
+    log(f"  {label}: flash forward {fwd.launches} launches, "
+        f"{fwd.launches_tma} on the TMA and wgmma kernel")
+    if fwd.launches_tma != fwd.launches:
+        raise AssertionError(f"{label}: a flash forward ran on the SIMT "
+                             f"kernel")
 
 
 def int8_grouped_launches() -> int:
@@ -363,13 +395,26 @@ def parity_flash(g, results):
 
     def case(name, q, k, v, mask, causal, scale, valid_rows, iters,
              q_offset=0):
+        tma0 = flash_attention_fwd.launches_tma
         o, lse = flash_attention_fwd(q, k, v, mask, causal, scale, q_offset)
+        route = "tma" if flash_attention_fwd.launches_tma > tma0 else "simt"
+        again = flash_attention_fwd(q, k, v, mask, causal, scale, q_offset)
         ro, rlse = flash_attention_plain(q.float(), k.float(), v.float(),
                                          mask, causal, scale, q_offset)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(o).all()) or not bool(
                 torch.isfinite(lse).all()):
             raise AssertionError(f"flash {name}: non-finite output")
+        if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"flash {name}: two runs differ")
+        del again
+        # rows without a valid key (left padding): O = 0 and LSE = 0
+        none = valid_rows == 0
+        no_key_zero = bool((o[none] == 0).all()) and bool(
+            (lse.transpose(1, 2)[none] == 0).all())
+        if not no_key_zero:
+            raise AssertionError(f"flash {name}: a row without a valid key "
+                                 f"is not zero")
         vr = valid_rows[:, :, None, None]                   # [B, Sq, 1, 1]
         err = ((o.float() - ro).abs() * vr).max().item()
         lse_err = ((lse - rlse).abs()
@@ -386,17 +431,21 @@ def parity_flash(g, results):
         bound_ms, bound_by = bound(
             nbytes(q, k, v, o, lse),
             2 * 2 * q.shape[3] * pairs * q.shape[2], "bf16")
-        log(f"  flash {name}: max|dO| {err:.3e} (tol {FLASH_O_ATOL}), "
-            f"max|dLSE| {lse_err:.3e} (tol {FLASH_LSE_ATOL}); "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-            f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"  flash {name}: route {route}; max|dO| {err:.3e} (tol "
+            f"{FLASH_O_ATOL}), max|dLSE| {lse_err:.3e} (tol {FLASH_LSE_ATOL}),"
+            f" {int(none.sum())} rows without a key exactly zero, two runs "
+            f"bit-equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library"
+            f" {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err <= FLASH_O_ATOL and lse_err <= FLASH_LSE_ATOL):
             raise AssertionError(f"flash {name}: parity miss")
+        if route != "tma":
+            raise AssertionError(f"flash {name}: ran on the SIMT kernel")
         del ro, rlse, allow
         torch.cuda.empty_cache()
-        return {"case": name, "max_abs_err": err, "lse_err": lse_err,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+        return {"case": name, "route": route, "max_abs_err": err,
+                "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
 
     cases = []
     # decoder prefill: q [4, 3072, 16, 128] over the [4, 8, 3136, 256]
@@ -451,6 +500,20 @@ def parity_flash(g, results):
     valid = torch.ones((B, S), device=dev)  # every row sees the prefix
     cases.append(case("serve_prefill_bf16[4,3008,16,128]x3072,q_offset=64",
                       q, k, v, mask, True, D ** -0.5, valid, 5, q_offset=pre))
+    del q, kv, k, v
+    # MoE prefill (qwen3-30b-a3b: 32 q heads over 4 kv heads): q [4, 3072,
+    # 32, 128] over the [4, 4, 3136, 256] cache, the decoder prefill's pads
+    B, S, T, N, Nkv, D = 4, 3072, 64, 32, 4, 128
+    q = torch.randn((B, S, N, D), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((B, Nkv, S + T, 2 * D), generator=g,
+                     device=dev).to(torch.bfloat16)
+    k, v = kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+    mask = torch.zeros((B, S + T), dtype=torch.int32, device=dev)
+    for b, p in enumerate(pads):
+        mask[b, p:S] = 1
+    valid = (torch.cumsum(mask[:, :S], dim=1) > 0).float()
+    cases.append(case("moe_prefill_bf16[4,3072,32,128]x3136,4kv", q, k, v,
+                      mask, True, D ** -0.5, valid, 5))
     results["flash_attention_fwd"] = cases
 
 
@@ -1342,6 +1405,7 @@ def main_path(params, cfg, samples, text_tok, gen, seed, label):
                           generator=torch.Generator("cuda").manual_seed(seed),
                           total=len(samples), stats=stats)
     counts = read_counts()
+    check_flash_tma(label)
     lines = buf.getvalue().splitlines()
     steps = stats.get("decode_steps", 0)
     log(f"  {label}: encoders {stats['encode_s']:.3f} s, prefill "
@@ -1379,6 +1443,7 @@ def serve_main_path(params, cfg, samples, text_tok, gen, seed, label,
         admit_batch=4, generator=torch.Generator("cuda").manual_seed(seed),
         stats=stats, **serve_kw)
     counts = read_counts()
+    check_flash_tma(label)
     lines = buf.getvalue().splitlines()
     dispatches = (stats["decode_dispatches"] + stats["fused_dispatches"]
                   + stats["prefill_dispatches"])
@@ -1430,6 +1495,7 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
                         output_dir=None, profile_log_dir=profile_dir,
                         stats=stats)
     counts = read_counts()
+    check_flash_tma(label)
     hist = result["history"]
     for h in hist:
         ph = h["phases"]

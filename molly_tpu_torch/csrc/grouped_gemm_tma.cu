@@ -50,12 +50,12 @@
 // order, no atomics: two runs give the same bits, and an empty group's tile
 // is the zeros the accumulators started with.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace molly::hopper;
 
 constexpr int MAX_GROUPS = 1024;
 constexpr int TILE = 128;      // output tile: 128 x 128
@@ -72,140 +72,6 @@ constexpr int STG_WG_BYTES = 35 * 1024;
 static_assert(STG_WG_BYTES >= 4 * BOX_BYTES &&
               STG_WG_BYTES >= 4 * 16 * STG_LD * 4);
 constexpr int SMEM_BYTES = RING_BYTES + 2 * STG_WG_BYTES + 1024;  // + align
-
-// ---------------------------------------------------------------------------
-// PTX
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// returns once the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the committed stores have read their shared memory
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void tma_store_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory become visible to TMA and wgmma
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// the 128 threads of one consumer warpgroup
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory operand descriptor, 128-byte swizzle (layout type 1). The
-// tile is rows of 128 bytes, 1024-byte aligned; 8 rows are one swizzle atom.
-//   K-major (trans 0): a row is 64 contraction elements of one M/N index;
-//     SBO = 1024 steps 8 M/N indices; LBO is not used; 16 contraction
-//     elements further is +32 bytes.
-//   MN-major (trans 1): a row is 64 M/N indices of one contraction element;
-//     SBO = 1024 steps 8 contraction elements; LBO steps 64 M/N indices (the
-//     next box); 16 contraction elements further is +2048 bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-#define MOLLY_R4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define MOLLY_R16(d, i) \
-  MOLLY_R4(d, i), MOLLY_R4(d, i + 4), MOLLY_R4(d, i + 8), MOLLY_R4(d, i + 12)
-
-// d[64 x 128] += a[64 x 16] * b[16 x 128], bf16 operands from shared memory.
-// Thread (warp q of the warpgroup, g = lane / 4, t = lane % 4) holds
-// d[4j], d[4j+1] = D[16q + g][8j + 2t, +1] and d[4j+2], d[4j+3] = D[16q + g +
-// 8][8j + 2t, +1] for j = 0 .. 15.
-template <int TRANS_A, int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: accumulate onto d
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : MOLLY_R16(d, 0), MOLLY_R16(d, 16), MOLLY_R16(d, 32), MOLLY_R16(d, 48)
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
-}
 
 // One ring position: the stage and the parity its full barrier shows once
 // it has been filled this time round.
@@ -584,24 +450,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Host
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has
-// already loaded: it is looked up by name there, nothing new is linked.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major [.., rows, cols] tensor as boxes of box_rows x box_cols (one
 // box row is 128 bytes), 128-byte swizzle, zeros out of bounds. `batch` > 0
 // makes it 3-D with boxes one batch entry deep.
@@ -623,10 +471,6 @@ bool make_map(CUtensorMap* map, const void* ptr, int elem_bytes,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // of the current device (the wrapper has made the tensors' device current)

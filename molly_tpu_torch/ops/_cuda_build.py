@@ -6,7 +6,7 @@ includes PyTorch's headers, so a build takes seconds, not minutes. All
 sources compile in parallel (one ``nvcc`` each, started together).
 
 Libraries go to ``molly_tpu_torch/_build/`` (git-ignored), named by a hash of
-their source, the shared header and the flags, so an edited source rebuilds
+their source, the shared headers and the flags, so an edited source rebuilds
 and an unchanged one is reused. Importing this module needs no ``nvcc``; a
 build runs only when a CUDA tensor first needs a kernel, or when
 ``build()`` is called. A failed build raises with the compiler's output.
@@ -29,8 +29,9 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int8_matmul",
-           "paged_attention", "grouped_gemm", "grouped_gemm_tma")
+SOURCES = ("flash_attention_fwd", "flash_attention_fwd_tma",
+           "flash_attention_bwd", "int8_matmul", "paged_attention",
+           "grouped_gemm", "grouped_gemm_tma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -1,5 +1,6 @@
 """Flash attention, forward and backward: the wrappers of the hand-written
-CUDA kernels (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
+CUDA kernels (``csrc/flash_attention_fwd_tma.cu`` and
+``csrc/flash_attention_fwd.cu`` for the forward, ``csrc/flash_attention_bwd.cu``),
 their plain PyTorch versions, and the autograd function that joins them.
 
 Replaces ``molly_tpu/ops/flash_attention.py``: ``_fwd_kernel`` (launched from
@@ -10,11 +11,19 @@ take element strides, so K/V views of the head-major KV cache
 gradient dO, with whatever strides autograd left it, are read in place — the
 JAX wrapper transposes them instead.
 
-The backward recomputes P = exp(S - LSE) from the forward's saved LSE with
-the finite -1e30 for masked scores, as the Pallas kernels do; it does not
-differentiate a softmax. On a query row with no valid key the result
-therefore depends on which keys a kernel visits; in the model dO is exactly
-zero on such rows, so they add nothing.
+The forward has two kernels. ``fwd_takes_tma`` is the rule: bf16 with
+16-byte aligned bases and strides (every main-path call) runs the TMA and
+wgmma kernel, which visits no key tile that the mask and the causal rule
+leave empty; fp32 and unaligned bf16 views run the SIMT kernel.
+
+A query row with no valid key (a left-padded prompt position) comes out of
+both card kernels as O = 0 and LSE = 0; the plain version gives it the
+uniform mean over all keys, as the JAX package does (``_probs``). Nothing
+reads such a row: the loss masks it and no valid row attends to a padded
+key. The backward recomputes P = exp(S - LSE) from the forward's saved LSE
+with the finite -1e30 for masked scores, as the Pallas kernels do; it does
+not differentiate a softmax. On the card LSE = 0 makes P zero on every key
+of a row without a valid key; in the model dO is exactly zero there anyway.
 
 The headers of the CUDA sources say what bounds the kernels on the card and
 what their design does about it.
@@ -53,7 +62,8 @@ def _probs(s, lse, no_key):
     """P = exp(S - LSE). A row with no valid key weighs every key 1 / Skv,
     the uniform mean over ALL keys that both attention routes of the JAX
     package give it. (All its scores are NEG_INF, the fp32 LSE absorbs
-    log(Skv), and exp(S - LSE) alone would weigh every key 1: the sum.)"""
+    log(Skv), and exp(S - LSE) alone would weigh every key 1: the sum.) The
+    card's kernels give such a row O = 0 and LSE = 0 instead."""
     p = torch.exp(s - lse[..., None])
     return torch.where(no_key, 1.0 / s.shape[-1], p)
 
@@ -63,9 +73,9 @@ def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain PyTorch version: (O [B, Sq, N, D] in q's dtype,
     LSE [B, N, Sq] fp32), math in fp32. A row with no valid key gets the
-    uniform average over all keys (see ``_probs``), where the kernel
-    averages over the keys it visited; callers that compare the two
-    compare only rows with a valid key."""
+    uniform average over all keys (see ``_probs``), where the kernels give
+    O = 0 and LSE = 0; callers that compare the two compare only rows with
+    a valid key."""
     B, Sq, N, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -74,6 +84,31 @@ def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
     o = torch.einsum("bngqk,bknd->bqngd", _probs(s, lse, no_key), v.float())
     return (o.reshape(B, Sq, N, D).to(q.dtype),
             lse.reshape(B, N, Sq))
+
+
+def fwd_takes_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor) -> bool:
+    """Does this forward go to the TMA and wgmma kernel? All four bf16, a
+    head dim of 64 or 128 that is contiguous, 16-byte aligned bases, and
+    strides of whole 16-byte rows (multiples of 8 elements) on every axis
+    longer than 1. Everything else runs the SIMT kernel."""
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16) or \
+            q.shape[-1] not in (64, 128):
+        return False
+    for t in (q, k, v, o):
+        if t.stride(-1) != 1 or t.data_ptr() % 16:
+            return False
+        if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+               if n > 1):
+            return False
+    return True
+
+
+def _strides(t: torch.Tensor, D: int):
+    """Element strides of the three outer axes; an axis of length 1 gets D
+    (its stride is never stepped, and the TMA maps take only multiples of
+    16 bytes)."""
+    return [st if n > 1 else D for st, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,7 +120,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head dim), mask [B, Skv] 1=keep -> (O [B, Sq, N, D], LSE [B, N, Sq]).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    that ``fwd_takes_tma`` names, or raises. ``.launches`` counts kernel
+    launches, ``.launches_tma`` those on the TMA and wgmma kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, causal, scale, q_offset)
     if q.device.type != "cuda":
@@ -118,23 +154,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_ptr, m_sb, m_ss = None, 0, 0
 
     from . import _cuda_build
-    lib = _flash_lib()
+    tma = fwd_takes_tma(q, k, v, o)
+    lib = _flash_lib("flash_attention_fwd_tma" if tma else
+                     "flash_attention_fwd")
+    if tma:
+        fn, dtype, st = lib.molly_flash_attention_fwd_tma, (), [
+            x for t in (q, k, v, o) for x in _strides(t, D)]
+    else:
+        fn, dtype, st = lib.molly_flash_attention_fwd, (_DTYPES[q.dtype],), [
+            x for t in (q, k, v, o) for x in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.molly_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m_ptr, o.data_ptr(),
-            lse.data_ptr(), B, N, Nkv, Sq, Skv, D, _DTYPES[q.dtype],
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2), m_sb, m_ss,
-            float(scale), int(bool(causal)), int(q_offset), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m_ptr,
+                 o.data_ptr(), lse.data_ptr(), B, N, Nkv, Sq, Skv, D, *dtype,
+                 *st, m_sb, m_ss, float(scale), int(bool(causal)),
+                 int(q_offset), stream)
     _cuda_build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_tma += tma
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_tma = 0
 
 
 def flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout, causal=True,
@@ -311,13 +353,16 @@ def flash_attention(q, k, v, mask=None, causal=True, scale=None,
     return flash_attention_fwd(q, k, v, mask, causal, scale, q_offset)[0]
 
 
-def _flash_lib():
+def _flash_lib(name: str):
+    """The forward's library ``name``: the SIMT kernel's entry point takes a
+    dtype code after D, the TMA kernel's (bf16 only) does not."""
     from . import _cuda_build
-    lib = _cuda_build.library("flash_attention_fwd")
-    fn = lib.molly_flash_attention_fwd
+    lib = _cuda_build.library(name)
+    fn = getattr(lib, f"molly_{name}")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([P] * 6 + [I] * 7 + [L] * 14
+        ints = 7 if name == "flash_attention_fwd" else 6
+        fn.argtypes = ([P] * 6 + [I] * ints + [L] * 14
                        + [ctypes.c_float, I, I, P])
         fn.restype = I
     return lib

@@ -35,8 +35,9 @@ def dev():
     (128, True, 0, False, False)])
 def test_flash_kernel_matches_plain(dev, dtype, D, causal, q_offset, bnsd,
                                     aligned):
-    """bf16 with aligned rows runs the tensor-core kernel; fp32 and the
-    unaligned bf16 view run the SIMT kernel."""
+    """bf16 with aligned rows runs the TMA and wgmma kernel; fp32 and the
+    unaligned bf16 view run the SIMT kernel. Both give a row without a
+    valid key O = 0 and LSE = 0, and the same bits on every run."""
     g = torch.Generator(device=dev).manual_seed(0)
     B, Sq, N, Nkv = 2, 100, 4, 2
     Skv = Sq + q_offset + 13
@@ -52,11 +53,16 @@ def test_flash_kernel_matches_plain(dev, dtype, D, causal, q_offset, bnsd,
     mask = torch.ones((B, Skv), dtype=torch.int32, device=dev)
     mask[1, :40] = 0  # rows of batch 1 below 40 - q_offset see no key
     before = fa.flash_attention_fwd.launches
+    tma = fa.flash_attention_fwd.launches_tma
     o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, None, q_offset)
     assert fa.flash_attention_fwd.launches == before + 1
+    assert fa.flash_attention_fwd.launches_tma == tma + (
+        dtype == torch.bfloat16 and aligned)
+    again = fa.flash_attention_fwd(q, k, v, mask, causal, None, q_offset)
     ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(), mask,
                                         causal, None, q_offset)
     torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     rows = torch.ones((B, Sq), dtype=torch.bool, device=dev)
     if causal:
@@ -64,6 +70,80 @@ def test_flash_kernel_matches_plain(dev, dtype, D, causal, q_offset, bnsd,
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert ((o.float() - ro).abs()[rows]).max().item() <= tol
     assert ((lse - rlse).abs().transpose(1, 2)[rows]).max().item() <= 1e-4
+    assert (o[~rows] == 0).all()
+    assert (lse.transpose(1, 2)[~rows] == 0).all()
+
+
+_HOLE = 300  # keys masked in the middle of a row
+
+
+def _flash_mask(kind, B, Skv, dev):
+    """[B, Skv] int32: batch row 1 left-padded, right-padded, with a hole of
+    300 keys in the middle (clipped to the row, key 0 and the last key
+    stay), or with no valid key at all; batch row 0 keeps every key."""
+    mask = torch.ones((B, Skv), dtype=torch.int32, device=dev)
+    if kind == "left":
+        mask[1, :40] = 0
+    elif kind == "right":
+        mask[1, Skv - Skv // 3:] = 0
+    elif kind == "hole":
+        a = max(1, Skv // 2 - _HOLE // 2)
+        mask[:, a:min(Skv - 1, a + _HOLE)] = 0
+    else:
+        mask[1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["left", "right", "hole", "empty"])
+@pytest.mark.parametrize("causal,q_offset,bnsd,Sq", [
+    (True, 0, False, 300), (True, 37, True, 100), (True, 37, False, 16),
+    (False, 0, True, 300), (False, 0, False, 100)])
+def test_flash_tma_kernel_matches_plain(dev, D, group, kind, causal,
+                                        q_offset, bnsd, Sq):
+    """The TMA and wgmma kernel (bf16, aligned) against the plain version on
+    every row with a valid key: O within one bf16 rounding (2e-2), LSE 1e-4
+    (the same fp32 math). Skv is no multiple of the 128-key tile; tiles the
+    mask leaves empty are not visited, which changes nothing but the order
+    of sums. A row without a valid key is O = 0 and LSE = 0 exactly, and
+    two runs give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, Nkv = 2, 2
+    N = Nkv * group
+    Skv = Sq + q_offset + 13 if causal else 613
+    q = torch.randn((B, Sq, N, D), generator=g, device=dev).to(torch.bfloat16)
+    if bnsd:
+        kv = torch.randn((B, Nkv, Skv, 2 * D), generator=g,
+                         device=dev).to(torch.bfloat16)
+        k, v = kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+    else:
+        k = torch.randn((B, Skv, Nkv, D), generator=g,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Skv, Nkv, D), generator=g,
+                        device=dev).to(torch.bfloat16)
+    mask = _flash_mask(kind, B, Skv, dev)
+    assert fa.fwd_takes_tma(q, k, v, torch.empty_like(q))
+    tma = fa.flash_attention_fwd.launches_tma
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, None, q_offset)
+    again = fa.flash_attention_fwd(q, k, v, mask, causal, None, q_offset)
+    assert fa.flash_attention_fwd.launches_tma == tma + 2
+    ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(), mask,
+                                        causal, None, q_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    allowed = (mask != 0)[:, None, :].expand(B, Sq, Skv)
+    if causal:
+        pos = torch.arange(Sq, device=dev)[:, None] + q_offset
+        allowed = allowed & (pos >= torch.arange(Skv, device=dev))
+    rows = allowed.any(-1)                                   # [B, Sq]
+    if kind == "empty" or (kind == "left" and causal):
+        assert not rows.all()  # the case has rows without a key
+    assert ((o.float() - ro).abs()[rows]).max().item() <= 2e-2
+    assert ((lse - rlse).abs().transpose(1, 2)[rows]).max().item() <= 1e-4
+    assert (o[~rows] == 0).all()
+    assert (lse.transpose(1, 2)[~rows] == 0).all()
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(dev):

@@ -116,6 +116,11 @@ FLASH_CASES = [
     (1, 24, 40, 2, 2, 16, True, True, 16),     # prefill into longer cache
     (2, 20, 20, 2, 2, 16, True, True, 0),      # non-divisible seq lens
     (2, 16, 24, 4, 2, 16, True, True, 0),      # left padding: empty rows
+    # use_mask "hole": keys 16-63 masked, three whole 16-key blocks;
+    # "no_key_row": batch row 1 has no valid key at all
+    (2, 32, 48, 8, 1, 16, True, True, 0),      # GQA group of 8
+    (2, 24, 80, 4, 2, 16, False, "hole", 0),   # a hole of whole blocks
+    (2, 24, 40, 2, 2, 16, True, "no_key_row", 16),
 ]
 
 
@@ -138,7 +143,13 @@ def test_flash_forward_matches_pallas(B, Sq, Skv, N, Nkv, D, causal,
     k = _rand(rng, B, Skv, Nkv, D, scale=0.3)
     v = _rand(rng, B, Skv, Nkv, D, scale=0.3)
     mask = None
-    if use_mask:
+    if use_mask == "hole":
+        mask = np.ones((B, Skv), np.int32)
+        mask[:, 16:64] = 0
+    elif use_mask == "no_key_row":
+        mask = np.ones((B, Skv), np.int32)
+        mask[1] = 0
+    elif use_mask:
         mask = np.ones((B, Skv), np.int32)
         mask[:, -4:] = 0
         if Sq == 16:  # left-padded prompt rows have no valid key
@@ -167,6 +178,52 @@ def test_flash_forward_matches_pallas(B, Sq, Skv, N, Nkv, D, causal,
                                atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(lse.numpy().transpose(0, 2, 1)[rows],
                                ref_lse.transpose(0, 2, 1)[rows], atol=ATOL)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _cache_halves(B=2, Nkv=2, S=40, D=128):
+    """k, v as the attention call sees them: [B, S, Nkv, D] views of the
+    halves of a head-major [B, Nkv, S, 2D] cache."""
+    kv = _bf16(B, Nkv, S, 2 * D)
+    return kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,expected", [
+    ("bsnd_bf16", True),
+    ("cache_views", True),
+    ("head_dim_64", True),
+    ("fp32", False),
+    ("head_dim_32", False),
+    ("odd_offset_view", False),
+    ("offset_view_of_8", True),
+    ("row_stride_not_16_bytes", False),
+    ("length_1_axis_any_stride", True),
+])
+def test_fwd_takes_tma_rule(case, expected):
+    """The route rule of the forward, on CPU tensors (it reads dtypes,
+    shapes, strides and base addresses only): bf16, D 64 or 128, 16-byte
+    aligned bases, strides of whole 16-byte rows on every axis longer than
+    1."""
+    D = 64 if case == "head_dim_64" else 32 if case == "head_dim_32" else 128
+    q = _bf16(2, 24, 4, D)
+    k, v = _bf16(2, 40, 2, D), _bf16(2, 40, 2, D)
+    if case == "cache_views":
+        k, v = _cache_halves()
+    elif case == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case == "odd_offset_view":  # the same values one element further
+        q = _bf16(2, 24, 4, D + 1)[..., 1:]
+    elif case == "offset_view_of_8":  # 16 bytes further, rows still aligned
+        q = _bf16(2, 24, 4, D + 8)[..., 8:]
+    elif case == "row_stride_not_16_bytes":
+        k = _bf16(2, 40, 2, D + 4)[..., :D]
+    elif case == "length_1_axis_any_stride":
+        q = _bf16(1, 24, 4, D).as_strided((1, 24, 4, D), (3, 4 * D, D, 1))
+    o = torch.empty(q.shape, dtype=q.dtype)
+    assert tfa.fwd_takes_tma(q, k, v, o) is expected
 
 
 # ---------------------------------------------------------------- attention
