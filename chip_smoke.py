@@ -30,6 +30,12 @@ Phases, each printed with its time; any failure exits non-zero:
      forward runs five cases (decoder, serving and MoE prefill, encoder,
      training), each on the TMA and wgmma kernel (its route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
+     The flash dQ and dK/dV kernels (``flash_attention_bwd_tma.cu``) run
+     three cases (training, MoE training at 32 q heads over 4 kv heads, an
+     encoder's shape), each on the TMA and wgmma kernels (routes printed),
+     two runs bit-equal, dK = dV = 0 exactly on every key the mask removes;
+     the time of the delta = rowsum(dO * O) pass is printed beside theirs,
+     so that their sum compares with SDPA's whole backward.
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
@@ -71,8 +77,8 @@ Phases, each printed with its time; any failure exits non-zero:
  12. checks: every kernel of each main-path run launched at least once in
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
-     RMSNorm forward; every flash-forward launch of every main-path run
-     (the MoE ones too) ran on the TMA and wgmma kernel.
+     RMSNorm forward; every flash forward, dQ and dK/dV launch of every
+     main-path run (the MoE ones too) ran on the TMA and wgmma kernels.
  13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
      experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
      untied head, 48 layers) fused with nt-500m and esm2-650m, after the
@@ -161,18 +167,19 @@ REPLACES = {
     "grouped_gemm": "molly_tpu/ops/moe.py:100",
     "grouped_gemm_tgmm": "molly_tpu/ops/moe.py:100",
 }
-# every bf16 forward of the main paths (fp32 and unaligned views run the
-# SIMT kernel of flash_attention_fwd.cu)
+# every bf16 forward and backward of the main paths (fp32 and unaligned
+# views run the SIMT kernels of flash_attention_fwd.cu and
+# flash_attention_bwd.cu)
 _FWD_TMA_CU = "molly_tpu_torch/csrc/flash_attention_fwd_tma.cu"
-_BWD_CU = "molly_tpu_torch/csrc/flash_attention_bwd.cu"
+_BWD_TMA_CU = "molly_tpu_torch/csrc/flash_attention_bwd_tma.cu"
 _PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
 _GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
 # the kernels of each table row's first case: prefill and training in bf16
 _GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_TMA_CU),
-    "flash_attention_dq": ("cuda", _BWD_CU),
-    "flash_attention_dkv": ("cuda", _BWD_CU),
+    "flash_attention_dq": ("cuda", _BWD_TMA_CU),
+    "flash_attention_dkv": ("cuda", _BWD_TMA_CU),
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "rmsnorm_bwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
@@ -340,19 +347,25 @@ def reset_counts():
     counters()["grouped_gemm"].launches_int8 = 0
     counters()["grouped_gemm"].launches_tma = 0
     counters()["grouped_gemm_tgmm"].launches_tma = 0
-    counters()["flash_attention_fwd"].launches_tma = 0
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        counters()[name].launches_tma = 0
     paged_attention.launches = paged_attention.launches_int8 = 0
 
 
 def check_flash_tma(label: str) -> None:
-    """Every flash-forward launch since ``reset_counts`` ran on the TMA and
-    wgmma kernel: the main paths give it bf16 at aligned strides only."""
-    fwd = counters()["flash_attention_fwd"]
-    log(f"  {label}: flash forward {fwd.launches} launches, "
-        f"{fwd.launches_tma} on the TMA and wgmma kernel")
-    if fwd.launches_tma != fwd.launches:
-        raise AssertionError(f"{label}: a flash forward ran on the SIMT "
-                             f"kernel")
+    """Every flash forward, dQ and dK/dV launch since ``reset_counts`` ran
+    on the TMA and wgmma kernels: the main paths give them bf16 at aligned
+    strides only."""
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        fn = counters()[name]
+        if fn.launches:
+            log(f"  {label}: {name} {fn.launches} launches, "
+                f"{fn.launches_tma} on the TMA and wgmma kernel")
+        if fn.launches_tma != fn.launches:
+            raise AssertionError(f"{label}: a {name} launch ran on the SIMT "
+                                 f"kernel")
 
 
 def int8_grouped_launches() -> int:
@@ -541,8 +554,8 @@ def parity_flash_bwd(g, results):
     import torch.nn.functional as F
 
     from molly_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_dkv, flash_attention_dq,
-        flash_attention_fwd)
+        flash_attention_bwd_plain, flash_attention_delta, flash_attention_dkv,
+        flash_attention_dq, flash_attention_fwd)
 
     def case(name, q, k, v, dout, mask, causal, scale, iters):
         N, D = q.shape[2], q.shape[3]
@@ -552,16 +565,34 @@ def parity_flash_bwd(g, results):
         has_key = (torch.cumsum(mask, dim=1) > 0) if causal else \
             (mask.sum(dim=1, keepdim=True) > 0).expand_as(mask)
         dout = dout * has_key[:, :, None, None].to(dout.dtype)
-        delta = torch.einsum("bsnd,bsnd->bns", dout.float(),
-                             o.float()).contiguous()
+
+        def delta_pass():  # tensor ops, as flash_attention_bwd computes it
+            return flash_attention_delta(dout, o)
+
+        delta = delta_pass()
         args = (q, k, v, mask, lse, delta, dout, causal, scale, 0)
+        tma0 = (flash_attention_dq.launches_tma,
+                flash_attention_dkv.launches_tma)
         dq = flash_attention_dq(*args)
         dk, dv = flash_attention_dkv(*args)
+        routes = tuple("tma" if n > n0 else "simt" for n, n0 in zip(
+            (flash_attention_dq.launches_tma,
+             flash_attention_dkv.launches_tma), tma0))
+        again = (flash_attention_dq(*args), *flash_attention_dkv(*args))
         # the plain version on the same bf16 tensors: fp32 math inside, P
         # and dS rounded to bf16 before their second product as the kernel
         # rounds them
         rq, rk, rv = (t.float() for t in flash_attention_bwd_plain(*args))
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"flash bwd {name}: two runs differ")
+        del again
+        # keys the mask removes get exactly nothing
+        masked = mask == 0
+        if not (bool((dk[masked] == 0).all()) and
+                bool((dv[masked] == 0).all())):
+            raise AssertionError(f"flash bwd {name}: a masked key's dK or "
+                                 f"dV is not zero")
         errs = {}
         for nm, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
             if not bool(torch.isfinite(a).all()):
@@ -581,6 +612,7 @@ def parity_flash_bwd(g, results):
                                      f"random dO")
         dq_ms = time_ms(lambda: flash_attention_dq(*args), iters)
         dkv_ms = time_ms(lambda: flash_attention_dkv(*args), iters)
+        delta_ms = time_ms(delta_pass, iters)
         plain_ms = time_ms(lambda: flash_attention_bwd_plain(*args),
                            max(1, iters // 2))
         # the library's backward computes dQ, dK and dV in one call
@@ -598,21 +630,29 @@ def parity_flash_bwd(g, results):
                          3 * 2 * D * pairs * N, "bf16")
         dkv_bound = bound(nbytes(q, k, v, dout, lse, delta, dk, dv),
                           4 * 2 * D * pairs * N, "bf16")
-        log(f"  flash bwd {name}: max err dq {errs['dq']:.3e} dk "
-            f"{errs['dk']:.3e} dv {errs['dv']:.3e} (tol {FLASH_BWD_REL} of "
-            f"max|ref|); dq {dq_ms:.3f} ms (bound {dq_bound[0]:.4f} ms, "
-            f"{dq_bound[1]}), dkv {dkv_ms:.3f} ms (bound "
-            f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), plain dq+dkv "
-            f"{plain_ms:.3f} ms, library dq+dkv {library_ms:.3f} ms")
+        log(f"  flash bwd {name}: routes dq {routes[0]}, dkv {routes[1]}; "
+            f"max err dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+            f"{errs['dv']:.3e} (tol {FLASH_BWD_REL} of max|ref|), two runs "
+            f"bit-equal, {int(masked.sum())} masked keys' dK, dV exactly "
+            f"zero; dq {dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
+            f"{dq_bound[1]}), dkv {dkv_ms:.4f} ms (bound "
+            f"{dkv_bound[0]:.4f} ms, {dkv_bound[1]}), delta pass "
+            f"{delta_ms:.4f} ms: dq + dkv + delta "
+            f"{dq_ms + dkv_ms + delta_ms:.4f} ms against library dq+dk+dv "
+            f"{library_ms:.4f} ms; plain dq+dk+dv {plain_ms:.3f} ms")
+        if routes != ("tma", "tma"):
+            raise AssertionError(f"flash bwd {name}: ran on the SIMT kernels")
         del rq, rk, rv, allow
         torch.cuda.empty_cache()
         common = {"case": name, "plain_ms": plain_ms,
-                  "library_ms": library_ms,
+                  "library_ms": library_ms, "delta_ms": delta_ms,
                   "note": "plain_ms and library_ms time dQ, dK and dV "
-                          "together"}
-        return ({**common, "max_abs_err": errs["dq"], "ms": dq_ms,
-                 "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
-                {**common, "max_abs_err": max(errs["dk"], errs["dv"]),
+                          "together; delta_ms the rowsum(dO * O) pass"}
+        return ({**common, "route": routes[0], "max_abs_err": errs["dq"],
+                 "ms": dq_ms, "bound_ms": dq_bound[0],
+                 "bound_by": dq_bound[1]},
+                {**common, "route": routes[1],
+                 "max_abs_err": max(errs["dk"], errs["dv"]),
                  "ms": dkv_ms, "bound_ms": dkv_bound[0],
                  "bound_by": dkv_bound[1]})
 
@@ -620,6 +660,13 @@ def parity_flash_bwd(g, results):
     q, k, v, dout, mask = train_attention_inputs(g)
     a, b = case("train_bf16[4,1024,16,128]x8kv", q, k, v, dout, mask, True,
                 128 ** -0.5, 5)
+    dq_cases.append(a)
+    dkv_cases.append(b)
+    del q, k, v, dout
+    # MoE training (qwen3-30b-a3b: 32 q heads over 4 kv heads, group 8)
+    q, k, v, dout, mask = train_attention_inputs(g, N=32, Nkv=4)
+    a, b = case("moe_train_bf16[4,1024,32,128]x4kv", q, k, v, dout, mask,
+                True, 128 ** -0.5, 5)
     dq_cases.append(a)
     dkv_cases.append(b)
     del q, k, v, dout

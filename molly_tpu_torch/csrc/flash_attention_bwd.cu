@@ -1,13 +1,17 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward, dQ and dK/dV, on the fp32 SIMT pipes: the
+// kernels for fp32 operands and for bf16 views whose rows are not 16-byte
+// aligned. Aligned bf16 (every call of the train step) runs the TMA and
+// wgmma kernels of flash_attention_bwd_tma.cu instead
+// (ops/flash_attention.py:bwd_takes_tma is the rule).
 //
 // Replaces: molly_tpu/ops/flash_attention.py:_dq_kernel and :_dkv_kernel (the
-// Pallas TPU kernels launched from _flash_bwd). Same semantics, FA2 style:
-// P is RECOMPUTED as exp(S - LSE) from the forward's saved fp32 LSE (masked
-// scores are the finite -1e30, never -inf), dS = P * (dO V^T - delta) with
-// delta = rowsum(dO * O) handed in by the wrapper, P and dS are rounded to
-// the storage dtype before their second product, the softmax scale multiplies
-// the fp32 score product and once more dQ and dK at the end. GQA: kv head =
-// q head / group, K/V never repeated.
+// Pallas TPU kernels launched from _flash_bwd) for those operands. Same
+// semantics, FA2 style: P is RECOMPUTED as exp(S - LSE) from the forward's
+// saved fp32 LSE (masked scores are the finite -1e30, never -inf), dS = P *
+// (dO V^T - delta) with delta = rowsum(dO * O) handed in by the wrapper, P
+// and dS are rounded to the storage dtype before their second product, the
+// softmax scale multiplies the fp32 score product and once more dQ and dK
+// at the end. GQA: kv head = q head / group, K/V never repeated.
 //
 // The Pallas split is kept because it needs no atomics and gives the same
 // bits from run to run:
@@ -23,20 +27,12 @@
 //
 // What bounds it on this card: the training shapes (S = 1024, D = 128) make
 // 7 tile products of ~S^2 * D multiply-adds per head (3 in dQ, 4 in dK/dV,
-// S recomputed in both) — far above the ops-per-byte ridge, so it is bound
-// by operations, and only the tensor cores give those. Each of the two
-// kernels therefore exists twice behind one entry point:
-//   - bf16 with 16-byte-aligned rows (every call of the train step):
-//     flash_dq_mma_kernel / flash_dkv_mma_kernel on mma.sync m16n8k16; see
-//     the note above them.
-//   - fp32, or unaligned bf16 views: flash_dq_kernel / flash_dkv_kernel on
-//     the fp32 SIMT pipes, tiles staged in shared memory as fp32 and laid
-//     out so that every inner step is a few 16-byte shared loads for 32
-//     FMAs. Shared memory per block at D = 128: 187 KB (dQ), 172 KB (dK/dV)
-//     of the 227 KB a block may opt into — one block per SM.
-// Heavy tiles (most causal work) are scheduled first in all four. Not done
-// yet: cp.async / TMA double-buffering of the tiles and Hopper's wgmma,
-// which the card needs for its full bf16 rate.
+// S recomputed in both), far above the ops-per-byte ridge, so it is bound by
+// operations; on the fp32 pipes (67 TFLOP/s) tiles are staged in shared
+// memory as fp32 and laid out so that every inner step is a few 16-byte
+// shared loads for 32 FMAs. Shared memory per block at D = 128: 187 KB (dQ),
+// 172 KB (dK/dV) of the 227 KB a block may opt into, one block per SM; heavy
+// tiles (most causal work) are scheduled first.
 
 #include "common.cuh"
 
@@ -454,432 +450,6 @@ int launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16 path on the tensor cores: the same two kernels on mma.sync m16n8k16
-// (bf16 operands, fp32 accumulators), 4 warps per block, each owning 16 rows
-// of the block's tile. As in the forward kernel, the accumulators of the
-// first products (S and dP) are, pair of 8-wide tiles by pair, exactly the
-// A fragment of the second product, so P and dS go from registers to the
-// tensor cores (rounded to bf16 on the way, as the Pallas kernels cast them)
-// without a trip through shared memory.
-//   - flash_dq_mma_kernel: a warp owns 16 QUERY rows. Q and dO fragments stay
-//     in registers for the whole key loop; S = Q K^T and dP = dO V^T read K
-//     and V row-major from shared memory; dQ += dS K reads K transposed.
-//   - flash_dkv_mma_kernel: a warp owns 16 KEY rows and works on the
-//     transposed problem, S^T = K Q^T and dP^T = V dO^T (K, V row-major as
-//     the A operand; Q, dO row-major as the B operand), so that P^T and dS^T
-//     are the A operands of dV += P^T dO and dK += dS^T Q, which read dO and
-//     Q transposed. The dK and dV accumulators (2 x 64 registers a thread at
-//     D = 128) are why K and V fragments are re-read from shared memory
-//     instead of being held in registers.
-// Shared rows are padded by 8 elements, so fragment reads hit 32 distinct
-// banks. Needs 16-byte-aligned rows (strides a multiple of 8 elements);
-// anything else, and fp32, takes the SIMT kernels above.
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;
-constexpr int SPAD = 8;  // bf16 padding of a shared row
-
-// rows [row0, row0 + 64) x [0, D) of a strided bf16 tensor -> dst[r][d]
-// (row stride D + SPAD), 16 bytes a thread, rows past n_rows zero
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int row0,
-                                           int n_rows, int tid) {
-  constexpr int DT = D / 8, QS = D + SPAD;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < 64 * DT; idx += MMA_THREADS) {
-    const int r = idx / DT, c = (idx % DT) * 8;
-    const int gi = row0 + r;
-    *reinterpret_cast<uint4*>(&dst[r * QS + c]) =
-        gi < n_rows
-            ? *reinterpret_cast<const uint4*>(src + gi * row_stride + c)
-            : zero4;
-  }
-}
-
-// the same rows transposed: dst[d][r] (row stride 64 + SPAD)
-template <int D>
-__device__ __forceinline__ void stage_rows_t(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             long long row_stride, int row0,
-                                             int n_rows, int tid) {
-  constexpr int DT = D / 8, TS = 64 + SPAD;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  for (int idx = tid; idx < 64 * DT; idx += MMA_THREADS) {
-    const int r = idx % 64, c = (idx / 64) * 8;  // lanes along the rows
-    const int gi = row0 + r;
-    uint4 raw = gi < n_rows ? *reinterpret_cast<const uint4*>(
-                                  src + gi * row_stride + c)
-                            : zero4;
-    const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * TS + r] = e8[i];
-  }
-}
-
-// the A fragment of k-step kk from the accumulators of 8-wide tiles 2kk and
-// 2kk + 1, rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&pa)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  pa[0] = molly::pack_bf16(lo[0], lo[1]);
-  pa[1] = molly::pack_bf16(lo[2], lo[3]);
-  pa[2] = molly::pack_bf16(hi[0], hi[1]);
-  pa[3] = molly::pack_bf16(hi[2], hi[3]);
-}
-
-template <int D>
-constexpr int dq_mma_smem_bytes() {
-  return (int)sizeof(__nv_bfloat16) *
-             (2 * BK * (D + SPAD) + D * (BK + SPAD)) +
-         BK * (int)sizeof(int);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_dq_mma_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int QS = D + SPAD;   // row stride of Ks / Vs
-  constexpr int TS = BK + SPAD;  // row stride of Kt
-  constexpr int KSTEPS = D / 16;
-  constexpr int DT = D / 8;
-  using bf16 = __nv_bfloat16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][QS]; first holds Q
-  bf16* Vs = Ks + BK * QS;                       // [BK][QS]; first holds dO
-  bf16* Kt = Vs + BK * QS;                       // [D][TS]: k tile, transposed
-  int* Ms = reinterpret_cast<int*>(Kt + D * TS);  // key validity of the tile
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.group;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sn;
-  const bf16* gp = static_cast<const bf16*>(a.dout) + b * a.g_sb + h * a.g_sn;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sn;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sn;
-  const int32_t* mp = a.mask ? a.mask + b * a.m_sb : nullptr;
-  const float* lsep = a.lse + ((long long)b * a.N + h) * a.Sq;
-  const float* deltap = a.delta + ((long long)b * a.N + h) * a.Sq;
-
-  // Q and dO fragments of this warp's 16 rows, for the whole key loop
-  stage_rows<D>(Ks, qp, a.q_ss, q0, a.Sq, tid);
-  stage_rows<D>(Vs, gp, a.g_ss, q0, a.Sq, tid);
-  __syncthreads();
-  uint32_t qa[KSTEPS][4], ga[KSTEPS][4];
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    qa[ks][0] = molly::ld32(&Ks[r0 * QS + ks * 16 + t * 2]);
-    qa[ks][1] = molly::ld32(&Ks[(r0 + 8) * QS + ks * 16 + t * 2]);
-    qa[ks][2] = molly::ld32(&Ks[r0 * QS + ks * 16 + 8 + t * 2]);
-    qa[ks][3] = molly::ld32(&Ks[(r0 + 8) * QS + ks * 16 + 8 + t * 2]);
-    ga[ks][0] = molly::ld32(&Vs[r0 * QS + ks * 16 + t * 2]);
-    ga[ks][1] = molly::ld32(&Vs[(r0 + 8) * QS + ks * 16 + t * 2]);
-    ga[ks][2] = molly::ld32(&Vs[r0 * QS + ks * 16 + 8 + t * 2]);
-    ga[ks][3] = molly::ld32(&Vs[(r0 + 8) * QS + ks * 16 + 8 + t * 2]);
-  }
-  float lse2[2], dl[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int qi = q0 + r0 + hr * 8;
-    row_ok[hr] = qi < a.Sq;
-    lse2[hr] = row_ok[hr] ? lsep[qi] * LOG2E : 0.f;
-    dl[hr] = row_ok[hr] ? deltap[qi] : 0.f;
-  }
-
-  const int n_tiles = (a.Skv + BK - 1) / BK;
-  int n_visit = n_tiles;
-  if (a.causal) {
-    const long long max_kv = (long long)a.q_offset + q0 + BQ;
-    n_visit = (int)min((long long)n_tiles, (max_kv + BK - 1) / BK);
-  }
-
-  float dq[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  const int qpos0 = a.q_offset + q0 + r0;
-
-  for (int tile = 0; tile < n_visit; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // the previous reads of Ks / Vs / Kt / Ms are done
-    stage_rows<D>(Ks, kp, a.k_ss, k0, a.Skv, tid);
-    stage_rows<D>(Vs, vp, a.v_ss, k0, a.Skv, tid);
-    stage_rows_t<D>(Kt, kp, a.k_ss, k0, a.Skv, tid);
-    if (tid < BK) {
-      const int kj = k0 + tid;
-      Ms[tid] = kj < a.Skv && (mp == nullptr || mp[kj * a.m_ss] != 0);
-    }
-    __syncthreads();
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 0.f;
-        dp[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const int off = (j * 8 + g) * QS + ks * 16 + t * 2;
-        molly::mma_bf16(s[j], qa[ks], molly::ld32(&Ks[off]),
-                        molly::ld32(&Ks[off + 8]));
-        molly::mma_bf16(dp[j], ga[ks], molly::ld32(&Vs[off]),
-                        molly::ld32(&Vs[off + 8]));
-      }
-    }
-
-    // dS into s; element e of tile j is row r0 + 8*(e >= 2), key
-    // k0 + j*8 + t*2 + (e & 1)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const int hr = e >> 1;
-        const bool ok = row_ok[hr] && Ms[col] &&
-                        (!a.causal || qpos0 + hr * 8 >= k0 + col);
-        const float sv = ok ? s[j][e] * a.scale_log2 : NEG_INF;
-        const float p = exp2f(sv - lse2[hr]);
-        s[j][e] = p * (dp[j][e] - dl[hr]);
-      }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int off = (j * 8 + g) * TS + kk * 16 + t * 2;
-        molly::mma_bf16(dq[j], da, molly::ld32(&Kt[off]),
-                        molly::ld32(&Kt[off + 8]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int qi = q0 + r0 + hr * 8;
-    if (qi >= a.Sq) continue;
-    bf16* op =
-        static_cast<bf16*>(a.out1) + b * a.o1_sb + h * a.o1_sn + qi * a.o1_ss;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(&op[j * 8 + t * 2]) =
-          __floats2bfloat162_rn(dq[j][2 * hr] * a.scale,
-                                dq[j][2 * hr + 1] * a.scale);
-  }
-}
-
-template <int D>
-constexpr int dkv_mma_smem_bytes() {
-  return (int)sizeof(__nv_bfloat16) *
-             (4 * 64 * (D + SPAD) + 2 * D * (64 + SPAD)) +
-         2 * BQ * (int)sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_dkv_mma_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int QS = D + SPAD;   // row stride of the row-major tiles
-  constexpr int TS = BQ + SPAD;  // row stride of the transposed tiles
-  constexpr int KSTEPS = D / 16;
-  constexpr int DT = D / 8;
-  using bf16 = __nv_bfloat16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][QS]
-  bf16* Vs = Ks + BK * QS;                       // [BK][QS]
-  bf16* Qs = Vs + BK * QS;                       // [BQ][QS]
-  bf16* Gs = Qs + BQ * QS;                       // [BQ][QS]  dO
-  bf16* Qt = Gs + BQ * QS;                       // [D][TS]   q, transposed
-  bf16* Gt = Qt + D * TS;                        // [D][TS]   dO, transposed
-  float* Ls = reinterpret_cast<float*>(Gt + D * TS);  // [BQ] LSE * log2(e)
-  float* Dl = Ls + BQ;                                // [BQ] delta
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;  // the first key tile is the heaviest
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sn;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sn;
-  const int32_t* mp = a.mask ? a.mask + b * a.m_sb : nullptr;
-
-  stage_rows<D>(Ks, kp, a.k_ss, k0, a.Skv, tid);
-  stage_rows<D>(Vs, vp, a.v_ss, k0, a.Skv, tid);
-  const int kr0 = warp * 16 + g;  // this thread's keys: kr0 and kr0 + 8
-  bool key_ok[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int kj = k0 + kr0 + hr * 8;
-    key_ok[hr] = kj < a.Skv && (mp == nullptr || mp[kj * a.m_ss] != 0);
-  }
-
-  const int n_q_tiles = (a.Sq + BQ - 1) / BQ;
-  int first_q = 0;
-  if (a.causal) first_q = max((k0 - a.q_offset) / BQ, 0);
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[j][e] = 0.f;
-      dv[j][e] = 0.f;
-    }
-
-  for (int gi = 0; gi < a.group; ++gi) {
-    const int h = kvh * a.group + gi;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sn;
-    const bf16* gp =
-        static_cast<const bf16*>(a.dout) + b * a.g_sb + h * a.g_sn;
-    const float* lsep = a.lse + ((long long)b * a.N + h) * a.Sq;
-    const float* deltap = a.delta + ((long long)b * a.N + h) * a.Sq;
-
-    for (int iq = first_q; iq < n_q_tiles; ++iq) {
-      const int q0 = iq * BQ;
-      __syncthreads();  // the previous tile's reads are done
-      stage_rows<D>(Qs, qp, a.q_ss, q0, a.Sq, tid);
-      stage_rows<D>(Gs, gp, a.g_ss, q0, a.Sq, tid);
-      stage_rows_t<D>(Qt, qp, a.q_ss, q0, a.Sq, tid);
-      stage_rows_t<D>(Gt, gp, a.g_ss, q0, a.Sq, tid);
-      if (tid < BQ) {
-        const int qi = q0 + tid;
-        Ls[tid] = qi < a.Sq ? lsep[qi] * LOG2E : 0.f;
-        Dl[tid] = qi < a.Sq ? deltap[qi] : 0.f;
-      }
-      __syncthreads();  // also covers the K / V tile on the first pass
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries a warp
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[j][e] = 0.f;
-          dpt[j][e] = 0.f;
-        }
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const int ao = kr0 * QS + ks * 16 + t * 2;
-        const uint32_t ka[4] = {
-            molly::ld32(&Ks[ao]), molly::ld32(&Ks[ao + 8 * QS]),
-            molly::ld32(&Ks[ao + 8]), molly::ld32(&Ks[ao + 8 * QS + 8])};
-        const uint32_t va[4] = {
-            molly::ld32(&Vs[ao]), molly::ld32(&Vs[ao + 8 * QS]),
-            molly::ld32(&Vs[ao + 8]), molly::ld32(&Vs[ao + 8 * QS + 8])};
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const int off = (j * 8 + g) * QS + ks * 16 + t * 2;
-          molly::mma_bf16(st[j], ka, molly::ld32(&Qs[off]),
-                          molly::ld32(&Qs[off + 8]));
-          molly::mma_bf16(dpt[j], va, molly::ld32(&Gs[off]),
-                          molly::ld32(&Gs[off + 8]));
-        }
-      }
-
-      // P^T into st, dS^T into dpt; element e of tile j is key
-      // k0 + kr0 + 8*(e >= 2), query q0 + j*8 + t*2 + (e & 1)
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + t * 2 + (e & 1);
-          const int hr = e >> 1;
-          const int qi = q0 + qc;
-          const bool ok = key_ok[hr] && qi < a.Sq &&
-                          (!a.causal ||
-                           a.q_offset + qi >= k0 + kr0 + hr * 8);
-          const float sv = ok ? st[j][e] * a.scale_log2 : NEG_INF;
-          const float p = exp2f(sv - Ls[qc]);
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - Dl[qc]);
-        }
-
-      // dV += P^T dO, dK += dS^T Q (the k dimension is the 64 queries)
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          const int off = (j * 8 + g) * TS + kk * 16 + t * 2;
-          molly::mma_bf16(dv[j], pa, molly::ld32(&Gt[off]),
-                          molly::ld32(&Gt[off + 8]));
-          molly::mma_bf16(dk[j], da, molly::ld32(&Qt[off]),
-                          molly::ld32(&Qt[off + 8]));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int kj = k0 + kr0 + hr * 8;
-    if (kj >= a.Skv) continue;
-    bf16* dkp =
-        static_cast<bf16*>(a.out1) + b * a.o1_sb + kvh * a.o1_sn + kj * a.o1_ss;
-    bf16* dvp =
-        static_cast<bf16*>(a.out2) + b * a.o2_sb + kvh * a.o2_sn + kj * a.o2_ss;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(&dkp[j * 8 + t * 2]) =
-          __floats2bfloat162_rn(dk[j][2 * hr] * a.scale,
-                                dk[j][2 * hr + 1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(&dvp[j * 8 + t * 2]) =
-          __floats2bfloat162_rn(dv[j][2 * hr], dv[j][2 * hr + 1]);
-    }
-  }
-}
-
-template <int D>
-int launch_dq_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  const int smem = dq_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.N, B);
-  flash_dq_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  const int smem = dkv_mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + BK - 1) / BK, a.N / a.group, B);
-  flash_dkv_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// the mma kernels move 16-byte vectors in and 4-byte pairs out: every
-// tensor's rows must start 16-byte aligned (strides a multiple of 8 bf16)
-bool vector_aligned(const BwdArgs& a) {
-  auto al = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  const long long st[] = {a.q_sb,  a.q_ss,  a.q_sn,  a.k_sb,  a.k_ss,  a.k_sn,
-                          a.v_sb,  a.v_ss,  a.v_sn,  a.g_sb,  a.g_ss,  a.g_sn,
-                          a.o1_sb, a.o1_ss, a.o1_sn, a.o2_sb, a.o2_ss, a.o2_sn};
-  for (long long x : st)
-    if (x % 8 != 0) return false;
-  return al(a.q) && al(a.k) && al(a.v) && al(a.dout) && al(a.out1) &&
-         al(a.out2);
-}
-
 // strides: 20 element strides in the order q, k, v, dO, out1, out2 (batch,
 // sequence, head each) and the mask's (batch, key)
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -919,13 +489,8 @@ extern "C" int molly_flash_attention_dq(
                               Nkv, Sq, Skv, strides, scale, causal, q_offset);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == molly::kBFloat16) {
-    const bool mma = vector_aligned(a);
-    if (D == 64)
-      return mma ? launch_dq_mma<64>(a, B, s)
-                 : launch_dq<__nv_bfloat16, 64>(a, B, s);
-    if (D == 128)
-      return mma ? launch_dq_mma<128>(a, B, s)
-                 : launch_dq<__nv_bfloat16, 128>(a, B, s);
+    if (D == 64) return launch_dq<__nv_bfloat16, 64>(a, B, s);
+    if (D == 128) return launch_dq<__nv_bfloat16, 128>(a, B, s);
   } else if (dtype == molly::kFloat32) {
     if (D == 64) return launch_dq<float, 64>(a, B, s);
     if (D == 128) return launch_dq<float, 128>(a, B, s);
@@ -946,13 +511,8 @@ extern "C" int molly_flash_attention_dkv(
                               Sq, Skv, strides, scale, causal, q_offset);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == molly::kBFloat16) {
-    const bool mma = vector_aligned(a);
-    if (D == 64)
-      return mma ? launch_dkv_mma<64>(a, B, s)
-                 : launch_dkv<__nv_bfloat16, 64>(a, B, s);
-    if (D == 128)
-      return mma ? launch_dkv_mma<128>(a, B, s)
-                 : launch_dkv<__nv_bfloat16, 128>(a, B, s);
+    if (D == 64) return launch_dkv<__nv_bfloat16, 64>(a, B, s);
+    if (D == 128) return launch_dkv<__nv_bfloat16, 128>(a, B, s);
   } else if (dtype == molly::kFloat32) {
     if (D == 64) return launch_dkv<float, 64>(a, B, s);
     if (D == 128) return launch_dkv<float, 128>(a, B, s);

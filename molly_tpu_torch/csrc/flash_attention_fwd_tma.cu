@@ -384,36 +384,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   if ((threadIdx.x & 127) == 0) tma_store_wait_all();
 }
 
-// [B, S, heads, D] bf16 given by element strides (the head dim contiguous)
-// as a 4-D tensor map, boxes of 64 head dims (128 bytes) x `rows` positions
-// x 1 x 1, 128-byte swizzle, zeros out of bounds
-bool make_map(CUtensorMap* map, const void* ptr, long long D, long long S,
-              long long H, long long B, long long s_s, long long s_h,
-              long long s_b, int rows) {
-  EncodeTiled encode = encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 2, (cuuint64_t)s_h * 2,
-                                 (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long (&st)[12], const Args& a, int Nkv,
            cudaStream_t stream) {
   alignas(64) CUtensorMap map_q, map_k, map_v, map_o;
-  if (!make_map(&map_q, q, D, a.Sq, a.N, a.B, st[1], st[2], st[0], BM) ||
-      !make_map(&map_k, k, D, a.Skv, Nkv, a.B, st[4], st[5], st[3], BN) ||
-      !make_map(&map_v, v, D, a.Skv, Nkv, a.B, st[7], st[8], st[6], BN) ||
-      !make_map(&map_o, o, D, a.Sq, a.N, a.B, st[10], st[11], st[9], 64))
+  if (!make_bsnd_map(&map_q, q, D, a.Sq, a.N, a.B, st[1], st[2], st[0],
+                     BM) ||
+      !make_bsnd_map(&map_k, k, D, a.Skv, Nkv, a.B, st[4], st[5], st[3],
+                     BN) ||
+      !make_bsnd_map(&map_v, v, D, a.Skv, Nkv, a.B, st[7], st[8], st[6],
+                     BN) ||
+      !make_bsnd_map(&map_o, o, D, a.Sq, a.N, a.B, st[10], st[11], st[9],
+                     64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,8 +1,9 @@
 // PTX helpers for the kernels built from what Hopper added (sm_90a only):
 // shared-memory addresses, mbarriers, TMA loads and stores, the proxy
 // fence, the warpgroup barrier, wgmma and its shared-memory descriptors,
-// and the host's lookup of cuTensorMapEncodeTiled. Included by
-// grouped_gemm_tma.cu and flash_attention_fwd_tma.cu.
+// the host's lookup of cuTensorMapEncodeTiled and the 4-D maps of the
+// attention kernels. Included by grouped_gemm_tma.cu,
+// flash_attention_fwd_tma.cu and flash_attention_bwd_tma.cu.
 #pragma once
 
 #include <cuda.h>
@@ -172,6 +173,24 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+// d[64 x 64] (+)= a[64 x 16] * b[16 x 64] from shared memory; the layout of
+// d is the one above with j = 0 .. 7
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : MOLLY_R16(d, 0), MOLLY_R16(d, 16)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 // d[64 x 128] += a[64 x 16] * b[16 x 128] with a from registers: thread
 // (q, g, t) holds a[0] = A[16q + g][2t, +1], a[1] = A[16q + g + 8][2t, +1],
 // a[2] = A[16q + g][2t + 8, +9], a[3] = A[16q + g + 8][2t + 8, +9] as bf16
@@ -240,6 +259,27 @@ inline EncodeTiled encoder() {
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// [B, S, heads, D] bf16 given by element strides (the head dim contiguous)
+// as a 4-D tensor map, boxes of 64 head dims (128 bytes) x `rows` positions
+// x 1 x 1, 128-byte swizzle, zeros out of bounds (stores clip there)
+inline bool make_bsnd_map(CUtensorMap* map, const void* ptr, long long D,
+                          long long S, long long H, long long B, long long s_s,
+                          long long s_h, long long s_b, int rows) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_s * 2, (cuuint64_t)s_h * 2,
+                                 (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -1,7 +1,9 @@
 """Flash attention, forward and backward: the wrappers of the hand-written
 CUDA kernels (``csrc/flash_attention_fwd_tma.cu`` and
-``csrc/flash_attention_fwd.cu`` for the forward, ``csrc/flash_attention_bwd.cu``),
-their plain PyTorch versions, and the autograd function that joins them.
+``csrc/flash_attention_fwd.cu`` for the forward,
+``csrc/flash_attention_bwd_tma.cu`` and ``csrc/flash_attention_bwd.cu`` for
+the backward), their plain PyTorch versions, and the autograd function that
+joins them.
 
 Replaces ``molly_tpu/ops/flash_attention.py``: ``_fwd_kernel`` (launched from
 ``_flash_fwd``), ``_dq_kernel`` and ``_dkv_kernel`` (launched from
@@ -11,10 +13,11 @@ take element strides, so K/V views of the head-major KV cache
 gradient dO, with whatever strides autograd left it, are read in place — the
 JAX wrapper transposes them instead.
 
-The forward has two kernels. ``fwd_takes_tma`` is the rule: bf16 with
-16-byte aligned bases and strides (every main-path call) runs the TMA and
-wgmma kernel, which visits no key tile that the mask and the causal rule
-leave empty; fp32 and unaligned bf16 views run the SIMT kernel.
+The forward and each backward kernel exist twice. ``fwd_takes_tma`` and
+``bwd_takes_tma`` are the rules: bf16 with 16-byte aligned bases and
+strides (every main-path call) runs the TMA and wgmma kernels, which visit
+no key tile that the mask and the causal rule leave empty; fp32 and
+unaligned bf16 views run the SIMT kernels.
 
 A query row with no valid key (a left-padded prompt position) comes out of
 both card kernels as O = 0 and LSE = 0; the plain version gives it the
@@ -86,22 +89,31 @@ def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
             lse.reshape(B, N, Sq))
 
 
+def _tma_layout(t: torch.Tensor) -> bool:
+    """A contiguous head dim, a 16-byte aligned base and strides of whole
+    16-byte rows (multiples of 8 elements) on every axis longer than 1: what
+    a TMA tensor map over the [B, S, heads, D] view takes."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+        st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
 def fwd_takes_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor) -> bool:
     """Does this forward go to the TMA and wgmma kernel? All four bf16, a
-    head dim of 64 or 128 that is contiguous, 16-byte aligned bases, and
-    strides of whole 16-byte rows (multiples of 8 elements) on every axis
-    longer than 1. Everything else runs the SIMT kernel."""
-    if not (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16) or \
-            q.shape[-1] not in (64, 128):
-        return False
-    for t in (q, k, v, o):
-        if t.stride(-1) != 1 or t.data_ptr() % 16:
-            return False
-        if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
-               if n > 1):
-            return False
-    return True
+    head dim of 64 or 128, and each laid out as ``_tma_layout`` says.
+    Everything else runs the SIMT kernel."""
+    return (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16
+            and q.shape[-1] in (64, 128)
+            and all(_tma_layout(t) for t in (q, k, v, o)))
+
+
+def bwd_takes_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor) -> bool:
+    """Do this backward's dQ and dK/dV go to the TMA and wgmma kernels? The
+    forward's rule over q, k, v and dO (the outputs are allocated
+    contiguous, so they always qualify). Everything else runs the SIMT
+    kernels."""
+    return fwd_takes_tma(q, k, v, dout)
 
 
 def _strides(t: torch.Tensor, D: int):
@@ -231,13 +243,16 @@ def _bwd_launch(which: str, q, k, v, mask, lse, delta, dout, causal, scale,
                 not t.is_contiguous():
             raise ValueError(f"flash_attention_{which}: {name} must be a "
                              f"contiguous fp32 [B, N, Sq]")
-    if dout.stride(-1) != 1:
-        # the kernels read dO through strides but need its head dim dense
-        dout = dout.contiguous()
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention_{which}: the head dim must "
                              f"be contiguous")
+    # the kernels read dO through strides but need its head dim dense; a dO
+    # that alone keeps a call off the TMA kernels is copied once instead, so
+    # tma is bwd_takes_tma(q, k, v, dout) (dtypes and D are checked above)
+    tma = q.dtype == torch.bfloat16 and all(_tma_layout(t) for t in (q, k, v))
+    if dout.stride(-1) != 1 or (tma and not _tma_layout(dout)):
+        dout = dout.contiguous()
     if not all(t.device == q.device for t in (k, v, dout, lse, delta)):
         raise ValueError(f"flash_attention_{which}: operands on different "
                          f"devices")
@@ -258,61 +273,71 @@ def _bwd_launch(which: str, q, k, v, mask, lse, delta, dout, causal, scale,
                 torch.empty_like(v, memory_format=torch.contiguous_format))
     st = []
     for t in (q, k, v, dout, outs[0], outs[-1]):
-        st += [t.stride(0), t.stride(1), t.stride(2)]
+        st += _strides(t, D) if tma else t.stride()[:3]
     strides = (ctypes.c_longlong * 20)(*st, *m_st)
 
     from . import _cuda_build
-    lib = _flash_bwd_lib()
-    fn = getattr(lib, f"molly_flash_attention_{which}")
+    lib, fn = _flash_bwd_fn(which, tma)
+    dtype = () if tma else (_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  m_ptr, lse.data_ptr(), delta.data_ptr(),
                  *[o.data_ptr() for o in outs], B, N, Nkv, Sq, Skv, D,
-                 _DTYPES[q.dtype], strides, float(scale), int(bool(causal)),
+                 *dtype, strides, float(scale), int(bool(causal)),
                  int(q_offset), stream)
     _cuda_build.check(lib, err, f"flash_attention_{which}")
-    return outs
+    return outs, tma
 
 
 def flash_attention_dq(q, k, v, mask, lse, delta, dout, causal=True,
                        scale=None, q_offset: int = 0) -> torch.Tensor:
-    """dQ [B, Sq, N, D] on a CUDA tensor (the kernel, or raises); a CPU
-    tensor runs the plain version."""
+    """dQ [B, Sq, N, D] on a CUDA tensor (the kernel that ``bwd_takes_tma``
+    names, or raises); a CPU tensor runs the plain version. ``.launches``
+    counts kernel launches, ``.launches_tma`` those on the TMA kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          causal, scale, q_offset)[0]
-    (dq,) = _bwd_launch("dq", q, k, v, mask, lse, delta, dout, causal, scale,
-                        q_offset)
+    (dq,), tma = _bwd_launch("dq", q, k, v, mask, lse, delta, dout, causal,
+                             scale, q_offset)
     flash_attention_dq.launches += 1
+    flash_attention_dq.launches_tma += tma
     return dq
 
 
 def flash_attention_dkv(q, k, v, mask, lse, delta, dout, causal=True,
                         scale=None, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B, Skv, Nkv, D] on a CUDA tensor (the kernel, or raises); a
-    CPU tensor runs the plain version."""
+    """(dK, dV) [B, Skv, Nkv, D] on a CUDA tensor, as ``flash_attention_dq``
+    launches and counts; a CPU tensor runs the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          causal, scale, q_offset)[1:]
-    dk, dv = _bwd_launch("dkv", q, k, v, mask, lse, delta, dout, causal,
-                         scale, q_offset)
+    (dk, dv), tma = _bwd_launch("dkv", q, k, v, mask, lse, delta, dout,
+                                causal, scale, q_offset)
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.launches_tma += tma
     return dk, dv
 
 
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+flash_attention_dq.launches = flash_attention_dq.launches_tma = 0
+flash_attention_dkv.launches = flash_attention_dkv.launches_tma = 0
+
+
+def flash_attention_delta(dout: torch.Tensor, o: torch.Tensor
+                          ) -> torch.Tensor:
+    """delta = rowsum(dO * O), fp32 [B, N, S] contiguous: tensor ops, as
+    ``_flash_bwd`` computes it outside the Pallas kernels. The products and
+    sums are fp32; O is promoted inside the multiply, not copied to fp32
+    first."""
+    return (dout.float() * o).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd(q, k, v, mask, o, lse, dout, causal=True, scale=None,
                         q_offset: int = 0):
-    """(dQ, dK, dV) from the forward's saved O and LSE. delta =
-    rowsum(dO * O) is tensor ops here, as ``_flash_bwd`` computes it outside
-    the Pallas kernels."""
-    delta = torch.einsum("bsnd,bsnd->bns", dout.float(), o.float()
-                         ).contiguous()
+    """(dQ, dK, dV) from the forward's saved O and LSE, with
+    ``flash_attention_delta`` between them."""
+    delta = flash_attention_delta(dout, o)
     if q.device.type == "cpu":  # one pass of the plain version gives all
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          causal, scale, q_offset)
@@ -368,15 +393,19 @@ def _flash_lib(name: str):
     return lib
 
 
-def _flash_bwd_lib():
+def _flash_bwd_fn(which: str, tma: bool):
+    """(library, entry point) of the backward's ``which`` ("dq" or "dkv"):
+    the SIMT kernels' entry points take a dtype code after D, the TMA
+    kernels' (bf16 only) do not."""
     from . import _cuda_build
-    lib = _cuda_build.library("flash_attention_bwd")
-    if lib.molly_flash_attention_dq.argtypes is None:
+    lib = _cuda_build.library("flash_attention_bwd_tma" if tma else
+                              "flash_attention_bwd")
+    fn = getattr(lib, f"molly_flash_attention_{which}{'_tma' if tma else ''}")
+    if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        tail = [I] * 7 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                          I, I, P]
-        lib.molly_flash_attention_dq.argtypes = [P] * 8 + tail
-        lib.molly_flash_attention_dkv.argtypes = [P] * 9 + tail
-        lib.molly_flash_attention_dq.restype = I
-        lib.molly_flash_attention_dkv.restype = I
-    return lib
+        fn.argtypes = ([P] * (8 if which == "dq" else 9)
+                       + [I] * (6 if tma else 7)
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                          I, I, P])
+        fn.restype = I
+    return lib, fn

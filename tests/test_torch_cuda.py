@@ -249,9 +249,88 @@ def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, q_offset,
         assert torch.isfinite(t).all()
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["left", "right", "hole", "empty"])
+@pytest.mark.parametrize("causal,q_offset,Sq,strided_dout", [
+    (True, 0, 300, False), (True, 37, 100, True), (True, 37, 16, False),
+    (False, 0, 300, True), (False, 0, 100, False)])
+def test_flash_bwd_tma_kernels_match_plain(dev, D, group, kind, causal,
+                                           q_offset, Sq, strided_dout):
+    """The TMA and wgmma dQ and dK/dV kernels (bf16, aligned) against the
+    plain recompute on the same tensors: within 1e-2 of max|ref| (one bf16
+    rounding of the output, and P and dS rounded to bf16 on both sides)
+    plus 1e-4: where a row sees one key only ("hole" at q_offset 37), P = 1
+    and dS = dP - delta is zero but for fp32 rounding, so dQ and dK are
+    rounding noise of ~1e-6 on both sides. Sq and Skv are no multiples of
+    the tiles; a strided dO is read in place. Keys the mask removes (a
+    whole 128-key tile of them under "hole" and "empty") get dK = dV = 0
+    exactly, a row without a valid key dQ = 0, and two runs give the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, Nkv = 2, 2
+    N = Nkv * group
+    Skv = Sq + q_offset + 13 if causal else 613
+    q = torch.randn((B, Sq, N, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Skv, Nkv, D), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Skv, Nkv, D), generator=g,
+                    device=dev).to(torch.bfloat16)
+    mask = _flash_mask(kind, B, Skv, dev)
+    allowed = (mask != 0)[:, None, :].expand(B, Sq, Skv)
+    if causal:
+        pos = torch.arange(Sq, device=dev)[:, None] + q_offset
+        allowed = allowed & (pos >= torch.arange(Skv, device=dev))
+    rows = allowed.any(-1)                                   # [B, Sq]
+    dout = torch.randn((B, Sq, N, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    dout = dout * rows[:, :, None, None].to(dout.dtype)  # zero as in the model
+    if strided_dout:  # the same values in the first half of wider rows
+        wide = torch.zeros((B, Sq, N, 2 * D), dtype=dout.dtype, device=dev)
+        wide[..., :D] = dout
+        dout = wide[..., :D]
+        assert not dout.is_contiguous()
+    assert fa.bwd_takes_tma(q, k, v, dout)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, None, q_offset)
+    delta = torch.einsum("bsnd,bsnd->bns", dout.float(), o.float()
+                         ).contiguous()
+    args = (q, k, v, mask, lse, delta, dout, causal, None, q_offset)
+    n_dq, n_dkv = (fa.flash_attention_dq.launches_tma,
+                   fa.flash_attention_dkv.launches_tma)
+    dq = fa.flash_attention_dq(*args)
+    dk, dv = fa.flash_attention_dkv(*args)
+    dq2 = fa.flash_attention_dq(*args)
+    dk2, dv2 = fa.flash_attention_dkv(*args)
+    assert fa.flash_attention_dq.launches_tma == n_dq + 2
+    assert fa.flash_attention_dkv.launches_tma == n_dkv + 2
+    ref = fa.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and \
+        torch.equal(dv, dv2)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all(), name
+        tol = 1e-2 * r.float().abs().max().item() + 1e-4
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+    assert (dq[~rows] == 0).all()
+    masked = mask == 0                                        # [B, Skv]
+    if kind == "empty" or (kind == "hole" and Skv > 300):
+        # some 128-key tile holds no valid key: nothing of it is loaded
+        tiles = torch.zeros((B, -(-Skv // 128) * 128), dtype=torch.bool,
+                            device=dev)
+        tiles[:, :Skv] = ~masked
+        assert not tiles.view(B, -1, 128).any(-1).all()
+    assert (dk[masked] == 0).all() and (dv[masked] == 0).all()
+    # random dO on every row, rows without a valid key included: finite
+    noise = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    nargs = (q, k, v, mask, lse, delta, noise, causal, None, q_offset)
+    for t in (fa.flash_attention_dq(*nargs), *fa.flash_attention_dkv(*nargs)):
+        assert torch.isfinite(t).all()
+
+
 def test_flash_backward_unaligned_bf16_views_match_plain(dev):
     """bf16 views whose rows are not 16-byte aligned take the SIMT kernels
-    (aligned ones the tensor-core kernels): same answers."""
+    (aligned ones the TMA kernels): same answers."""
     q, k, v, dout, _, mask = _bwd_inputs(dev, torch.bfloat16, 64, True, 0)
 
     def shifted(x):  # the same values behind an odd element offset
@@ -267,7 +346,12 @@ def test_flash_backward_unaligned_bf16_views_match_plain(dev):
                                        None, 0)
     args = (shifted(q), shifted(k), shifted(v), mask, lse, delta,
             shifted(dout), True, None, 0)
+    assert not fa.bwd_takes_tma(*args[:3], args[6])
+    n_dq, n_dkv = (fa.flash_attention_dq.launches_tma,
+                   fa.flash_attention_dkv.launches_tma)
     got = (fa.flash_attention_dq(*args), *fa.flash_attention_dkv(*args))
+    assert (fa.flash_attention_dq.launches_tma,
+            fa.flash_attention_dkv.launches_tma) == (n_dq, n_dkv)
     for a, r in zip(got, ref):
         tol = 1e-2 * r.float().abs().max().item()
         assert (a.float() - r.float()).abs().max().item() <= tol
@@ -285,9 +369,11 @@ def test_flash_backward_reads_strided_dout(dev):
     wide[..., :64] = dout
     view = wide[..., :64]
     assert not view.is_contiguous()
+    tma = fa.flash_attention_dq.launches_tma
     a = fa.flash_attention_dq(q, k, v, mask, lse, delta, view, True, None, 0)
     b = fa.flash_attention_dq(q, k, v, mask, lse, delta, dout, True, None, 0)
     assert torch.equal(a, b)
+    assert fa.flash_attention_dq.launches_tma == tma + 2
 
 
 @pytest.mark.parametrize("causal", [True, False])

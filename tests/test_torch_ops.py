@@ -226,6 +226,48 @@ def test_fwd_takes_tma_rule(case, expected):
     assert tfa.fwd_takes_tma(q, k, v, o) is expected
 
 
+@pytest.mark.parametrize("case,expected", [
+    ("bsnd_bf16", True),
+    ("cache_views", True),
+    ("head_dim_64", True),
+    ("fp32", False),
+    ("head_dim_32", False),
+    ("odd_offset_view", False),
+    ("offset_view_of_8", True),
+    ("row_stride_not_16_bytes", False),
+    ("length_1_axis_any_stride", True),
+    ("strided_dout", True),
+    ("odd_offset_dout", False),
+])
+def test_bwd_takes_tma_rule(case, expected):
+    """The route rule of the backward, on CPU tensors (dtypes, shapes,
+    strides and base addresses only): the forward's rule over q, k, v and
+    dO. A dO in the first half of wider rows (as a reshape before o_proj
+    can leave it) is read in place."""
+    D = 64 if case == "head_dim_64" else 32 if case == "head_dim_32" else 128
+    q = _bf16(2, 24, 4, D)
+    k, v = _bf16(2, 40, 2, D), _bf16(2, 40, 2, D)
+    dout = _bf16(2, 24, 4, D)
+    if case == "cache_views":
+        k, v = _cache_halves()
+    elif case == "fp32":
+        q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+    elif case == "odd_offset_view":
+        q = _bf16(2, 24, 4, D + 1)[..., 1:]
+    elif case == "offset_view_of_8":
+        q = _bf16(2, 24, 4, D + 8)[..., 8:]
+    elif case == "row_stride_not_16_bytes":
+        k = _bf16(2, 40, 2, D + 4)[..., :D]
+    elif case == "length_1_axis_any_stride":
+        q = _bf16(1, 24, 4, D).as_strided((1, 24, 4, D), (3, 4 * D, D, 1))
+        dout = _bf16(1, 24, 4, D)
+    elif case == "strided_dout":
+        dout = _bf16(2, 24, 4, 2 * D)[..., :D]
+    elif case == "odd_offset_dout":
+        dout = _bf16(2, 24, 4, D + 1)[..., 1:]
+    assert tfa.bwd_takes_tma(q, k, v, dout) is expected
+
+
 # ---------------------------------------------------------------- attention
 
 

@@ -61,6 +61,9 @@ def _flash_case(D, causal, N, Nkv, pad, q_offset, seed=0):
     elif pad == "right":
         mask[0, Skv - 4:] = 0
         mask[1, Skv - 9:] = 0
+    elif pad == "right_blocks":  # keys 7.. of row 1: two whole 8-key blocks
+        mask[0, Skv - 4:] = 0
+        mask[1, 7:] = 0
     # a query row has a valid key iff some unmasked key lies at or before
     # its diagonal (causal) / anywhere (bidirectional)
     if causal:
@@ -81,6 +84,8 @@ def _flash_case(D, causal, N, Nkv, pad, q_offset, seed=0):
     (128, False, 2, 2, "none", 0),
     (64, True, 4, 2, "left", 8),
     (64, True, 2, 2, "none", 0),
+    (64, True, 8, 1, "left", 0),            # a GQA group of 8
+    (64, False, 4, 2, "right_blocks", 0),   # key blocks without a valid key
 ])
 def test_flash_backward_matches_jax_grad(D, causal, N, Nkv, pad, q_offset):
     q, k, v, mask, w, _ = _flash_case(D, causal, N, Nkv, pad, q_offset)
