@@ -35,7 +35,14 @@ Phases, each printed with its time; any failure exits non-zero:
      encoder's shape), each on the TMA and wgmma kernels (routes printed),
      two runs bit-equal, dK = dV = 0 exactly on every key the mask removes;
      the time of the delta = rowsum(dO * O) pass is printed beside theirs,
-     so that their sum compares with SDPA's whole backward.
+     so that their sum compares with SDPA's whole backward. The paged
+     flash-decode kernel runs seven cases (bf16 and int8 pages at 32 and 8
+     slots, the MoE serving shape with 32 q heads over 4 kv heads, two small
+     fp32 ones), each printing its route (bf16 q on the split TMA kernel of
+     ``paged_attention_tma.cu``, fp32 on ``paged_attention.cu``), two runs
+     bit-equal, empty slots exactly zero, and (split kernel) one captured
+     launch replayed after the lengths and the page table change in place,
+     equal to an eager call on the new data.
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
@@ -78,7 +85,9 @@ Phases, each printed with its time; any failure exits non-zero:
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
      RMSNorm forward; every flash forward, dQ and dK/dV launch of every
-     main-path run (the MoE ones too) ran on the TMA and wgmma kernels.
+     main-path run (the MoE ones too) ran on the TMA and wgmma kernels, and
+     every paged launch of the three paged serving runs (bf16, int8, MoE) on
+     the split TMA kernel.
  13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
      experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
      untied head, 48 layers) fused with nt-500m and esm2-650m, after the
@@ -172,7 +181,9 @@ REPLACES = {
 # flash_attention_bwd.cu)
 _FWD_TMA_CU = "molly_tpu_torch/csrc/flash_attention_fwd_tma.cu"
 _BWD_TMA_CU = "molly_tpu_torch/csrc/flash_attention_bwd_tma.cu"
-_PAGED_CU = "molly_tpu_torch/csrc/paged_attention.cu"
+# every bf16 paged launch of the main paths (fp32 pages and fp32 q over
+# int8 pages run csrc/paged_attention.cu)
+_PAGED_TMA_CU = "molly_tpu_torch/csrc/paged_attention_tma.cu"
 _GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
 # the kernels of each table row's first case: prefill and training in bf16
 _GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
@@ -183,8 +194,8 @@ SOURCES = {
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "rmsnorm_bwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
-    "paged_attention": ("cuda", _PAGED_CU),
-    "paged_attention_int8": ("cuda", _PAGED_CU),
+    "paged_attention": ("cuda", _PAGED_TMA_CU),
+    "paged_attention_int8": ("cuda", _PAGED_TMA_CU),
     "grouped_gemm": ("cuda", _GG_TMA_CU),
     "grouped_gemm_tgmm": ("cuda", _GG_TMA_CU),
 }
@@ -351,6 +362,7 @@ def reset_counts():
                  "flash_attention_dkv"):
         counters()[name].launches_tma = 0
     paged_attention.launches = paged_attention.launches_int8 = 0
+    paged_attention.launches_tma = 0
 
 
 def check_flash_tma(label: str) -> None:
@@ -366,6 +378,19 @@ def check_flash_tma(label: str) -> None:
         if fn.launches_tma != fn.launches:
             raise AssertionError(f"{label}: a {name} launch ran on the SIMT "
                                  f"kernel")
+
+
+def check_paged_tma(label: str) -> None:
+    """Every paged launch since ``reset_counts`` ran on the split TMA
+    kernel: the main paths give it bf16 q over bf16 or int8 pages."""
+    from molly_tpu_torch.ops.paged_attention import paged_attention
+    if paged_attention.launches:
+        log(f"  {label}: paged_attention {paged_attention.launches} "
+            f"launches, {paged_attention.launches_tma} on the split TMA "
+            f"kernel")
+    if paged_attention.launches_tma != paged_attention.launches:
+        raise AssertionError(f"{label}: a paged launch ran on "
+                             f"paged_attention.cu")
 
 
 def int8_grouped_launches() -> int:
@@ -843,8 +868,13 @@ def parity_paged(g, results):
     """The paged flash-decode kernel over bf16 pages and over int8 pages at
     the serving shape (32 slots, 16 q heads over 8 kv heads, Dh 128, all 28
     layers' pages in one pool, a shuffled page table, lengths from 1 to
-    3136 that mostly end inside a page, one empty slot), and one fp32 case
-    at Dh 64 with one q head a kv head."""
+    3136 that mostly end inside a page, one empty slot), at 8 slots, at the
+    MoE serving shape (8 slots, 32 q heads over 4 kv heads, 48 layers'
+    pages), and one fp32 case at Dh 64 with one q head a kv head. Each case
+    prints its route (bf16 q: the split TMA kernel; fp32: the SIMT kernel
+    of paged_attention.cu), checks two runs bit-equal, and (split TMA
+    kernel) replays a captured launch after the lengths and the page table
+    change in place, which must equal an eager call on the new data."""
     import torch
     import torch.nn.functional as F
 
@@ -875,7 +905,11 @@ def parity_paged(g, results):
             pools.append((pool, scales))
         (kp, ks), (vp, vs) = pools
         kw = dict(k_scales=ks, v_scales=vs)
+        tma0 = paged_attention.launches_tma
         out = paged_attention(q, kp, vp, lengths, table, **kw)
+        route = "tma" if paged_attention.launches_tma > tma0 else "simt"
+        bit_equal = torch.equal(out, paged_attention(q, kp, vp, lengths,
+                                                     table, **kw))
         # the plain version gathers each slot's pages; give it the pools as
         # they are (it dequantizes int8 itself) and q in fp32
         ref = paged_attention_plain(q.float(), kp, vp, lengths, table, **kw)
@@ -885,6 +919,9 @@ def parity_paged(g, results):
         err = (out.float() - ref).abs().max().item()
         empty = lengths == 0
         zero_rows = bool((out[empty] == 0).all())
+        replay_equal = None
+        if route == "tma":
+            replay_equal = graph_replay_equal(q, kp, vp, lengths, table, kw)
         ms = time_ms(lambda: paged_attention(q, kp, vp, lengths, table, **kw),
                      iters)
         plain_ms = time_ms(lambda: paged_attention_plain(
@@ -913,17 +950,24 @@ def parity_paged(g, results):
             + 4 * used_pages, 4 * Nq * Dh * tokens,
             "int8" if quant else ("bf16" if dtype == torch.bfloat16
                                   else "fp32"))
-        log(f"  paged {name}: max|dO| {err:.3e} (tol {tol}), empty slots "
-            f"zero: {zero_rows}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        log(f"  paged {name}: route {route}; max|dO| {err:.3e} (tol {tol}), "
+            f"empty slots zero: {zero_rows}, two runs bit-equal: {bit_equal},"
+            f" graph replay with new lengths equal: {replay_equal}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
             f"bound {bound_ms:.4f} ms ({bound_by}); {tokens} live tokens in "
             f"{B} slots")
-        if not (err <= tol and zero_rows):
+        if not (err <= tol and zero_rows and bit_equal):
             raise AssertionError(f"paged {name}: parity miss")
+        if (route == "tma") != (q.dtype == torch.bfloat16):
+            raise AssertionError(f"paged {name}: ran on the {route} route")
+        if replay_equal is False:
+            raise AssertionError(f"paged {name}: the graph replay with new "
+                                 f"lengths differs from an eager call")
         del ref, pools, kp, vp
         torch.cuda.empty_cache()
-        return {"case": name, "max_abs_err": err, "ms": ms,
+        return {"case": name, "route": route, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "live_tokens": tokens}
@@ -931,13 +975,17 @@ def parity_paged(g, results):
     cpu = torch.Generator().manual_seed(1)
     lens = [1, 3136, 63, 64, 65, 1000, 2047, 0] + torch.randint(
         1, 3137, (24,), generator=cpu).tolist()
-    # 8 slots as the serving smoke runs them: B x Nkv = 64 blocks
+    # 8 slots as the serving smoke runs them
     lens8 = [3136, 2900, 2047, 1531, 1000, 640, 65, 1]
     results["paged_attention"] = [
         case("serve_bf16[32,16,128]x[8,28*441+1,64,128]", 32, 16, 8, 128, 64,
              28 * 441 + 1, lens, torch.bfloat16, False, PAGED_O_ATOL, 20),
         case("serve_bf16[8,16,128]x[8,28*441+1,64,128]", 8, 16, 8, 128, 64,
              28 * 441 + 1, lens8, torch.bfloat16, False, PAGED_O_ATOL, 20),
+        # the MoE serving shape (qwen3-30b-a3b: 32 q heads over 4 kv heads)
+        case("moe_serve_bf16[8,32,128]x[4,48*441+1,64,128]", 8, 32, 4, 128,
+             64, 48 * 441 + 1, lens8, torch.bfloat16, False, PAGED_O_ATOL,
+             20),
         case("small_fp32[8,4,64]x[4,2*40+1,16,64]", 8, 4, 4, 64, 16,
              2 * 40 + 1, [1, 17, 100, 0, 33, 64, 15, 128], torch.float32,
              False, PAGED_F32_ATOL, 50),
@@ -953,6 +1001,35 @@ def parity_paged(g, results):
     ]
 
 
+
+
+def graph_replay_equal(q, kp, vp, lengths, table, kw) -> bool:
+    """Capture one paged launch, change the lengths (rolled by one slot,
+    one set to 0) and the page table (its slots reversed) in place on the
+    device, replay, and compare with an eager call on the new data."""
+    import torch
+
+    from molly_tpu_torch.ops.paged_attention import paged_attention
+    lengths, table = lengths.clone(), table.clone()
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention(q, kp, vp, lengths, table, **kw)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = paged_attention(q, kp, vp, lengths, table, **kw)
+    new = lengths.roll(1)
+    new[0] = 0
+    lengths.copy_(new)
+    table.copy_(table.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = paged_attention(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager) and bool((out[0] == 0).all())
+    del graph
+    return same
 
 
 def routed_group_sizes(g, tokens, hidden, experts, k, empty):
@@ -1453,6 +1530,7 @@ def main_path(params, cfg, samples, text_tok, gen, seed, label):
                           total=len(samples), stats=stats)
     counts = read_counts()
     check_flash_tma(label)
+    check_paged_tma(label)
     lines = buf.getvalue().splitlines()
     steps = stats.get("decode_steps", 0)
     log(f"  {label}: encoders {stats['encode_s']:.3f} s, prefill "
@@ -1491,6 +1569,7 @@ def serve_main_path(params, cfg, samples, text_tok, gen, seed, label,
         stats=stats, **serve_kw)
     counts = read_counts()
     check_flash_tma(label)
+    check_paged_tma(label)
     lines = buf.getvalue().splitlines()
     dispatches = (stats["decode_dispatches"] + stats["fused_dispatches"]
                   + stats["prefill_dispatches"])

@@ -2,7 +2,12 @@
 // serving slot over a KV cache stored as fixed-size pages named by a page
 // table, the pages in fp32, bf16 or int8 with per-row scales.
 //
-// Replaces two TPU kernels with one templated kernel:
+// The SIMT kernel for what paged_attention_tma.cu does not take
+// (ops/paged_attention.py:paged_takes_tma is the rule): fp32 q over fp32 or
+// int8 pages, and bf16 q at shapes outside that rule (int8 pages at Dh 64,
+// page sizes that are not a multiple of 16 or above 128, unaligned views).
+// Every bf16 call of the serving paths runs the split TMA kernel. Together
+// the two replace:
 //   - molly_tpu/ops/paged_attention_int8.py:_kernel (and _kernel_one_block),
 //     the Pallas kernel over int8 pages with per-row scales (KV = int8);
 //   - the Pallas kernel behind molly_tpu/ops/paged_attention.py's
@@ -45,9 +50,8 @@
 //   - the slot's page-table row is staged in shared memory once;
 //   - lane groups merge (max, sum, accumulator) by shuffles inside a warp
 //     and through shared memory across the 8 warps.
-// Not done yet (a later change): splitting a long sequence over several
-// blocks (B x Nkv = 64 blocks for 8 slots leave half the SMs idle),
-// cp.async / TMA pipelining of whole pages, and tensor-core products.
+// One block walks a whole sequence and nothing is loaded ahead of its
+// arithmetic: the split, TMA-fed tensor-core design is paged_attention_tma.cu.
 
 #include "common.cuh"
 

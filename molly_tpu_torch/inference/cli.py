@@ -49,6 +49,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "molly_tpu_torch.training (params are read from it)")
     p.add_argument("--adapter", default=None,
                    help="adapter .npz from training.export_adapter")
+    p.add_argument("--peft-adapter", default=None,
+                   help="reference-style PEFT adapter dir (not ported: "
+                        "refused)")
     p.add_argument("--lora-r", type=int, default=64)
     p.add_argument("--lora-alpha", type=float, default=None,
                    help="merge scale override; default = recorded adapter "
@@ -117,13 +120,23 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="int8 KV cache in the batch engine (halves the "
                         "[L,B,Nkv,S,2Dh] pool)")
     # flags of the JAX CLI whose paths are not ported: parsed, then refused
+    # (--lookup-k/-n and --host/--port only parse: they act only under
+    # --decoding lookup and --api-serve, which are refused)
     p.add_argument("--decoding", default="engine",
                    choices=["engine", "lookup"])
+    p.add_argument("--lookup-k", type=int, default=8,
+                   help="draft tokens per lookup round (--decoding lookup)")
+    p.add_argument("--lookup-n", type=int, default=3,
+                   help="n-gram length matched against the history "
+                        "(--decoding lookup)")
     p.add_argument("--offline-ring", action="store_true")
     p.add_argument("--ring-spec", type=int, default=0)
     p.add_argument("--ring-spec-adapt", type=float, default=None)
     p.add_argument("--serve-adapter", action="append", default=[])
     p.add_argument("--api-serve", action="store_true")
+    p.add_argument("--host", default="127.0.0.1", help="--api-serve's host")
+    p.add_argument("--port", type=int, default=8000,
+                   help="--api-serve's port")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only on "
                         "request)")
@@ -207,6 +220,8 @@ def _load_params(args, cfg, device):
 
 
 _UNPORTED = {
+    "peft_adapter": ("--peft-adapter",
+                     "queue 1 item 7 (models/hf_import.py:peft_lora_from_hf)"),
     "offline_ring": ("--offline-ring", "queue 1 item 9 (inference/offline.py)"),
     "ring_spec": ("--ring-spec", "queue 1 item 9 (inference/offline.py)"),
     "ring_spec_adapt": ("--ring-spec-adapt",

@@ -31,7 +31,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention_fwd", "flash_attention_fwd_tma",
            "flash_attention_bwd", "flash_attention_bwd_tma", "int8_matmul",
-           "paged_attention", "grouped_gemm", "grouped_gemm_tma")
+           "paged_attention", "paged_attention_tma", "grouped_gemm",
+           "grouped_gemm_tma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

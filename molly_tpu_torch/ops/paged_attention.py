@@ -22,14 +22,23 @@ reference averages uniformly there; its engine never passes 0). Entries of
 ``page_indices`` past a slot's length may name any row: neither version
 lets them reach the result.
 
-The header of the CUDA source says what bounds the kernel on the card and
+Two sources hold the kernels. ``paged_takes_tma`` is the rule: bf16 q over
+bf16 pages (Dh 64 or 128) or over int8 pages (Dh 128), G = Nq / Nkv in
+{1, 2, 4, 8}, a page size that is a multiple of 16 up to 128, 16-byte
+aligned bases and q strides of multiples of 8 elements go to
+``csrc/paged_attention_tma.cu`` (the sequence split over blocks by
+``paged_split_plan``, whole pages loaded ahead by TMA, mma.sync products,
+the splits merged in order by a second kernel); the rest (fp32 pages, fp32
+q over int8 pages, other shapes) to ``csrc/paged_attention.cu``. The
+headers of the CUDA sources say what bounds each kernel on the card and
 what its design does about it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +48,64 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+_SPLIT_TOKENS = 256      # a split's pages hold about this many tokens ...
+_SPLIT_BLOCKS_PER_SM = 4  # ... unless fewer splits than this fill the card
+_MAX_SPLIT_PAGES = 32    # table entries the kernel stages for a split
+
+
+def paged_takes_tma(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None) -> bool:
+    """Whether a call goes to ``csrc/paged_attention_tma.cu``: bf16 q over
+    bf16 pages (head dim 64 or 128) or int8 pages with fp32 scales (head
+    dim 128), G = Nq / Nkv in {1, 2, 4, 8}, page size a multiple of 16 up to
+    128, contiguous pools, 16-byte aligned bases and q strides that are
+    multiples of 8 elements with a contiguous head dim. Shapes and
+    strides only: nothing is read from the device."""
+    if q.ndim != 3 or k_pages.ndim != 4 or q.dtype != torch.bfloat16:
+        return False
+    B, Nq, Dh = q.shape
+    Nkv, rows, P, Dh_k = k_pages.shape
+    quant = k_pages.dtype == torch.int8
+    if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
+        return False
+    if quant:
+        if Dh != 128 or k_scales is None or v_scales is None:
+            return False
+        if any(sc.dtype != torch.float32 or not sc.is_contiguous()
+               or sc.data_ptr() % 16 for sc in (k_scales, v_scales)):
+            return False
+    elif k_pages.dtype != torch.bfloat16 or Dh not in _HEAD_DIMS:
+        return False
+    return (Dh_k == Dh and Nq % Nkv == 0 and Nq // Nkv in _GROUPS
+            and P % 16 == 0 and 16 <= P <= 128
+            and k_pages.is_contiguous() and v_pages.is_contiguous()
+            and Nkv * rows * P < 2 ** 31
+            and q.stride(2) == 1 and q.stride(0) % 8 == 0
+            and q.stride(1) % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)))
+
+
+def paged_split_plan(B: int, Nkv: int, pages_per_seq: int, page_size: int,
+                     sm_count: int) -> Tuple[int, int]:
+    """(pages a split, splits a slot) of the TMA kernel, from static shapes
+    and the device's SM count only (lengths live on the device and are never
+    read by the host, so the plan holds for any lengths and a captured graph
+    replays with new ones). A split covers a whole number of pages, about
+    256 tokens; it is halved while B * Nkv * splits would give fewer than 4
+    blocks an SM."""
+    k = max(1, min(_MAX_SPLIT_PAGES, _SPLIT_TOKENS // page_size,
+                   pages_per_seq))
+    while k > 1 and (B * Nkv * -(-pages_per_seq // k)
+                     < _SPLIT_BLOCKS_PER_SM * sm_count):
+        k //= 2
+    return k, -(-pages_per_seq // k)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices, *,
@@ -89,7 +156,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over a paged KV pool; returns [B, Nq, Dh] in q's
     dtype. A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel that ``paged_takes_tma`` names, or raises."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, lengths,
                                      page_indices, scale=scale,
@@ -133,7 +200,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"page_indices {tuple(page_indices.shape)} for "
                          f"{B} slots")
     pps = page_indices.shape[1]
-    if 4 * (pps + 3) + 4 * 8 * (Nq // Nkv) * (Dh + 2) > 48 * 1024:
+    tma = paged_takes_tma(q, k_pages, v_pages, k_scales, v_scales)
+    if not tma and 4 * (pps + 3) + 4 * 8 * (Nq // Nkv) * (Dh + 2) > 48 * 1024:
         raise ValueError(f"paged_attention: a page table of {pps} entries a "
                          f"slot does not fit the kernel's shared memory")
     if not all(t.device == q.device
@@ -146,25 +214,48 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty((B, Nq, Dh), dtype=q.dtype, device=q.device)
 
     from . import _cuda_build
-    lib = _paged_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.molly_paged_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None,
-            lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-            B, Nq, Nkv, Dh, P, pps, rows, q.stride(0), q.stride(1),
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], float(scale),
-            stream)
+        if tma:
+            lib = _cuda_build.library("paged_attention_tma")
+            k_split, n_splits = paged_split_plan(
+                B, Nkv, pps, P, _sm_count(q.device.index))
+            # the splits' partials; a plan of one split needs none
+            part_o = part_ml = None
+            if n_splits > 1:
+                part_o = torch.empty((B, Nkv, n_splits, Nq // Nkv, Dh),
+                                     dtype=torch.float32, device=q.device)
+                part_ml = torch.empty((B, Nkv, n_splits, Nq // Nkv, 2),
+                                      dtype=torch.float32, device=q.device)
+            err = _tma_fn(lib)(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr() if quant else None,
+                v_scales.data_ptr() if quant else None,
+                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+                None if part_o is None else part_o.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(),
+                B, Nq, Nkv, Dh, P, pps, rows, k_split, q.stride(0),
+                q.stride(1), int(quant), float(scale), stream)
+        else:
+            lib = _paged_lib()
+            err = lib.molly_paged_attention(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr() if quant else None,
+                v_scales.data_ptr() if quant else None,
+                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+                B, Nq, Nkv, Dh, P, pps, rows, q.stride(0), q.stride(1),
+                _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], float(scale),
+                stream)
     _cuda_build.check(lib, err, "paged_attention")
     paged_attention.launches += 1
     paged_attention.launches_int8 += int(quant)
+    paged_attention.launches_tma += int(tma)
     return out
 
 
-paged_attention.launches = 0       # every launch of the kernel
-paged_attention.launches_int8 = 0  # those of its int8-page variant
+paged_attention.launches = 0       # every launch (of either source)
+paged_attention.launches_int8 = 0  # those over int8 pages
+paged_attention.launches_tma = 0   # those on csrc/paged_attention_tma.cu
 
 
 def _paged_lib():
@@ -177,3 +268,12 @@ def _paged_lib():
                                                       P])
         fn.restype = I
     return lib
+
+
+def _tma_fn(lib):
+    fn = lib.molly_paged_attention_tma
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([P] * 10 + [I] * 8 + [L, L, I, ctypes.c_float, P])
+        fn.restype = I
+    return fn

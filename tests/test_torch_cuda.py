@@ -502,8 +502,13 @@ def test_paged_kernel_matches_plain(dev, dtype, quant, B, Nq, Nkv, Dh, P,
     q, k, v, lengths, table, scales = _paged_inputs(dev, dtype, quant, B, Nq,
                                                     Nkv, Dh, P, lens)
     before = pa.paged_attention.launches
+    tma0 = pa.paged_attention.launches_tma
     out = pa.paged_attention(q, k, v, lengths, table, **scales)
     assert pa.paged_attention.launches == before + 1
+    # fp32 q or pages and int8 pages at Dh 64 stay on paged_attention.cu;
+    # the rest goes to paged_attention_tma.cu
+    assert pa.paged_attention.launches_tma == tma0 + int(
+        dtype == torch.bfloat16 and (Dh == 128 or not quant))
     ref = pa.paged_attention_plain(
         q.float(), k if quant else k.float(), v if quant else v.float(),
         lengths, table, **scales)
@@ -543,6 +548,144 @@ def test_paged_kernel_reads_strided_q(dev):
     assert not view.is_contiguous()
     assert torch.equal(pa.paged_attention(view, k, v, lengths, table),
                        pa.paged_attention(q, k, v, lengths, table))
+
+
+def _split_lens(B, Nkv, P, lens_max=3136):
+    """Lengths at every edge the TMA kernel has: 0, 1, a page -1, +0, +1,
+    a split -1, +0, +1 (the plan of this shape), two splits, 3136."""
+    pps = -(-lens_max // P)
+    k, _ = pa.paged_split_plan(B, Nkv, pps, P,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    kp = k * P
+    return (0, 1, P - 1, P, P + 1, kp - 1, kp, kp + 1, lens_max, 777,
+            2 * kp + 3, 1500)[:B]
+
+
+@pytest.mark.parametrize("quant,Dh,P", [
+    (False, 128, 64), (False, 128, 128), (False, 64, 64), (False, 128, 16),
+    (True, 128, 128), (True, 128, 64), (True, 128, 32)])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_paged_tma_kernel_matches_plain(dev, quant, Dh, P, group):
+    """The TMA route over bf16 and int8 pages at groups 1 to 8: lengths 0,
+    1, a page and a split -1 / +0 / +1, 3136 (13 or more splits), against
+    the plain version (one bf16 rounding of the output), a zero row for
+    length 0, two runs bit-equal."""
+    Nkv = 2
+    lens = _split_lens(12, Nkv, P)
+    q, k, v, lengths, table, scales = _paged_inputs(
+        dev, torch.bfloat16, quant, 12, Nkv * group, Nkv, Dh, P, lens)
+    assert pa.paged_takes_tma(q, k, v, **scales)
+    tma0 = pa.paged_attention.launches_tma
+    out = pa.paged_attention(q, k, v, lengths, table, **scales)
+    assert pa.paged_attention.launches_tma == tma0 + 1
+    again = pa.paged_attention(q, k, v, lengths, table, **scales)
+    ref = pa.paged_attention_plain(q.float(), k if quant else k.float(),
+                                   v if quant else v.float(), lengths, table,
+                                   **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert (out[lengths == 0] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_tma_kernel_one_split_and_moe_shape(dev, quant):
+    """A table of one page a slot (the plan has one split: no merge
+    kernel), and the MoE serving shape (8 slots, 32 q heads over 4 kv heads,
+    Dh 128, the serving lengths)."""
+    P = 128 if quant else 64
+    for B, Nq, Nkv, lens in ((6, 8, 4, (1, 0, P - 1, P, 7, 33)),
+                             (8, 32, 4, (3136, 2900, 2047, 1531, 1000, 640,
+                                         65, 1))):
+        q, k, v, lengths, table, scales = _paged_inputs(
+            dev, torch.bfloat16, quant, B, Nq, Nkv, 128, P, lens)
+        tma0 = pa.paged_attention.launches_tma
+        out = pa.paged_attention(q, k, v, lengths, table, **scales)
+        assert pa.paged_attention.launches_tma == tma0 + 1
+        ref = pa.paged_attention_plain(
+            q.float(), k if quant else k.float(), v if quant else v.float(),
+            lengths, table, **scales)
+        torch.cuda.synchronize()
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+        assert (out[lengths == 0] == 0).all()
+        assert torch.equal(out, pa.paged_attention(q, k, v, lengths, table,
+                                                   **scales))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_tma_kernel_never_reads_past_a_length(dev, quant):
+    """On the TMA route a whole page box is loaded, so rows past a length
+    inside the last live page arrive with it: NaN in their K rows (int8:
+    their K scales), inf in their V rows (int8: V scales), table entries past
+    the live pages naming rows far outside the pool or -1. The result is
+    bit-equal to the one over clean data."""
+    P = 128 if quant else 64
+    q, k, v, lengths, table, sc = _paged_inputs(
+        dev, torch.bfloat16, quant, 3, 4, 2, 128, P, (P + 20, 1, 3 * P))
+    base = pa.paged_attention(q, k, v, lengths, table, **sc)
+    table2 = table.clone()
+    table2[0, 2:] = 10 ** 6
+    table2[1, 1:] = -1
+    k2, v2 = k.clone(), v.clone()
+    sc2 = {n: t.clone() for n, t in sc.items()}
+    for b, n in ((0, P + 20), (1, 1)):
+        row = table[b, n // P].long()
+        if quant:
+            sc2["k_scales"][:, row, n % P:] = float("nan")
+            sc2["v_scales"][:, row, n % P:] = float("inf")
+            k2[:, row, n % P:] = 127
+            v2[:, row, n % P:] = -127
+        else:
+            k2[:, row, n % P:] = float("nan")
+            v2[:, row, n % P:] = float("inf")
+    tma0 = pa.paged_attention.launches_tma
+    got = pa.paged_attention(q, k2, v2, lengths, table2, **sc2)
+    assert pa.paged_attention.launches_tma == tma0 + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, base)
+
+
+def test_paged_tma_kernel_reads_strided_q(dev):
+    """q as a slice of a wider projection, rows strided, on the TMA route."""
+    q, k, v, lengths, table, _ = _paged_inputs(
+        dev, torch.bfloat16, False, 4, 8, 2, 128, 64, (200, 1, 640, 64))
+    wide = torch.zeros((4, 12, 128), dtype=q.dtype, device=dev)
+    wide[:, :8] = q
+    view = wide[:, :8]
+    assert not view.is_contiguous() and pa.paged_takes_tma(view, k, v)
+    assert torch.equal(pa.paged_attention(view, k, v, lengths, table),
+                       pa.paged_attention(q, k, v, lengths, table))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_tma_kernel_replays_in_a_graph_with_new_lengths(dev, quant):
+    """The split plan depends on shapes only, so a captured launch replays
+    after the lengths and the page table change in place on the device, and
+    equals an eager call on the new data."""
+    P = 128 if quant else 64
+    q, k, v, lengths, table, sc = _paged_inputs(
+        dev, torch.bfloat16, quant, 8, 16, 8, 128, P,
+        (3136, 2900, 2047, 1531, 1000, 640, 65, 1))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, lengths, table, **sc)  # warm-up
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pa.paged_attention(q, k, v, lengths, table, **sc)
+    lengths.copy_(torch.tensor((5, 0, 3000, 129, 128, 2047, 1, 700),
+                               dtype=torch.int32, device=dev))
+    table.copy_(table.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = pa.paged_attention(q, k, v, lengths, table, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert (out[1] == 0).all()
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(dev):

@@ -129,6 +129,188 @@ def test_page_row_quantizer_and_int8_op_match_jax():
                                rtol=2e-5)
 
 
+def _bf16(*shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("case,expected", [
+    ("bf16_pages", True),
+    ("int8_pages", True),
+    ("bf16_head_dim_64", True),
+    ("int8_head_dim_64", False),
+    ("fp32_pages", False),
+    ("fp32_q_int8_pages", False),
+    ("int8_without_scales", False),
+    ("group_8", True),
+    ("group_3", False),
+    ("group_16", False),
+    ("page_16", True),
+    ("page_48", True),
+    ("page_8", False),
+    ("page_256", False),
+    ("strided_q", True),
+    ("odd_offset_q", False),
+    ("q_head_stride_not_16_bytes", False),
+    ("strided_pool", False),
+])
+def test_paged_takes_tma_rule(case, expected):
+    """The TMA route's rule, on CPU tensors (dtypes, shapes, strides and
+    base addresses only): bf16 q over bf16 pages (Dh 64, 128) or int8 pages
+    with scales (Dh 128), G in {1, 2, 4, 8}, page size a multiple of 16 up
+    to 128, contiguous pools, q strides of whole 16-byte rows."""
+    B, Nkv, rows, P, Dh, G = 3, 2, 9, 64, 128, 2
+    kv_dt, q_dt = torch.bfloat16, torch.bfloat16
+    if case.startswith("int8") or case == "fp32_q_int8_pages":
+        kv_dt, P = torch.int8, 128
+    if case.endswith("head_dim_64"):
+        Dh = 64
+    G = {"group_8": 8, "group_3": 3, "group_16": 16}.get(case, G)
+    P = {"page_16": 16, "page_48": 48, "page_8": 8,
+         "page_256": 256}.get(case, P)
+    if case == "fp32_pages":
+        kv_dt = q_dt = torch.float32
+    if case == "fp32_q_int8_pages":
+        q_dt = torch.float32
+    q = _bf16(B, G * Nkv, Dh, dtype=q_dt)
+    if case == "strided_q":  # a slice of a wider projection
+        q = _bf16(B, G * Nkv + 4, Dh)[:, :G * Nkv]
+    elif case == "odd_offset_q":
+        q = _bf16(B, G * Nkv, Dh + 1)[..., 1:]
+    elif case == "q_head_stride_not_16_bytes":
+        q = _bf16(B, G * Nkv, Dh + 4)[..., :Dh]
+    k = _bf16(Nkv, rows, P, Dh, dtype=kv_dt)
+    v = _bf16(Nkv, rows, P, Dh, dtype=kv_dt)
+    if case == "strided_pool":
+        k = _bf16(Nkv, P, rows, Dh).transpose(1, 2)
+    sc = {}
+    if kv_dt == torch.int8 and case != "int8_without_scales":
+        sc = dict(k_scales=torch.ones((Nkv, rows, P)),
+                  v_scales=torch.ones((Nkv, rows, P)))
+    assert tpaged.paged_takes_tma(q, k, v, **sc) is expected
+
+
+# the three 8-slot serving shapes of the smoke test: (Nkv, page size) with
+# the lengths of its 8-slot cases
+_LENS8 = (3136, 2900, 2047, 1531, 1000, 640, 65, 1)
+
+
+@pytest.mark.parametrize("B,Nkv,P,pps", [
+    (8, 8, 64, 49), (8, 8, 128, 25), (8, 4, 64, 49), (32, 8, 64, 49),
+    (1, 1, 16, 3), (4, 2, 128, 1), (12, 2, 16, 196), (3, 1, 64, 1000)])
+@pytest.mark.parametrize("sm_count", [132, 16])
+def test_paged_split_plan_covers_every_page_once(B, Nkv, P, pps, sm_count):
+    """The split plan is a function of static shapes and the SM count (no
+    tensor reaches it): whole pages a split, at most the 32 table entries
+    the kernel stages, and the splits of a slot cover its pages exactly
+    once."""
+    import inspect
+    assert list(inspect.signature(tpaged.paged_split_plan).parameters) == [
+        "B", "Nkv", "pages_per_seq", "page_size", "sm_count"]
+    k, n = tpaged.paged_split_plan(B, Nkv, pps, P, sm_count)
+    assert 1 <= k <= 32 and n == -(-pps // k)
+    covered = [pg for sp in range(n) for pg in range(sp * k,
+                                                     min(pps, (sp + 1) * k))]
+    assert covered == list(range(pps))
+    assert (k, n) == tpaged.paged_split_plan(B, Nkv, pps, P, sm_count)
+
+
+@pytest.mark.parametrize("Nkv,P,pps", [(8, 64, 49), (8, 128, 25),
+                                       (4, 64, 49)])
+def test_paged_split_plan_fills_the_card_at_8_slots(Nkv, P, pps):
+    """At the 8-slot serving shapes (1.7B bf16 and int8 pages, the MoE
+    model's 4 kv heads) the splits that hold live tokens give at least two
+    blocks for each of the H100's 132 SMs."""
+    k, _ = tpaged.paged_split_plan(8, Nkv, pps, P, 132)
+    working = Nkv * sum(-(-(-(-n // P)) // k) for n in _LENS8)
+    assert working >= 2 * 132, (k, working)
+
+
+def _split_merge_plain(q, k_pages, v_pages, lengths, page_indices,
+                       pages_per_split, *, k_scales=None, v_scales=None):
+    """The split TMA kernel's arithmetic in plain PyTorch: each split of
+    ``pages_per_split`` pages gives a partial (max, sum, [G, Dh]
+    accumulator) in fp32 over its live positions, and the live splits merge
+    in split order; a slot without a live split gets a zero row. Only the
+    order of the sums differs from ``paged_attention_plain``."""
+    b, nq, dh = q.shape
+    nkv, _, p, _ = k_pages.shape
+    group = nq // nkv
+    scale = dh ** -0.5
+    pps = page_indices.shape[1]
+    n_splits = -(-pps // pages_per_split)
+    idx = torch.nn.functional.pad(page_indices.long(),
+                                  (0, n_splits * pages_per_split - pps))
+    k = k_pages[:, idx].movedim(1, 0).float()   # [B, Nkv, pages, P, Dh]
+    v = v_pages[:, idx].movedim(1, 0).float()
+    if k_scales is not None:
+        k = k * (k_scales[:, idx].movedim(1, 0)[..., None] / tpaged.PAGED_QUANT_MAX)
+        v = v * (v_scales[:, idx].movedim(1, 0)[..., None] / tpaged.PAGED_QUANT_MAX)
+    s = n_splits * pages_per_split * p
+    k = k.reshape(b, nkv, s, dh)
+    v = v.reshape(b, nkv, s, dh)
+    live = (torch.arange(s, device=q.device)[None, :]
+            < torch.clamp(lengths[:, None], max=pps * p))        # [B, S]
+    v = torch.where(live[:, None, :, None], v, 0.0)
+    qg = q.reshape(b, nkv, group, dh).float()
+    logits = torch.einsum("bngd,bnkd->bngk", qg, k) * scale
+    logits = torch.where(live[:, None, None, :], logits, -torch.inf)
+    logits = logits.reshape(b, nkv, group, n_splits, -1)
+    m = logits.amax(-1)                                # [B, Nkv, G, splits]
+    has = torch.isfinite(m)
+    e = torch.exp(logits - torch.where(has, m, 0.0)[..., None])
+    part_l = e.sum(-1)
+    part_o = torch.einsum("bngsk,bnskd->bngsd", e,
+                          v.reshape(b, nkv, n_splits, -1, dh))
+    top = torch.where(has, m, -torch.inf).amax(-1)
+    total_l = torch.zeros_like(top)
+    total_o = torch.zeros((b, nkv, group, dh), device=q.device)
+    for i in range(n_splits):  # the merge, in split order
+        w = torch.where(has[..., i], torch.exp(m[..., i] - top), 0.0)
+        total_l = total_l + part_l[..., i] * w
+        total_o = total_o + part_o[..., i, :] * w[..., None]
+    out = torch.where(total_l[..., None] > 0,
+                      total_o / torch.where(total_l > 0, total_l,
+                                            1.0)[..., None], 0.0)
+    return out.reshape(b, nq, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 4, 6])
+def test_paged_split_merge_arithmetic(pages_per_split):
+    """The TMA kernel's arithmetic in plain PyTorch: partials per split
+    merged in split order, with splits that cut slots at page boundaries,
+    splits past a slot's length (empty), a length of 0 (a zero row) and of 1,
+    against the plain version in fp32 (1e-5: only the order of the sums
+    differs), over fp32 pages and over int8 pages, and the int8 result
+    against the Pallas int8 kernel in interpret mode."""
+    lengths = (0, 1, 4, 9, 24)
+    q, kp, vp, lengths, table = _op_inputs(5, B=5, PPS=6, lengths=lengths)
+    got = _split_merge_plain(
+        _t(q), _t(kp), _t(vp), _t(lengths), _t(table), pages_per_split)
+    ref = tpaged.paged_attention_plain(_t(q), _t(kp), _t(vp), _t(lengths),
+                                       _t(table))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    jk, jks = jqwen3.quantize_page_rows(jnp.asarray(kp))
+    jv, jvs = jqwen3.quantize_page_rows(jnp.asarray(vp))
+    tk, tks = qwen3.quantize_page_rows(_t(kp))
+    tv, tvs = qwen3.quantize_page_rows(_t(vp))
+    sc = dict(k_scales=tks[..., 0].contiguous(),
+              v_scales=tvs[..., 0].contiguous())
+    got8 = _split_merge_plain(
+        _t(q), tk, tv, _t(lengths), _t(table), pages_per_split, **sc)
+    ref8 = tpaged.paged_attention_plain(_t(q), tk, tv, _t(lengths),
+                                        _t(table), **sc)
+    np.testing.assert_allclose(got8.numpy(), ref8.numpy(), atol=1e-5,
+                               rtol=0)
+    scale = q.shape[-1] ** -0.5
+    kernel = jpaged8.paged_attention_int8(
+        jnp.asarray(q * scale), jk, jpaged8.scales_to_tile(jks), jv,
+        jpaged8.scales_to_tile(jvs), jnp.asarray(lengths),
+        jnp.asarray(table), pages_per_compute_block=2, interpret=True)
+    np.testing.assert_allclose(got8.numpy(), np.asarray(kernel), atol=1e-5,
+                               rtol=0)
+
+
 def test_paged_attention_plain_edge_rows():
     """A slot of length 0 gets a zero row (as the Pallas kernel leaves it);
     table entries and page rows past a slot's length never reach the

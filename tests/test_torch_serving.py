@@ -570,3 +570,30 @@ def test_cli_refuses_unported_flags(flags, entry):
         cli.main(["--input-file", "none.parquet", "--output-file",
                   "none.jsonl", "--tiny", "--device", "cpu"] + flags)
     assert entry in str(exc.value)
+
+
+def test_cli_parses_the_jax_cli_flags_and_refuses_peft_adapter():
+    """The port's batch CLI parses exactly the JAX CLI's flags (plus
+    ``--device``), the five that only parse with the JAX CLI's defaults,
+    and refuses ``--peft-adapter`` by its ROADMAP.md item."""
+    from molly_tpu.inference.cli import build_argparser as jparser
+
+    def flags(p):
+        return {a.dest: a.default for a in p._actions if a.dest != "help"}
+
+    jf, tf = flags(jparser()), flags(cli.build_argparser())
+    assert set(tf) - set(jf) == {"device"}
+    assert set(jf) <= set(tf)
+    for dest in ("peft_adapter", "lookup_k", "lookup_n", "host", "port"):
+        assert tf[dest] == jf[dest]
+    with pytest.raises(SystemExit, match="ROADMAP.md.*item 7") as exc:
+        cli.main(["--input-file", "none.parquet", "--output-file",
+                  "none.jsonl", "--tiny", "--device", "cpu",
+                  "--peft-adapter", "x"])
+    assert "--peft-adapter" in str(exc.value)
+    args = cli.build_argparser().parse_args(
+        ["--input-file", "a", "--output-file", "b", "--lookup-k", "4",
+         "--lookup-n", "2", "--host", "0.0.0.0", "--port", "9000"])
+    cli.refuse_unported(args)  # parsed only
+    assert (args.lookup_k, args.lookup_n, args.host, args.port) == (
+        4, 2, "0.0.0.0", 9000)
