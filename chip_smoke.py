@@ -25,8 +25,16 @@ Phases, each printed with its time; any failure exits non-zero:
      grouped GEMMs take their group sizes from a real ``router_topk`` with
      one expert forced empty; each case names the source whose kernel ran
      (the TMA and wgmma kernels at prefill and training shapes in bf16, the
-     mma.sync and SIMT kernels elsewhere), and a case with an fp32 ``dout``
-     times the wrapper, its one rounding pass to bf16 included. The flash
+     split weight stream of ``grouped_gemm_decode.cu`` at decode and serving
+     shapes over bf16 and int8 experts, the mma.sync and SIMT kernels
+     elsewhere), two runs are bit-equal, a split-stream case replays a
+     captured launch after the group sizes change (equal to an eager call),
+     and a case with an fp32 ``dout`` times the wrapper, its one rounding
+     pass to bf16 included. The int8 GEMM runs its decode shapes on the
+     split-K stream and its prefill and QLoRA shapes on the TMA and wgmma
+     kernel of ``int8_matmul_tma.cu`` (route and counter printed, two runs
+     bit-equal there), with cuBLAS's bf16 product over dequantized weights
+     printed beside it as a yardstick, not as its library time. The flash
      forward runs five cases (decoder, serving and MoE prefill, encoder,
      training), each on the TMA and wgmma kernel (its route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
@@ -85,9 +93,11 @@ Phases, each printed with its time; any failure exits non-zero:
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
      RMSNorm forward; every flash forward, dQ and dK/dV launch of every
-     main-path run (the MoE ones too) ran on the TMA and wgmma kernels, and
+     main-path run (the MoE ones too) ran on the TMA and wgmma kernels,
      every paged launch of the three paged serving runs (bf16, int8, MoE) on
-     the split TMA kernel.
+     the split TMA kernel, and every int8 GEMM launch at M > 16 (1.7B int8
+     generation, QLoRA, MoE int8 experts and expert QLoRA) on the int8 TMA
+     kernel.
  13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
      experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
      untied head, 48 layers) fused with nt-500m and esm2-650m, after the
@@ -105,8 +115,11 @@ Phases, each printed with its time; any failure exits non-zero:
      experts, 4 layers, 3 steps.
      Each MoE phase prints its depth and peak device memory and must launch
      the grouped GEMM (the training phases tgmm too), and prints how many of
-     those launches ran on the TMA and wgmma kernels: every prefill product
-     over bf16 experts, and every product of the full fine-tune.
+     those launches ran on the TMA and wgmma kernels (every prefill product
+     over bf16 experts, and every product of the full fine-tune) and on the
+     split stream (every decode and serving product, bf16 and int8: the
+     generation and serving phases fail on any other launch than these and,
+     over int8 experts, the prefill's).
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
@@ -187,13 +200,20 @@ _PAGED_TMA_CU = "molly_tpu_torch/csrc/paged_attention_tma.cu"
 _GG_CU = "molly_tpu_torch/csrc/grouped_gemm.cu"
 # the kernels of each table row's first case: prefill and training in bf16
 _GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
+# every decode- and serving-shaped grouped GEMM (bf16 lhs, bf16 or int8
+# experts, M < 64 G)
+_GG_STREAM_CU = "molly_tpu_torch/csrc/grouped_gemm_decode.cu"
+# the int8 GEMM: M <= 16 (the row's first case) and the SIMT fallback, then
+# every bf16 product at M > 16
+_INT8_CU = "molly_tpu_torch/csrc/int8_matmul.cu"
+_INT8_TMA_CU = "molly_tpu_torch/csrc/int8_matmul_tma.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_TMA_CU),
     "flash_attention_dq": ("cuda", _BWD_TMA_CU),
     "flash_attention_dkv": ("cuda", _BWD_TMA_CU),
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "rmsnorm_bwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
-    "int8_matmul": ("cuda", "molly_tpu_torch/csrc/int8_matmul.cu"),
+    "int8_matmul": ("cuda", _INT8_CU),
     "paged_attention": ("cuda", _PAGED_TMA_CU),
     "paged_attention_int8": ("cuda", _PAGED_TMA_CU),
     "grouped_gemm": ("cuda", _GG_TMA_CU),
@@ -357,7 +377,10 @@ def reset_counts():
         fn.launches = 0
     counters()["grouped_gemm"].launches_int8 = 0
     counters()["grouped_gemm"].launches_tma = 0
+    counters()["grouped_gemm"].launches_stream = 0
     counters()["grouped_gemm_tgmm"].launches_tma = 0
+    counters()["int8_matmul"].launches_tma = 0
+    counters()["int8_matmul"].launches_gemv = 0
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv"):
         counters()[name].launches_tma = 0
@@ -393,6 +416,28 @@ def check_paged_tma(label: str) -> None:
                              f"paged_attention.cu")
 
 
+def check_int8_tma(label: str) -> None:
+    """Every int8 GEMM launch since ``reset_counts`` ran on the TMA and
+    wgmma kernel or (M <= 16) on the split-K stream: the main paths give it
+    bf16 x only, so a launch on the SIMT kernel is an M > 16 product that
+    missed the TMA kernel."""
+    fn = counters()["int8_matmul"]
+    if fn.launches:
+        log(f"  {label}: int8_matmul {fn.launches} launches, "
+            f"{fn.launches_tma} on the TMA and wgmma kernel, "
+            f"{fn.launches_gemv} on the split-K stream (M <= 16)")
+    if fn.launches != fn.launches_tma + fn.launches_gemv:
+        raise AssertionError(f"{label}: an int8 launch at M > 16 ran on the "
+                             f"SIMT kernel")
+
+
+def grouped_off_route() -> int:
+    """Forward grouped-GEMM launches since ``reset_counts`` on neither the
+    TMA kernel nor the split stream, i.e. on grouped_gemm.cu."""
+    c = counters()["grouped_gemm"]
+    return c.launches - c.launches_tma - c.launches_stream
+
+
 def int8_grouped_launches() -> int:
     """Grouped-GEMM launches over an int8 rhs since ``reset_counts`` (they
     are part of ``grouped_gemm``'s count)."""
@@ -401,7 +446,8 @@ def int8_grouped_launches() -> int:
 
 def tma_launches():
     """(forward, tgmm) launches since ``reset_counts`` that ran on the TMA
-    and wgmma kernels (they are part of the two kernels' counts)."""
+    and wgmma kernels (they are part of the two kernels' counts; the
+    forward's split-stream launches are ``grouped_gemm.launches_stream``)."""
     c = counters()
     return (c["grouped_gemm"].launches_tma,
             c["grouped_gemm_tgmm"].launches_tma)
@@ -823,9 +869,19 @@ def parity_rmsnorm(g, results):
 
 
 def parity_int8(g, results):
+    """The int8 GEMM at the main paths' shapes: decode (M = 4: the split-K
+    stream of int8_matmul.cu) and the --int8 prefill and QLoRA base products
+    (bf16 x at M > 16: the TMA and wgmma kernel of int8_matmul_tma.cu). Each
+    case prints its route and the counter that shows it, checks it against
+    ``int8_takes_tma`` (and, on the TMA kernel, two runs bit-equal), its
+    bound, and on a line of its own, as a yardstick only, cuBLAS's time for
+    the bf16 product of the same shape over the weights dequantized
+    beforehand: not the same function (no PyTorch call multiplies bf16 by
+    int8 weights), so not the library column."""
     import torch
 
-    from molly_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain
+    from molly_tpu_torch.ops.quant import (int8_matmul, int8_matmul_plain,
+                                           int8_takes_tma)
     dev = "cuda"
 
     def case(name, M, K, N, iters):
@@ -834,22 +890,43 @@ def parity_int8(g, results):
                             dtype=torch.int8)
         scale = (torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-4)
         q = {"w_q": w_q, "scale": scale}
+        c0 = (int8_matmul.launches_tma, int8_matmul.launches_gemv)
         y = int8_matmul(x, q)
+        route = ("tma" if int8_matmul.launches_tma > c0[0] else
+                 "gemv" if int8_matmul.launches_gemv > c0[1] else "simt")
+        # the split-K stream sums with atomics: its bits may differ
+        bit_equal = (torch.equal(y, int8_matmul(x, q)) if route == "tma"
+                     else None)
         ref = int8_matmul_plain(x.float(), q)
         err = (y.float() - ref).abs().max().item()
         tol = INT8_REL * ref.abs().max().item()
+        del ref
         ms = time_ms(lambda: int8_matmul(x, q), iters)
         plain_ms = time_ms(lambda: int8_matmul_plain(x, q), iters)
+        w_bf16 = (w_q.float() * scale).to(torch.bfloat16)
+        cublas_ms = time_ms(lambda: x @ w_bf16, iters)
+        del w_bf16
         bound_ms, bound_by = bound(nbytes(x, w_q, scale, y), 2 * M * N * K,
                                    "bf16")
-        log(f"  int8 {name}: max|err| {err:.3e} (tol {tol:.3e}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none "
-            f"(no PyTorch call multiplies bf16 by int8 weights), bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+        source = _INT8_TMA_CU if route == "tma" else _INT8_CU
+        log(f"  int8 {name}: route {route} ({source.rsplit('/', 1)[1]}); "
+            f"max|err| {err:.3e} (tol {tol:.3e}), two runs bit-equal: "
+            f"{bit_equal}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library none (no PyTorch call multiplies bf16 by int8 "
+            f"weights), bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"  int8 {name}: yardstick, not the same function: cuBLAS bf16 "
+            f"x @ w over the weights dequantized beforehand "
+            f"{cublas_ms:.4f} ms")
         if not err <= tol or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"int8 {name}: parity miss")
-        return {"case": name, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": None,
+        expected = "tma" if int8_takes_tma(M, K, N, x.dtype) else "gemv"
+        if route != expected or bit_equal is False:
+            raise AssertionError(f"int8 {name}: ran on the {route} route "
+                                 f"(expected {expected}), bit-equal "
+                                 f"{bit_equal}")
+        return {"case": name, "route": route, "source": source,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "cublas_bf16_yardstick_ms": cublas_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
     results["int8_matmul"] = [
@@ -1050,10 +1127,49 @@ def routed_group_sizes(g, tokens, hidden, experts, k, empty):
     return counts.to(torch.int32)
 
 
+def grouped_replay_equal(lhs, rhs, gs, kw) -> bool:
+    """Capture one grouped-GEMM launch, change the group sizes in place on
+    the device (the same rows over other experts with one of the old ones
+    empty, then every row in one expert), replay, and compare each replay
+    with an eager call on the new sizes, bit for bit."""
+    import torch
+
+    from molly_tpu_torch.ops.grouped_gemm import grouped_gemm
+    gs = gs.clone()
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grouped_gemm(lhs, rhs, gs, **kw)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = grouped_gemm(lhs, rhs, gs, **kw)
+    G, owned = gs.shape[0], gs.sum()
+    busiest = int(gs.argmax())
+    moved = gs.roll(G // 3)
+    moved[(busiest + G // 3 + 1) % G] += moved[busiest]
+    moved[busiest] = 0
+    one = torch.zeros_like(gs)
+    one[G - 1] = owned
+    same = True
+    for sizes in (moved, one):
+        gs.copy_(sizes)
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= torch.equal(out, grouped_gemm(lhs, rhs, gs, **kw))
+    del graph
+    return bool(same)
+
+
 def parity_grouped_gemm(g, results):
     """The grouped-GEMM kernels (forward, transposed, int8, tgmm) against
     their plain versions at qwen3-30b-a3b width: 128 experts, top-8, hidden
-    2048, per-expert width 768."""
+    2048, per-expert width 768. Each forward case prints the source that
+    ran (``grouped_gemm_tma.cu`` at prefill and training shapes in bf16,
+    ``grouped_gemm_decode.cu`` at decode and serving shapes in bf16 and
+    int8, ``grouped_gemm.cu`` for the rest) and checks two runs bit-equal;
+    the split-stream cases also replay a captured launch after the group
+    sizes change, which must equal an eager call bit for bit."""
     import torch
     import torch.nn.functional as F
 
@@ -1080,8 +1196,7 @@ def parity_grouped_gemm(g, results):
         return fn
 
     def report(name, err, tol, ms, plain_ms, library_ms, bound_ms, bound_by,
-               extra, tma):
-        source = _GG_TMA_CU if tma else _GG_CU
+               extra, source):
         extra = f"{extra}; {source.rsplit('/', 1)[1]}"
         log(f"  grouped {name}: max|err| {err:.3e} (tol {tol:.3e}); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library "
@@ -1115,13 +1230,25 @@ def parity_grouped_gemm(g, results):
                 rhs[e] = (torch.randn(shape[1:], generator=g, device=dev)
                           * K ** -0.5).to(rhs_dt)
         kw = dict(transpose_rhs=transpose_rhs, scale=scale)
-        tma0 = grouped_gemm.launches_tma
+        c0 = (grouped_gemm.launches_tma, grouped_gemm.launches_stream)
         out = grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, **kw)
-        tma = grouped_gemm.launches_tma > tma0
+        source = (_GG_TMA_CU if grouped_gemm.launches_tma > c0[0] else
+                  _GG_STREAM_CU if grouped_gemm.launches_stream > c0[1]
+                  else _GG_CU)
+        bit_equal = torch.equal(out, grouped_gemm(lhs, rhs, gs,
+                                                  out_dtype=out_dt, **kw))
+        replay_equal = None
+        if source == _GG_STREAM_CU:
+            replay_equal = grouped_replay_equal(lhs, rhs, gs,
+                                                dict(out_dtype=out_dt, **kw))
         ref = grouped_gemm_plain(lhs, rhs, gs, bounds=bounds, **kw)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"grouped {name}: non-finite output")
+        if not bit_equal or replay_equal is False:
+            raise AssertionError(f"grouped {name}: two runs bit-equal "
+                                 f"{bit_equal}, graph replay with new group "
+                                 f"sizes equal {replay_equal}")
         err = (out.float() - ref).abs().max().item()
         f32 = lhs_dt == out_dt == torch.float32 and rhs_dt != torch.bfloat16
         tol = (GG_F32_REL if f32 else GG_BF16_REL) * ref.abs().max().item()
@@ -1147,7 +1274,9 @@ def parity_grouped_gemm(g, results):
             "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
                       bound_by, f"{M} rows over {active} of {G} groups, "
-                      f"largest {int(gs.max())}", tma)
+                      f"largest {int(gs.max())}, two runs bit-equal"
+                      + ("" if replay_equal is None else
+                         ", graph replay with new group sizes equal"), source)
 
     def tgmm_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
                   dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK):
@@ -1158,7 +1287,7 @@ def parity_grouped_gemm(g, results):
         dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
         tma0 = grouped_gemm_tgmm.launches_tma
         out = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
-        tma = grouped_gemm_tgmm.launches_tma > tma0
+        source = _GG_TMA_CU if grouped_gemm_tgmm.launches_tma > tma0 else _GG_CU
         again = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
         ref = grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32,
                                       bounds=bounds)
@@ -1186,7 +1315,7 @@ def parity_grouped_gemm(g, results):
                                    "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
                       bound_by, f"{M} rows, empty group exact zero, two "
-                      f"runs bit-equal", tma)
+                      f"runs bit-equal", source)
 
     i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
     results["grouped_gemm"] = [
@@ -1198,7 +1327,13 @@ def parity_grouped_gemm(g, results):
                  20),
         fwd_case("serving_gate_bf16[64,2048]x[128,2048,768]", 8, 2048, 768,
                  20),
+        fwd_case("decode_down_bf16[32,768]x[128,768,2048]", 4, 768, 2048,
+                 20),
         fwd_case("decode_gateup_int8[32,2048]x[128,2048,1536]", 4, 2048,
+                 1536, 20, rhs_dt=i8),
+        fwd_case("decode_down_int8[32,768]x[128,768,2048]", 4, 768, 2048,
+                 20, rhs_dt=i8),
+        fwd_case("serving_gateup_int8[64,2048]x[128,2048,1536]", 8, 2048,
                  1536, 20, rhs_dt=i8),
         fwd_case("prefill_gateup_int8[98304,2048]x[128,2048,1536]", 12288,
                  2048, 1536, 2, rhs_dt=i8),
@@ -1219,11 +1354,13 @@ def parity_grouped_gemm(g, results):
                  lhs_dt=f32, rhs_dt=f32, G=4, k=2),
     ]
     for case in results["grouped_gemm"]:
-        big_bf16 = case["case"].startswith(("prefill_", "train_")) and \
-            "int8" not in case["case"]
-        if (case["source"] == _GG_TMA_CU) != big_bf16:
-            raise AssertionError(f"grouped {case['case']}: ran from "
-                                 f"{case['source']}")
+        name = case["case"]
+        expected = (_GG_STREAM_CU if name.startswith(("decode_", "serving_"))
+                    else _GG_TMA_CU if name.startswith(("prefill_", "train_"))
+                    and "int8" not in name else _GG_CU)
+        if case["source"] != expected:
+            raise AssertionError(f"grouped {name}: ran from "
+                                 f"{case['source']}, expected {expected}")
     results["grouped_gemm_tgmm"] = [
         tgmm_case("train_bf16xf32[2048,32768].[32768,768]->[128,2048,768]",
                   4096, 2048, 768, 4),
@@ -1531,6 +1668,7 @@ def main_path(params, cfg, samples, text_tok, gen, seed, label):
     counts = read_counts()
     check_flash_tma(label)
     check_paged_tma(label)
+    check_int8_tma(label)
     lines = buf.getvalue().splitlines()
     steps = stats.get("decode_steps", 0)
     log(f"  {label}: encoders {stats['encode_s']:.3f} s, prefill "
@@ -1570,6 +1708,7 @@ def serve_main_path(params, cfg, samples, text_tok, gen, seed, label,
     counts = read_counts()
     check_flash_tma(label)
     check_paged_tma(label)
+    check_int8_tma(label)
     lines = buf.getvalue().splitlines()
     dispatches = (stats["decode_dispatches"] + stats["fused_dispatches"]
                   + stats["prefill_dispatches"])
@@ -1622,6 +1761,7 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
                         stats=stats)
     counts = read_counts()
     check_flash_tma(label)
+    check_int8_tma(label)
     hist = result["history"]
     for h in hist:
         ph = h["phases"]
@@ -1870,7 +2010,9 @@ def drive_moe_paths(seed: int, launches, inp):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"grouped_gemm launches {counts['grouped_gemm']} "
             f"({int8_grouped_launches()} over int8 experts, "
-            f"{tma_launches()[0]} on the TMA and wgmma kernel), tgmm "
+            f"{tma_launches()[0]} on the TMA and wgmma kernel, "
+            f"{counters()['grouped_gemm'].launches_stream} on the split "
+            f"stream, {grouped_off_route()} on grouped_gemm.cu), tgmm "
             f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
             f"and wgmma kernel)")
 
@@ -1886,11 +2028,15 @@ def drive_moe_paths(seed: int, launches, inp):
             GenerationConfig(max_new_tokens=32, do_sample=True, **common),
             seed, label)
         check(label, counts, gen_kernels, MOE_LAYERS)
-        # one prefill: gate, up and down of every layer at M >= 64 G
+        # one prefill: gate, up and down of every layer at M >= 64 G; every
+        # decode product (M = 32 < 64 G) on the split stream
         if tma_launches()[0] != 3 * MOE_LAYERS:
             raise AssertionError(f"{label}: {tma_launches()[0]} grouped "
                                  f"GEMMs on the TMA and wgmma kernel, "
                                  f"expected the prefill's {3 * MOE_LAYERS}")
+        if grouped_off_route():
+            raise AssertionError(f"{label}: a decode-shaped grouped GEMM "
+                                 f"missed the split stream")
 
     label = "MoE serving, paged bf16 pages of 64, sampled"
     with Phase(f"main path {label}, {len(inp['serve_samples'])} requests, "
@@ -1901,6 +2047,11 @@ def drive_moe_paths(seed: int, launches, inp):
             seed, label, enc.system_prompt_ids, n_slots=8, paged=True,
             page_size=64)
         check(label, counts, gen_kernels + ("paged_attention",), MOE_LAYERS)
+        # prefill chunks at M >= 64 G on the TMA kernel, the rest (the
+        # ticks, smaller chunks) on the split stream
+        if grouped_off_route():
+            raise AssertionError(f"{label}: a serving-shaped grouped GEMM "
+                                 f"missed the split stream")
     release()
 
     if MOE_INT8_LAYERS != MOE_LAYERS:
@@ -1927,6 +2078,12 @@ def drive_moe_paths(seed: int, launches, inp):
         if int8_grouped_launches() != counts["grouped_gemm"]:
             raise AssertionError(f"{label}: a grouped GEMM ran over "
                                  f"unquantized experts")
+        # the prefill's fused gate-and-up and down products (M >= 64 G) stay
+        # on grouped_gemm.cu; every decode product runs on the split stream
+        if grouped_off_route() != 2 * MOE_INT8_LAYERS:
+            raise AssertionError(f"{label}: {grouped_off_route()} grouped "
+                                 f"GEMMs off the split stream, expected the "
+                                 f"prefill's {2 * MOE_INT8_LAYERS}")
     del params
     release()
 

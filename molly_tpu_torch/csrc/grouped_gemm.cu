@@ -28,26 +28,22 @@
 // training send hundreds of rows to each expert (M = 98,304 over 128 experts
 // at qwen3-30b-a3b width): the product is bound by operations. Its bf16
 // form (a bf16 rhs, no scale, K a multiple of 64) is not in this file: it
-// runs on TMA and wgmma in grouped_gemm_tma.cu, and so does the bf16 tgmm;
-// ops/grouped_gemm.py picks the source. What stays here is everything else.
-// Decode sends one to a few rows to at most 32 of 128 experts: the call
-// streams ~3 MB of weights an active expert and is bound by bytes; it takes
-// 32-row tiles so that more blocks share the stream. Three forward kernels
-// sit behind the one entry point (mma.sync m16n8k16, bf16 operands, fp32
-// accumulators, 128-column tiles of 32 or 128 rows):
-//   - bf16 on both sides with aligned rows and few rows a group (decode,
-//     the serving tick): a ring of k-tiles filled by cp.async, 6 deep, so a
-//     block that walks K alone keeps tens of KB of loads in flight;
-//     fragments by ldmatrix;
-//   - an fp32 lhs, an int8 rhs, or a bf16 product whose shape the wgmma
-//     kernel does not take: the tile is converted to bf16 (int8 exactly) on
-//     its way to shared memory, the next tile's loads started before the
-//     current tile's products; the int8 per-(group, column) scale multiplies
-//     the accumulator in the epilogue;
+// runs on TMA and wgmma in grouped_gemm_tma.cu, and so does the bf16 tgmm.
+// Decode and the serving tick (a bf16 lhs over bf16 or int8 experts, few
+// rows a group) run the split weight stream of grouped_gemm_decode.cu;
+// ops/grouped_gemm.py picks the source. What stays here is everything else:
+// int8 experts at prefill and training shapes, the transposed product at
+// few rows a group, fp32 operands, unaligned shapes. Two forward kernels
+// sit behind the one entry point:
+//   - anything in bf16 (mma.sync m16n8k16, bf16 operands, fp32
+//     accumulators, 128-column tiles of 32 rows, or 128 at 64 rows a group
+//     and more): the tile is converted to bf16 (int8 exactly) on its way to
+//     shared memory, the next tile's loads started before the current
+//     tile's products; the int8 per-(group, column) scale multiplies the
+//     accumulator in the epilogue;
 //   - nothing in bf16 (the fp32 test models, fp32 adapters): fp32 SIMT tiles.
-// Not done yet: a split-K weight stream for decode, an int8 forward whose
-// conversions overlap its loads (or wgmma with the int8 tile converted in
-// registers).
+// Not done yet: the int8 forward at prefill on wgmma with the tile converted
+// in registers (as int8_matmul_tma.cu does).
 
 #include <type_traits>
 
@@ -370,197 +366,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The same forward tile with bf16 on both sides and aligned rows (the model's
-// own products at decode and in the serving tick): nothing has to be
-// converted, so the tiles go from device memory to shared memory with
-// cp.async, several k-tiles ahead of the one being multiplied. Decode is a
-// stream of weights that one block walks alone along K; with STAGES tiles in
-// flight a block keeps ~40 KB of loads outstanding instead of one tile's.
-// Fragments are read with ldmatrix (x4: both halves of an A fragment, or the
-// B fragments of two 8-column steps, in one instruction).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // bytes past src_bytes (0 or 16 here) are written as zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Tile's indexing, with cp.async: the rows are 16-byte aligned and every
-// 8-element chunk lies wholly inside or wholly outside the matrix
-template <int ROWS, int COLS, int LS>
-__device__ __forceinline__ void async_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long ld, long long row0,
-                                           long long row_lim, int col0,
-                                           int col_lim) {
-  constexpr int CHUNKS = COLS / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    const long long row = row0 + r;
-    const int col = col0 + c;
-    const bool ok = row < row_lim && col < col_lim;
-    cp_async16(&dst[r * LS + c], ok ? src + row * ld + col : src,
-               ok ? 16 : 0);
-  }
-}
-
-// Four 8 x 8 matrices as they lie: lanes 8j .. 8j+7 give matrix j's rows.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-template <bool TRANS, int WM>
-struct AsyncShape {
-  static constexpr int BM = 32 * WM;
-  static constexpr int LSA = BK + PAD;
-  static constexpr int LSB = TRANS ? BK + PAD : BN + PAD;
-  static constexpr int A_ELEMS = BM * LSA;
-  static constexpr int B_ELEMS = TRANS ? BN * LSB : BK * LSB;
-  // few rows a group: a deep ring, the call is a weight stream
-  static constexpr int STAGES = 6;
-  static constexpr int SMEM_BYTES =
-      STAGES * (A_ELEMS + B_ELEMS) * (int)sizeof(__nv_bfloat16);
-};
-
-template <bool TRANS, int WM>
-__global__ void __launch_bounds__(THREADS)
-    grouped_gemm_async_kernel(const __nv_bfloat16* __restrict__ lhs,
-                              const __nv_bfloat16* __restrict__ rhs,
-                              void* __restrict__ out, int out_f32,
-                              const int* __restrict__ group_sizes, int G,
-                              int M, int K, int N) {
-  using S = AsyncShape<TRANS, WM>;
-  constexpr int BM = S::BM, LSA = S::LSA, LSB = S::LSB, STAGES = S::STAGES;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + STAGES * S::A_ELEMS;
-  __shared__ int s_sizes[MAX_GROUPS];
-  __shared__ int s_tile[3];
-
-  stage_sizes(s_sizes, group_sizes, G);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int b, e;
-    s_tile[0] = find_tile(s_sizes, G, M, BM, blockIdx.y, &b, &e);
-    s_tile[1] = b;
-    s_tile[2] = e;
-  }
-  __syncthreads();
-  const int grp = s_tile[0];
-  if (grp < 0) return;
-  const int row_begin = s_tile[1], row_end = s_tile[2];
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-
-  if (grp == G) {  // rows past the last group: zeros
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
-      const int r = row_begin + idx / BN, n = n0 + idx % BN;
-      if (r < row_end && n < N)
-        store_out(out, out_f32, (long long)r * N + n, 0.f);
-    }
-    return;
-  }
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int mj = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row in it
-  const __nv_bfloat16* rhs_g = rhs + (long long)grp * K * N;
-  const int nk = (K + BK - 1) / BK;
-
-  auto start_tile = [&](int kt) {
-    if (kt < nk) {
-      const int st = kt % STAGES, k0 = kt * BK;
-      async_tile<BM, BK, LSA>(As + st * S::A_ELEMS, lhs, K, row_begin,
-                              row_end, k0, K);
-      if constexpr (TRANS)
-        async_tile<BN, BK, LSB>(Bs + st * S::B_ELEMS, rhs_g, K, n0, N, k0, K);
-      else
-        async_tile<BK, BN, LSB>(Bs + st * S::B_ELEMS, rhs_g, N, k0, K, n0, N);
-    }
-    cp_async_commit();  // an empty group keeps the count in step
-  };
-
-  float acc[WM][4][4];
-#pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int s = 0; s < STAGES - 1; ++s) start_tile(s);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's part)
-    __syncthreads();              // ... everyone's; tile kt-1 is consumed
-    start_tile(kt + STAGES - 1);  // into the buffer tile kt-1 used
-    const __nv_bfloat16* A = As + (kt % STAGES) * S::A_ELEMS;
-    const __nv_bfloat16* B = Bs + (kt % STAGES) * S::B_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[WM][4];
-#pragma unroll
-      for (int i = 0; i < WM; ++i) {
-        // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7,
-        // k 8-15), (rows 8-15, k 8-15) = a[0..3]
-        const int r = wm * 16 * WM + i * 16 + (mj & 1) * 8 + mr;
-        ldmatrix_x4(af[i], &A[r * LSA + ks * 16 + (mj >> 1) * 8]);
-      }
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {  // two 8-column steps a load
-        const int c = wn * 32 + jp * 16;
-        uint32_t bf[4];  // b0, b1 of step 2jp, then of step 2jp + 1
-        if constexpr (TRANS)
-          ldmatrix_x4(bf, &B[(c + (mj >> 1) * 8 + mr) * LSB + ks * 16 +
-                             (mj & 1) * 8]);
-        else
-          ldmatrix_x4_trans(bf, &B[(ks * 16 + (mj & 1) * 8 + mr) * LSB + c +
-                                   (mj >> 1) * 8]);
-#pragma unroll
-        for (int i = 0; i < WM; ++i) {
-          molly::mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-          molly::mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = n0 + wn * 32 + j * 8 + t * 2 + e;
-      if (n >= N) continue;
-#pragma unroll
-      for (int i = 0; i < WM; ++i)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = row_begin + wm * 16 * WM + i * 16 + g + hr * 8;
-          if (r < row_end)
-            store_out(out, out_f32, (long long)r * N + n,
-                      acc[i][j][2 * hr + e]);
-        }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Forward in fp32 on the SIMT units (nothing is bf16): 64 x 64 tiles, each
 // of the 256 threads owns a 4 x 4 block of outputs. The lhs is fp32; the
 // rhs fp32 or int8.
@@ -858,24 +663,6 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool TRANS, int WM>
-int launch_async(const void* lhs, const void* rhs, void* out, int out_f32,
-                 const int* group_sizes, int M, int K, int N, int G,
-                 cudaStream_t stream) {
-  using S = AsyncShape<TRANS, WM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_gemm_async_kernel<TRANS, WM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + S::BM - 1) / S::BM + G);
-  grouped_gemm_async_kernel<TRANS, WM>
-      <<<grid, THREADS, S::SMEM_BYTES, stream>>>(
-          static_cast<const __nv_bfloat16*>(lhs),
-          static_cast<const __nv_bfloat16*>(rhs), out, out_f32, group_sizes,
-          G, M, K, N);
-  return cudaGetLastError();
-}
-
 template <typename TB, bool TRANS>
 int launch_mma(const void* lhs, int lhs_dtype, const void* rhs,
                const float* scale, void* out, int out_dtype,
@@ -891,12 +678,6 @@ int launch_mma(const void* lhs, int lhs_dtype, const void* rhs,
   // many rows a group: 128-row tiles (bound by operations); few: 32-row
   // tiles, more blocks on the weight stream (bound by bytes)
   const bool big = (long long)M >= 64LL * G;
-  if constexpr (std::is_same<TB, __nv_bfloat16>::value) {
-    // few rows of bf16 on both sides, aligned, no scale: the cp.async ring
-    if (!big && !lhs_f32 && vec_a && vec_b && scale == nullptr)
-      return launch_async<TRANS, 1>(lhs, rhs, out, out_f32, group_sizes, M, K,
-                                    N, G, stream);
-  }
   if (big) {
     const dim3 grid((N + BN - 1) / BN, (M + 127) / 128 + G);
     grouped_gemm_mma_kernel<TB, TRANS, 4><<<grid, THREADS, 0, stream>>>(

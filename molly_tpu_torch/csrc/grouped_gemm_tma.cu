@@ -473,16 +473,6 @@ bool make_map(CUtensorMap* map, const void* ptr, int elem_bytes,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// of the current device (the wrapper has made the tensors' device current)
-int sm_count() {
-  int dev = 0, count = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return count;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(
@@ -504,7 +494,7 @@ int launch_forward(const void* lhs, const void* rhs, void* out, int out_f32,
   if (err != cudaSuccess) return err;
   const long long tiles =
       ((long long)(M + TILE - 1) / TILE + G) * ((N + TILE - 1) / TILE);
-  const int sms = sm_count();
+  const int sms = current_sm_count();
   if (sms <= 0) return cudaErrorInvalidValue;
   const int grid = (int)(tiles < sms ? tiles : sms);
   grouped_gemm_tma_kernel<TRANS><<<grid, THREADS, SMEM_BYTES, stream>>>(
@@ -556,7 +546,7 @@ extern "C" int molly_grouped_gemm_tgmm_tma(const void* lhs, const void* dout,
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)G * ((K + TILE - 1) / TILE) *
                           ((N + TILE - 1) / TILE);
-  const int sms = sm_count();
+  const int sms = current_sm_count();
   if (sms <= 0) return cudaErrorInvalidValue;
   const int grid = (int)(tiles < sms ? tiles : sms);
   tgmm_tma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(

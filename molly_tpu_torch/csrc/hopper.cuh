@@ -2,8 +2,8 @@
 // shared-memory addresses, mbarriers, TMA loads and stores, the proxy
 // fence, the warpgroup barrier, wgmma and its shared-memory descriptors,
 // the host's lookup of cuTensorMapEncodeTiled and the 4-D maps of the
-// attention kernels. Included by grouped_gemm_tma.cu,
-// flash_attention_fwd_tma.cu and flash_attention_bwd_tma.cu.
+// attention kernels, and the exact int8 -> bf16 conversion of A fragments.
+// Included by every *_tma.cu source and grouped_gemm_decode.cu.
 #pragma once
 
 #include <cuda.h>
@@ -235,6 +235,43 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// One int8 byte of w (biased to unsigned by the caller) as fp32, exactly:
+// the byte becomes the low mantissa byte of 2^23, and 2^23 + 128 is taken off.
+template <int BYTE>
+__device__ __forceinline__ float i8_biased_to_f32(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650u | BYTE)) -
+         8388736.f;
+}
+// two exact fp32 integers as a bf16 pair (lo in the low half): their upper
+// halves, since an integer of at most 8 bits has no bits in the lower ones
+__device__ __forceinline__ uint32_t pack_exact_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+// The A fragments (m16 x k16, bf16, the layout of mma.sync and of wgmma's
+// register A) of two m tiles from an int8 tile stored [k][n], for weight
+// columns on m: w0 .. w3 are the 32-bit words of rows 2t, 2t + 1, 2t + 8,
+// 2t + 9 of the k step (t = lane % 4) at four adjacent columns c .. c + 3.
+// Tile i gets columns c + 2i (its row g) and c + 2i + 1 (its row g + 8), so
+// one 32-bit load a row serves both tiles. Exact: int8 values are bf16.
+__device__ __forceinline__ void int8_frags(uint32_t w0, uint32_t w1,
+                                           uint32_t w2, uint32_t w3,
+                                           uint32_t (&a0)[4],
+                                           uint32_t (&a1)[4]) {
+  w0 ^= 0x80808080u;
+  w1 ^= 0x80808080u;
+  w2 ^= 0x80808080u;
+  w3 ^= 0x80808080u;
+  a0[0] = pack_exact_bf16(i8_biased_to_f32<0>(w0), i8_biased_to_f32<0>(w1));
+  a0[1] = pack_exact_bf16(i8_biased_to_f32<1>(w0), i8_biased_to_f32<1>(w1));
+  a0[2] = pack_exact_bf16(i8_biased_to_f32<0>(w2), i8_biased_to_f32<0>(w3));
+  a0[3] = pack_exact_bf16(i8_biased_to_f32<1>(w2), i8_biased_to_f32<1>(w3));
+  a1[0] = pack_exact_bf16(i8_biased_to_f32<2>(w0), i8_biased_to_f32<2>(w1));
+  a1[1] = pack_exact_bf16(i8_biased_to_f32<3>(w0), i8_biased_to_f32<3>(w1));
+  a1[2] = pack_exact_bf16(i8_biased_to_f32<2>(w2), i8_biased_to_f32<2>(w3));
+  a1[3] = pack_exact_bf16(i8_biased_to_f32<3>(w2), i8_biased_to_f32<3>(w3));
+}
+
 // ---------------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------------
@@ -259,6 +296,38 @@ inline EncodeTiled encoder() {
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// A row-major [rows, cols] matrix of 1- or 2-byte elements as boxes of
+// box_rows x box_cols (box_cols * elem_bytes = 128: one swizzle span),
+// 128-byte swizzle, zeros out of bounds
+inline bool map_2d(CUtensorMap* map, const void* ptr, int elem_bytes,
+                   long long rows, long long cols, int box_rows,
+                   int box_cols) {
+  EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map,
+                elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the SM count of the current device (the wrappers make the tensors'
+// device current), 0 on error
+inline int current_sm_count() {
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return count;
 }
 
 // [B, S, heads, D] bf16 given by element strides (the head dim contiguous)

@@ -11,20 +11,19 @@
 // ops-per-byte ridge: it is bound by reading the int8 weights (half the
 // bytes of bf16, which is the point of --int8). Under --int8 the prefill
 // sends M = B*S (~12k rows) through the same call, and there it is
-// compute-bound. So there are two kernels behind one entry point:
+// compute-bound: bf16 x with more than 16 rows and aligned shapes runs on
+// TMA and wgmma in int8_matmul_tma.cu (ops/quant.py:int8_takes_tma picks
+// the source). Two kernels stay here, behind one entry point:
 //   - M <= 16: a split-K weight stream (int8_gemv_kernel): 16-byte vector
 //     loads of the weights, the activations in shared memory, enough K
 //     chunks to fill every SM even when N is 2048, fp32 atomics into a
 //     workspace and a small scale-and-cast pass;
-//   - larger M, bf16 x with aligned rows (the --int8 prefill): a tensor-core
-//     GEMM (int8_matmul_mma_kernel), the weight tile converted to bf16 in
-//     shared memory (exact for int8) and mma.sync m16n8k16 with fp32
-//     accumulators, 128 x 128 output tiles;
 //   - any other larger-M call (fp32 x, unaligned rows): a tiled SIMT GEMM
 //     (int8_matmul_kernel), 64 x 64 output tiles staged as fp32, each of
 //     the 256 threads owning a 4 x 4 block of outputs.
-// Not done yet: cp.async / TMA pipelining, wgmma, and int8 tensor-core
-// products with the activations quantized (a different result).
+// Not done yet: the split-K stream on TMA with the reduction done without
+// atomics, and int8 tensor-core products with the activations quantized (a
+// different result).
 
 #include "common.cuh"
 
@@ -242,132 +241,12 @@ int launch_gemv(const void* x, const int8_t* w, const float* scale, void* out,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Prefill path (bf16 x, M > SMALL_M, K % 32 == 0, N % 16 == 0, 16-byte
-// aligned rows): the same product on the tensor cores. int8 values are exact
-// in bf16, so converting the weight tile to bf16 in shared memory and
-// running mma.sync m16n8k16 with fp32 accumulators computes exactly what the
-// SIMT kernel computes, in another summation order. A block owns a 128 x 128
-// output tile; 8 warps as 2 (rows) x 4 (columns), each a 64 x 32 sub-tile;
-// K advances 32 at a time with x staged row-major and w staged transposed
-// (n rows, k contiguous), both padded so fragment reads hit 32 banks.
-// ---------------------------------------------------------------------------
-
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_PAD = 8;
-
-__global__ void __launch_bounds__(THREADS)
-    int8_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                           const int8_t* __restrict__ w,
-                           const float* __restrict__ scale,
-                           __nv_bfloat16* __restrict__ out, int M, int N,
-                           int K) {
-  constexpr int LS = TC_BK + TC_PAD;  // row stride of both tiles
-  __shared__ __align__(16) __nv_bfloat16 As[TC_BM * LS];  // x: [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bt[TC_BN * LS];  // w: [n][k]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TC_BK) {
-    // x tile: 128 rows x 32 k = 512 vectors of 8 bf16
-    for (int idx = tid; idx < TC_BM * TC_BK / 8; idx += THREADS) {
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      const int m = m0 + r;
-      *reinterpret_cast<uint4*>(&As[r * LS + c]) =
-          m < M ? *reinterpret_cast<const uint4*>(x + (long long)m * K + k0 + c)
-                : make_uint4(0, 0, 0, 0);
-    }
-    // w tile: 32 k x 128 n = 256 vectors of 16 int8, lanes along k so the
-    // transposed bf16 stores land on consecutive addresses
-    {
-      const int kr = tid & 31, c = (tid >> 5) * 16;
-      const int n = n0 + c;
-      int8_t wv[16];
-      if (n < N) {
-        *reinterpret_cast<int4*>(wv) = __ldg(reinterpret_cast<const int4*>(
-            w + (long long)(k0 + kr) * N + n));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) wv[i] = 0;
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        Bt[(c + i) * LS + kr] = __float2bfloat16_rn((float)wv[i]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < TC_BK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + g;
-        af[i][0] = molly::ld32(&As[r * LS + ks * 16 + t * 2]);
-        af[i][1] = molly::ld32(&As[(r + 8) * LS + ks * 16 + t * 2]);
-        af[i][2] = molly::ld32(&As[r * LS + ks * 16 + 8 + t * 2]);
-        af[i][3] = molly::ld32(&As[(r + 8) * LS + ks * 16 + 8 + t * 2]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn * 32 + j * 8 + g;
-        const uint32_t b0 = molly::ld32(&Bt[c * LS + ks * 16 + t * 2]);
-        const uint32_t b1 = molly::ld32(&Bt[c * LS + ks * 16 + 8 + t * 2]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) molly::mma_bf16(acc[i][j], af[i], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + wn * 32 + j * 8 + t * 2;
-    if (n >= N) continue;
-    const float s0 = scale[n], s1 = scale[n + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int m = m0 + wm * 64 + i * 16 + g + hr * 8;
-        if (m < M)
-          *reinterpret_cast<__nv_bfloat162*>(&out[(long long)m * N + n]) =
-              __floats2bfloat162_rn(acc[i][j][2 * hr] * s0,
-                                    acc[i][j][2 * hr + 1] * s1);
-      }
-  }
-}
-
-int launch_mma(const void* x, const int8_t* w, const float* scale, void* out,
-               int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
-  int8_matmul_mma_kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), w, scale,
-      static_cast<__nv_bfloat16*>(out), M, N, K);
-  return cudaGetLastError();
-}
-
-bool mma_ok(const void* x, const int8_t* w, const void* out, int N, int K) {
-  auto al = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  return K % TC_BK == 0 && N % 16 == 0 && al(x) && al(w) && al(out);
-}
-
 }  // namespace
 
 // x [M, K] and out [M, N] row-major contiguous in dtype; w_q [K, N] int8
 // row-major contiguous (16-byte aligned); scale [N] fp32; ws an fp32
-// workspace of M * N elements, used when M <= SMALL_M (may be null else).
+// workspace of M * N elements, used when M <= SMALL_M (may be null else;
+// ops/quant.py:SMALL_M is the same number).
 extern "C" int molly_int8_matmul(const void* x, const int8_t* w,
                                  const float* scale, void* out, float* ws,
                                  int M, int N, int K, int dtype,
@@ -376,17 +255,11 @@ extern "C" int molly_int8_matmul(const void* x, const int8_t* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = M <= SMALL_M;
   if (small && ws == nullptr) return cudaErrorInvalidValue;
-  if (dtype == molly::kBFloat16) {
-    if (small)
-      return launch_gemv<__nv_bfloat16>(x, w, scale, out, ws, M, N, K, s);
-    return mma_ok(x, w, out, N, K)
-               ? launch_mma(x, w, scale, out, M, N, K, s)
-               : launch<__nv_bfloat16>(x, w, scale, out, M, N, K, s);
-  }
+  if (dtype == molly::kBFloat16)
+    return small ? launch_gemv<__nv_bfloat16>(x, w, scale, out, ws, M, N, K, s)
+                 : launch<__nv_bfloat16>(x, w, scale, out, M, N, K, s);
   if (dtype == molly::kFloat32)
     return small ? launch_gemv<float>(x, w, scale, out, ws, M, N, K, s)
                  : launch<float>(x, w, scale, out, M, N, K, s);
   return cudaErrorInvalidValue;
 }
-
-extern "C" int molly_int8_matmul_small_m() { return SMALL_M; }

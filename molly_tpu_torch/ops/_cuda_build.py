@@ -18,6 +18,7 @@ Every exported C function returns the ``cudaError_t`` of its launch
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,8 +32,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention_fwd", "flash_attention_fwd_tma",
            "flash_attention_bwd", "flash_attention_bwd_tma", "int8_matmul",
-           "paged_attention", "paged_attention_tma", "grouped_gemm",
-           "grouped_gemm_tma")
+           "int8_matmul_tma", "paged_attention", "paged_attention_tma",
+           "grouped_gemm", "grouped_gemm_tma", "grouped_gemm_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -107,3 +108,11 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.molly_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (the static plans of the split
+    kernels depend on it, never on data)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -1,7 +1,8 @@
 """Grouped matrix products for the mixture-of-experts FFN: the wrappers of
-the hand-written CUDA kernels (``csrc/grouped_gemm.cu``, and
+the hand-written CUDA kernels (``csrc/grouped_gemm.cu``;
 ``csrc/grouped_gemm_tma.cu`` for bf16 operands at prefill and training
-shapes) and their plain PyTorch versions.
+shapes; ``csrc/grouped_gemm_decode.cu`` for decode and serving shapes) and
+their plain PyTorch versions.
 
 Replaces the megablox kernels that ``molly_tpu/ops/moe.py:_grouped_dot``
 launches: ``gmm`` (forward, and with ``transpose_rhs`` for the lhs gradient)
@@ -22,25 +23,30 @@ An int8 rhs (``ops.moe.quantize_experts``) is converted tile by tile inside
 the kernel; its per-(group, column) ``scale`` multiplies the fp32
 accumulator once at the end (the scale factors out of the contraction).
 
-Two sources hold the kernels. ``takes_tma`` / ``tgmm_takes_tma`` say which
-one a call goes to: bf16 products with many rows a group run on the TMA and
-wgmma kernels, everything else (decode and serving tiles, int8 experts,
-fp32, unaligned shapes) on the ``mma.sync`` and SIMT kernels. Both routes
-multiply bf16 operands, so an fp32 operand of a bf16 product is rounded to
-bf16 once: inside the older kernels as they stage it, before the launch for
-the newer ones (the autograd function rounds ``dout`` once for both of its
-products). The fp32 products and the CPU route are not touched by this.
+Three sources hold the kernels. ``takes_tma`` / ``tgmm_takes_tma`` /
+``takes_stream`` say which one a call goes to: bf16 products with many rows
+a group run on the TMA and wgmma kernels, a bf16 lhs over bf16 or int8
+experts with few rows a group (decode, the serving tick) on the split
+weight stream (its grid from ``stream_plan``), everything else (int8
+experts at prefill and training shapes, transposed products with few rows,
+fp32, unaligned shapes) on the ``mma.sync`` and SIMT kernels. The bf16
+routes multiply bf16 operands, so an fp32 operand of a bf16 product is
+rounded to bf16 once: inside the older kernels as they stage it, before the
+launch for the TMA ones (the autograd function rounds ``dout`` once for both
+of its products). The fp32 products and the CPU route are not touched by
+this.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. ``grouped_gemm.launches`` / ``grouped_gemm_tgmm.launches`` count
 kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs;
-``.launches_tma`` on either: those that went to the TMA and wgmma kernels).
+``.launches_tma`` on either: those that went to the TMA and wgmma kernels;
+``grouped_gemm.launches_stream``: those on the split weight stream).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,11 +58,62 @@ def takes_tma(M: int, K: int, N: int, G: int, rhs_dtype, has_scale: bool,
               aligned: bool = True) -> bool:
     """Does this forward product (transposed or not) go to the TMA and wgmma
     kernel? A bf16 rhs without a scale, at least 64 rows a group on average
-    (below that the call is a stream of weights and takes 32-row tiles), K
+    (below that the call is a stream of weights: ``takes_stream``), K
     a multiple of the 64-element stage, rows of 16 bytes, 16-byte aligned
     bases. The lhs may be bf16 or fp32 (rounded once before the launch)."""
     return (rhs_dtype == torch.bfloat16 and not has_scale and M >= 64 * G
             and K % 64 == 0 and N % 8 == 0 and aligned)
+
+
+def takes_stream(M: int, K: int, N: int, G: int, lhs_dtype, rhs_dtype,
+                 has_scale: bool, transpose_rhs: bool = False,
+                 aligned: bool = True) -> bool:
+    """Does this forward product go to the split weight stream
+    (``csrc/grouped_gemm_decode.cu``)? A bf16 lhs over a bf16 rhs without a
+    scale or an int8 rhs with its scale, not transposed, fewer than 64 rows
+    a group on average, K a multiple of the 64-element stage, rows of 16
+    bytes (int8: N a multiple of 16), 16-byte aligned bases."""
+    if lhs_dtype != torch.bfloat16 or transpose_rhs or not 0 < M < 64 * G:
+        return False
+    if rhs_dtype == torch.bfloat16:
+        fits = not has_scale and N % 8 == 0
+    elif rhs_dtype == torch.int8:
+        fits = has_scale and N % 16 == 0
+    else:
+        return False
+    return fits and K % 64 == 0 and aligned
+
+
+STREAM_COLS = 128    # weight columns of a stream unit
+STREAM_STAGE = 64    # contraction elements of a stage
+_STREAM_MAX_SPLITS = 8  # K splits of a unit: the blocks of one cluster
+# blocks an SM holds at once (csrc/grouped_gemm_decode.cu: 45 KB of shared
+# memory a bf16 block, 40 KB an int8 one)
+_STREAM_BLOCKS_PER_SM = {False: 4, True: 5}
+
+
+def stream_plan(M: int, K: int, N: int, G: int, sm_count: int,
+                int8: bool = False) -> Tuple[int, int, int, int]:
+    """(slots, column tiles, splits, stages a split) of the split weight
+    stream, from static shapes and the SM count only: the group sizes live
+    on the device and are never read by the host, so the plan holds for any
+    sizes and a captured graph replays with new ones. Block (split, slot,
+    tile) serves the slot-th group that has rows (min(M, G) slots: no call
+    has more), columns [128 tile, +128) and stages [split * per, +per) of
+    K's 64-element stages. K is split in powers of two (at most 8) while the
+    whole grid still fits the card's resident blocks (one wave: a second
+    one would run the tail of the stream on a few SMs), then every split
+    gets a stage."""
+    slots = min(M, G)
+    tiles = -(-N // STREAM_COLS)
+    stages = K // STREAM_STAGE
+    resident = _STREAM_BLOCKS_PER_SM[int8] * sm_count
+    splits = 1
+    while (splits < _STREAM_MAX_SPLITS and 2 * splits <= stages
+           and slots * tiles * 2 * splits <= resident):
+        splits *= 2
+    per = -(-stages // splits)
+    return slots, tiles, -(-stages // per), per
 
 
 def tgmm_takes_tma(M: int, K: int, N: int, dtypes, aligned: bool = True
@@ -186,16 +243,29 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
         lhs = lhs.to(torch.bfloat16)
     lhs = lhs.contiguous()
     tma = tma and _aligned(lhs, out)
+    operands = (lhs, rhs, out) + (() if scale is None else (scale,))
+    stream = takes_stream(M, K, N, G, lhs.dtype, rhs.dtype, scale is not None,
+                          transpose_rhs, _aligned(*operands))
 
     from . import _cuda_build
     with torch.cuda.device(lhs.device):
-        stream = torch.cuda.current_stream(lhs.device).cuda_stream
+        cuda_stream = torch.cuda.current_stream(lhs.device).cuda_stream
         if tma:
             lib = _lib_tma()
             err = lib.molly_grouped_gemm_tma(
                 lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(),
                 group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
-                int(transpose_rhs), stream)
+                int(transpose_rhs), cuda_stream)
+        elif stream:
+            lib = _lib_decode()
+            err = lib.molly_grouped_gemm_decode(
+                lhs.data_ptr(), rhs.data_ptr(),
+                None if scale is None else scale.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
+                *stream_plan(M, K, N, G,
+                             _cuda_build.sm_count(lhs.device.index),
+                             rhs.dtype == torch.int8),
+                cuda_stream)
         else:
             lib = _lib()
             err = lib.molly_grouped_gemm(
@@ -203,10 +273,11 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
                 None if scale is None else scale.data_ptr(), out.data_ptr(),
                 group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
                 _DTYPES[rhs.dtype], _DTYPES[out_dtype], int(transpose_rhs),
-                stream)
+                cuda_stream)
     _cuda_build.check(lib, err, "grouped_gemm")
     grouped_gemm.launches += 1
     grouped_gemm.launches_tma += int(tma)
+    grouped_gemm.launches_stream += int(stream)
     if rhs.dtype == torch.int8:
         grouped_gemm.launches_int8 += 1
     return out
@@ -328,6 +399,7 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
 grouped_gemm.launches = 0
 grouped_gemm.launches_int8 = 0
 grouped_gemm.launches_tma = 0
+grouped_gemm.launches_stream = 0
 
 
 def _lib():
@@ -355,4 +427,15 @@ def _lib_tma():
         lib.molly_grouped_gemm_tgmm_tma.argtypes = [P, P, P, P, I, I, I, I, I,
                                                     P]
         lib.molly_grouped_gemm_tgmm_tma.restype = I
+    return lib
+
+
+def _lib_decode():
+    from . import _cuda_build
+    lib = _cuda_build.library("grouped_gemm_decode")
+    fn = lib.molly_grouped_gemm_decode
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P] + [I] * 9 + [P]
+        fn.restype = I
     return lib

@@ -37,7 +37,6 @@ what its design does about it.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -101,11 +100,6 @@ def paged_split_plan(B: int, Nkv: int, pages_per_seq: int, page_size: int,
                      < _SPLIT_BLOCKS_PER_SM * sm_count):
         k //= 2
     return k, -(-pages_per_seq // k)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices, *,
@@ -219,7 +213,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         if tma:
             lib = _cuda_build.library("paged_attention_tma")
             k_split, n_splits = paged_split_plan(
-                B, Nkv, pps, P, _sm_count(q.device.index))
+                B, Nkv, pps, P, _cuda_build.sm_count(q.device.index))
             # the splits' partials; a plan of one split needs none
             part_o = part_ml = None
             if n_splits > 1:

@@ -1,6 +1,12 @@
 """Int8 weight-only quantization (decode, and the frozen QLoRA base in
-training): the wrapper of the hand-written
-CUDA GEMM (``csrc/int8_matmul.cu``) and its plain PyTorch version.
+training): the wrapper of the hand-written CUDA GEMMs and its plain PyTorch
+version. ``int8_takes_tma`` is the route: bf16 x with more than ``SMALL_M``
+rows and aligned shapes (prefill, the QLoRA step) runs on TMA and wgmma
+(``csrc/int8_matmul_tma.cu``); the rest on ``csrc/int8_matmul.cu``: the
+split-K weight stream at M <= ``SMALL_M`` (decode), the SIMT GEMM for fp32 x
+and unaligned views. ``int8_matmul.launches`` counts every launch,
+``.launches_tma`` those on the TMA kernel, ``.launches_gemv`` those on the
+split-K stream.
 
 Replaces ``molly_tpu/ops/quant.py:_kernel`` (launched from ``int8_matmul``).
 Math: y = (x @ w_q) * scale, with w_q = round(w / scale) per output column
@@ -23,6 +29,16 @@ from typing import Dict
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMALL_M = 16  # rows up to which the split-K stream runs (int8_matmul.cu too)
+
+
+def int8_takes_tma(M: int, K: int, N: int, dtype,
+                   aligned: bool = True) -> bool:
+    """Does this product go to the TMA and wgmma kernel? bf16 x with more
+    than ``SMALL_M`` rows, K a multiple of the 64-element stage, N of 16
+    (int8 rows of 16 bytes, four-column stores), 16-byte aligned bases."""
+    return (dtype == torch.bfloat16 and M > SMALL_M and K % 64 == 0
+            and N % 16 == 0 and aligned)
 
 
 def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -101,23 +117,36 @@ def _int8_matmul_fwd(x: torch.Tensor,
         return out.reshape(*lead, N)
 
     from . import _cuda_build
-    lib = _int8_lib()
-    # decode-sized M takes the split-K path, which sums into an fp32
-    # workspace (zeroed by the kernel's launcher)
-    ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
-          if M <= lib.molly_int8_matmul_small_m() else None)
+    tma = int8_takes_tma(M, K, N, x.dtype,
+                         all(t.data_ptr() % 16 == 0
+                             for t in (x2, w_q, scale, out)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.molly_int8_matmul(
-            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), M, N, K,
-            _DTYPES[x.dtype], stream)
+        if tma:
+            lib = _int8_tma_lib()
+            err = lib.molly_int8_matmul_tma(
+                x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, N, K, stream)
+        else:
+            lib = _int8_lib()
+            # decode-sized M takes the split-K path, which sums into an fp32
+            # workspace (zeroed by the kernel's launcher)
+            ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
+                  if M <= SMALL_M else None)
+            err = lib.molly_int8_matmul(
+                x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), M, N,
+                K, _DTYPES[x.dtype], stream)
     _cuda_build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.launches_tma += int(tma)
+    int8_matmul.launches_gemv += int(M <= SMALL_M)
     return out.reshape(*lead, N)
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_tma = 0    # those on csrc/int8_matmul_tma.cu
+int8_matmul.launches_gemv = 0   # those on the split-K stream (M <= SMALL_M)
 
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
@@ -135,5 +164,15 @@ def _int8_lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, P]
         fn.restype = I
-        lib.molly_int8_matmul_small_m.restype = I
+    return lib
+
+
+def _int8_tma_lib():
+    from . import _cuda_build
+    lib = _cuda_build.library("int8_matmul_tma")
+    fn = lib.molly_int8_matmul_tma
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, P]
+        fn.restype = I
     return lib

@@ -174,8 +174,8 @@ def test_rmsnorm_kernel_matches_plain(dev, dtype, x_shape, w_shape):
     (1, 64, 40), (4, 2048, 1000), (4, 6144, 2048), (16, 1000, 520),
     (17, 300, 129), (70, 300, 129), (257, 512, 256), (130, 256, 2064)])
 def test_int8_kernel_matches_plain(dev, dtype, M, K, N):
-    """M <= 16 takes the split-K weight stream; larger M the tensor-core
-    GEMM (bf16, K % 32 == 0, N % 16 == 0) or else the SIMT GEMM."""
+    """M <= 16 takes the split-K weight stream; larger M the TMA and wgmma
+    GEMM (bf16, K % 64 == 0, N % 16 == 0) or else the SIMT GEMM."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((M, K), generator=g, device=dev).to(dtype)
     w = torch.randn((K, N), generator=g, device=dev) * 0.05
@@ -187,6 +187,68 @@ def test_int8_kernel_matches_plain(dev, dtype, M, K, N):
     assert y.dtype == dtype and y.shape == (M, N)
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
     assert (y.float() - ref).abs().max().item() <= tol
+
+
+def _int8_operands(dev, M, K, N, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q = quant.quantize_int8(torch.randn((K, N), generator=g, device=dev)
+                            * 0.05)
+    return x, q
+
+
+@pytest.mark.parametrize("M", [17, 64, 100, 4096])
+@pytest.mark.parametrize("K,N", [(64, 16), (192, 272), (1024, 768)])
+def test_int8_tma_kernel_matches_plain(dev, M, K, N):
+    """bf16 x with more than 16 rows runs on the TMA and wgmma kernel: one
+    row tile or many, a partial last row tile, the smallest K and N the
+    route takes, a column tile whose second box lies wholly past N; parity
+    with the plain version (one bf16 rounding of the output) and the same
+    bits on a second run."""
+    x, q = _int8_operands(dev, M, K, N)
+    assert quant.int8_takes_tma(M, K, N, x.dtype)
+    before = (quant.int8_matmul.launches, quant.int8_matmul.launches_tma)
+    y = quant.int8_matmul(x, q)
+    again = quant.int8_matmul(x, q)
+    assert (quant.int8_matmul.launches,
+            quant.int8_matmul.launches_tma) == (before[0] + 2, before[1] + 2)
+    ref = quant.int8_matmul_plain(x.float(), q)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert torch.isfinite(y).all()
+    assert (y.float() - ref).abs().max().item() <= \
+        1e-2 * ref.abs().max().item()
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("case", ["unaligned_view", "k_not_of_64",
+                                  "n_not_of_16", "fp32", "sixteen_rows"])
+def test_int8_other_routes_match_plain(dev, case):
+    """What the TMA kernel does not take: an x whose base is 2 bytes off a
+    16-byte boundary, K or N off the route's multiples, fp32 x (the SIMT
+    GEMM), 16 rows (the split-K stream)."""
+    M, K, N = (16 if case == "sixteen_rows" else 70,
+               96 if case == "k_not_of_64" else 128,
+               40 if case == "n_not_of_16" else 256)
+    x, q = _int8_operands(dev, M, K, N, seed=4)
+    if case == "unaligned_view":
+        flat = torch.empty(M * K + 1, dtype=x.dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(M, K)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    elif case == "fp32":
+        x = x.float()
+    before = (quant.int8_matmul.launches, quant.int8_matmul.launches_tma,
+              quant.int8_matmul.launches_gemv)
+    y = quant.int8_matmul(x, q)
+    assert (quant.int8_matmul.launches, quant.int8_matmul.launches_tma,
+            quant.int8_matmul.launches_gemv) == (
+        before[0] + 1, before[1], before[2] + (M <= quant.SMALL_M))
+    ref = quant.int8_matmul_plain(x.float(), q)
+    torch.cuda.synchronize()
+    rel = 1e-4 if case == "fp32" else 1e-2
+    assert (y.float() - ref).abs().max().item() <= \
+        rel * ref.abs().max().item()
 
 
 # ------------------------------------------------------------- backward
@@ -879,17 +941,113 @@ def test_grouped_gemm_tgmm_tma_kernel_matches_plain(dev, sizes, K, N, lhs_dt,
             assert bool((out[e] == 0).all())
 
 
+def _stream_sizes(kind, M, G):
+    """[G] sizes for M rows: ``one``: every row but one in group G // 2;
+    ``spread``: rows dealt round-robin over min(M, G) groups, one row past
+    the sum (none for M = 1); ``shifted``: the same over other groups, the
+    first of them empty."""
+    tail = 1 if M > 1 else 0
+    sizes = [0] * G
+    if kind == "one":
+        sizes[G // 2] = M - tail
+    else:
+        first = 1 if kind == "shifted" else 0
+        groups = list(range(first, G))[:max(1, min(M - tail, G - first))]
+        for r in range(M - tail):
+            sizes[groups[r % len(groups)]] += 1
+    return sizes
+
+
+def _stream_operands(dev, M, K, N, G, int8, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+    if int8:
+        rhs = torch.randint(-127, 128, (G, K, N), generator=g, device=dev,
+                            dtype=torch.int8)
+        scale = (torch.rand((G, N), generator=g, device=dev) * 1e-2 + 1e-3
+                 ) * K ** -0.5
+    else:
+        rhs = (torch.randn((G, K, N), generator=g, device=dev)
+               * K ** -0.5).to(_BF16)
+        scale = None
+    return lhs, rhs, scale
+
+
+@pytest.mark.parametrize("M", [1, 4, 32, 63, 64])
+@pytest.mark.parametrize("kind", ["one", "spread"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("out_dt", [_F32, _BF16])
+@pytest.mark.parametrize("G,K,N", [(16, 256, 272), (128, 2048, 768)])
+def test_grouped_gemm_stream_kernel_matches_plain(dev, M, kind, int8, out_dt,
+                                                  G, K, N):
+    """Decode and serving shapes (M < 64 G, a bf16 lhs over bf16 or int8
+    experts) run on the split weight stream: one group holding every row or
+    all of them spread, a column tile past N's last 128, NaN in the row past
+    the sum without effect on any output (that row comes out 0), parity with
+    the plain version and the same bits on a second run."""
+    lhs, rhs, scale = _stream_operands(dev, M, K, N, G, int8, seed=18)
+    sizes = _stream_sizes(kind, M, G)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    owned = sum(sizes)
+    lhs[owned:] = float("nan")
+    assert gg.takes_stream(M, K, N, G, lhs.dtype, rhs.dtype, int8)
+    before = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_stream)
+    out = gg.grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, scale=scale)
+    again = gg.grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, scale=scale)
+    assert (gg.grouped_gemm.launches,
+            gg.grouped_gemm.launches_stream) == (before[0] + 2, before[1] + 2)
+    ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (M, N)
+    assert torch.isfinite(out).all()
+    assert bool((out[owned:] == 0).all())
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(ref, _BF16)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_grouped_gemm_stream_kernel_replays_with_new_group_sizes(dev, int8):
+    """The plan depends on shapes only: one captured launch, replayed after
+    the group sizes change in place (other active groups with one empty,
+    then every row in one group, then no row in any group), equals an eager
+    call on the new sizes bit for bit."""
+    M, K, N, G = 32, 512, 384, 128
+    lhs, rhs, scale = _stream_operands(dev, M, K, N, G, int8, seed=19)
+    gs = torch.tensor(_stream_sizes("spread", M, G), dtype=torch.int32,
+                      device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gg.grouped_gemm(lhs, rhs, gs, scale=scale)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = gg.grouped_gemm(lhs, rhs, gs, scale=scale)
+    for sizes in (_stream_sizes("shifted", M, G), _stream_sizes("one", M, G),
+                  [0] * G):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = gg.grouped_gemm(lhs, rhs, gs, scale=scale)
+        assert torch.equal(out, eager)
+        ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale)
+        assert (out - ref).abs().max().item() <= _gg_tol(ref, _BF16)
+    assert bool((out == 0).all())   # the last sizes own no row
+
+
 @pytest.mark.parametrize("case", ["k_not_a_multiple_of_64", "int8_rhs",
-                                  "few_rows_a_group", "tgmm_k_not_of_8",
+                                  "few_rows_transposed", "tgmm_k_not_of_8",
                                   "tgmm_all_fp32"])
 def test_grouped_gemm_falls_to_the_mma_sync_kernels(dev, case):
-    """What the TMA and wgmma kernels do not take still launches (on the
-    mma.sync or SIMT kernels) and still agrees with the plain version."""
+    """What the TMA, wgmma and stream kernels do not take still launches (on
+    the mma.sync or SIMT kernels) and still agrees with the plain
+    version."""
     M, counts = _TMA_SIZES["ragged"]
     G = len(counts)
     g = torch.Generator(device=dev).manual_seed(17)
     gs = torch.tensor(counts, dtype=torch.int32, device=dev)
-    fwd0 = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma)
+    fwd0 = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma,
+            gg.grouped_gemm.launches_stream)
     tg0 = (gg.grouped_gemm_tgmm.launches, gg.grouped_gemm_tgmm.launches_tma)
     if case.startswith("tgmm"):
         K, dt = (68, _BF16) if case == "tgmm_k_not_of_8" else (64, _F32)
@@ -902,21 +1060,24 @@ def test_grouped_gemm_falls_to_the_mma_sync_kernels(dev, case):
         tol = _gg_tol(ref, dt)
     else:
         K = 96 if case == "k_not_a_multiple_of_64" else 64
-        scale = None
-        if case == "few_rows_a_group":     # M < 64 G: the 32-row tiles
+        scale, trans = None, case == "few_rows_transposed"
+        if trans:     # M < 64 G, transposed: the 32-row tiles
             M, gs = 40, torch.tensor([3, 0, 20, 9, 7, 0], dtype=torch.int32,
                                      device=dev)
         lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
-        if case == "int8_rhs":
+        if case == "int8_rhs":   # M >= 64 G over int8 experts
             rhs = torch.randint(-127, 128, (G, K, 128), generator=g,
                                 device=dev, dtype=torch.int8)
             scale = torch.rand((G, 128), generator=g, device=dev) * 1e-2 + 1e-3
         else:
-            rhs = torch.randn((G, K, 128), generator=g, device=dev).to(_BF16)
-        out = gg.grouped_gemm(lhs, rhs, gs, scale=scale)
-        ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale)
-        assert gg.grouped_gemm.launches == fwd0[0] + 1
-        assert gg.grouped_gemm.launches_tma == fwd0[1]
+            rhs = torch.randn((G, 128, K) if trans else (G, K, 128),
+                              generator=g, device=dev).to(_BF16)
+        out = gg.grouped_gemm(lhs, rhs, gs, scale=scale, transpose_rhs=trans)
+        ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale,
+                                    transpose_rhs=trans)
+        assert (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma,
+                gg.grouped_gemm.launches_stream) == (fwd0[0] + 1, fwd0[1],
+                                                     fwd0[2])
         tol = _gg_tol(ref, _BF16)
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() <= tol

@@ -98,6 +98,51 @@ def test_grouped_gemm_forward_matches_jax(backend):
     assert torch.equal(plain, got)   # the CPU wrapper IS the plain version
 
 
+def _decode_sizes(M, G, seed):
+    """Decode-shaped group sizes: M rows over at most half of G groups (the
+    rest empty), and for M > 1 one row past the sum."""
+    rng = np.random.default_rng(seed)
+    owned = M - 1 if M > 1 else M
+    groups = rng.choice(G, size=min(G // 2, owned), replace=False)
+    sizes = np.zeros(G, np.int32)
+    for r in range(owned):
+        sizes[groups[r % len(groups)]] += 1
+    return sizes
+
+
+@pytest.mark.parametrize("backend", ["ragged", "gmm"], indirect=True)
+@pytest.mark.parametrize("M", [1, 4, 32, 64])
+@pytest.mark.parametrize("int8", [False, True])
+def test_grouped_gemm_decode_shapes_match_jax(backend, M, int8):
+    """The decode and serving route's shapes (M <= 64 rows over 8 groups,
+    empty groups, a row past the sum), bf16-free so the plain versions are
+    compared in fp32: bf16 experts as fp32, int8 experts with their scale,
+    against ``_grouped_dot`` (ragged_dot, or megablox gmm in interpret mode,
+    which pads its last group, so only the owned rows compare there). Rows
+    past the sum are exact zeros."""
+    G, K, N = 8, 128, 96
+    rng = np.random.default_rng(M)
+    lhs = rng.normal(size=(M, K)).astype(np.float32)
+    rhs = (rng.normal(size=(G, K, N)) * K ** -0.5).astype(np.float32)
+    gs = _decode_sizes(M, G, seed=M)
+    owned = int(gs.sum())
+    if int8:
+        jrhs = jmoe.quantize_experts(jnp.asarray(rhs))
+        q = moe.quantize_experts(_t(rhs))
+        np.testing.assert_array_equal(q["w_q"].numpy(),
+                                      np.asarray(jrhs["w_q"]))
+        got = gg.grouped_gemm(_t(lhs), q["w_q"], _t(gs), scale=q["scale"])
+    else:
+        jrhs = jnp.asarray(rhs)
+        got = gg.grouped_gemm(_t(lhs), _t(rhs), _t(gs))
+    ref = np.asarray(jmoe._grouped_dot(jnp.asarray(lhs), jrhs,
+                                       jnp.asarray(gs)))
+    rows = M if backend == "ragged" else owned
+    np.testing.assert_allclose(got.numpy()[:rows], ref[:rows], atol=ATOL)
+    assert not got[owned:].any()
+    assert gg.grouped_gemm.launches == gg.grouped_gemm.launches_stream == 0
+
+
 @pytest.mark.parametrize("backend", ["ragged", "gmm"], indirect=True)
 def test_grouped_gemm_gradients_match_jax(backend):
     """The autograd function's backward (the transposed product for lhs,
@@ -203,6 +248,141 @@ def test_forward_route_rule(case):
 def test_tgmm_route_rule(case):
     args, takes = TGMM_ROUTES[case]
     assert gg.tgmm_takes_tma(*args) is takes
+
+
+# (M, K, N, G, lhs dtype, rhs dtype, scale?, transposed?, aligned?) -> the
+# forward goes to the split weight stream. The first five are what MoE
+# decode and the serving tick launch at qwen3-30b-a3b width (gate, down,
+# fused int8 gate-and-up, a serving prefill chunk of 4 x 16 tokens).
+STREAM_ROUTES = {
+    "decode_gate": ((32, 2048, 768, 128, B16, B16, False, False, True), True),
+    "serving_gate": ((64, 2048, 768, 128, B16, B16, False, False, True),
+                     True),
+    "decode_down": ((32, 768, 2048, 128, B16, B16, False, False, True), True),
+    "decode_gateup_int8": ((32, 2048, 1536, 128, B16, I8, True, False, True),
+                           True),
+    "serving_chunk": ((512, 2048, 768, 128, B16, B16, False, False, True),
+                      True),
+    "one_row": ((1, 2048, 768, 128, B16, B16, False, False, True), True),
+    "one_row_short_of_64_a_group": ((64 * 128 - 1, 2048, 768, 128, B16, B16,
+                                     False, False, True), True),
+    "64_rows_a_group": ((64 * 128, 2048, 768, 128, B16, B16, False, False,
+                         True), False),
+    "int8_at_prefill": ((98304, 2048, 1536, 128, B16, I8, True, False, True),
+                        False),
+    "fp32_lhs": ((32, 2048, 768, 128, F32, B16, False, False, True), False),
+    "fp32_rhs": ((32, 2048, 64, 128, B16, F32, False, False, True), False),
+    "transposed": ((32, 768, 2048, 128, B16, B16, False, True, True), False),
+    "int8_without_scale": ((32, 2048, 1536, 128, B16, I8, False, False,
+                            True), False),
+    "bf16_with_scale": ((32, 2048, 768, 128, B16, B16, True, False, True),
+                        False),
+    "k_not_a_multiple_of_64": ((32, 2048 + 32, 768, 128, B16, B16, False,
+                                False, True), False),
+    "n_not_a_multiple_of_8": ((32, 2048, 772, 128, B16, B16, False, False,
+                               True), False),
+    "int8_n_not_a_multiple_of_16": ((32, 2048, 1544, 128, B16, I8, True,
+                                     False, True), False),
+    "unaligned_base": ((32, 2048, 768, 128, B16, B16, False, False, False),
+                       False),
+    "no_rows": ((0, 2048, 768, 128, B16, B16, False, False, True), False),
+}
+
+
+@pytest.mark.parametrize("case", STREAM_ROUTES)
+def test_stream_route_rule(case):
+    """The split stream's rule, and that no call fits it and the TMA and
+    wgmma kernel's rule both."""
+    args, takes = STREAM_ROUTES[case]
+    assert gg.takes_stream(*args) is takes
+    M, K, N, G, _, rhs_dt, scale, _, aligned = args
+    assert not (takes and gg.takes_tma(M, K, N, G, rhs_dt, scale, aligned))
+
+
+def _active_groups(sizes, M):
+    """(group, first row, end row) of every group that owns rows, with the
+    sizes clipped to M rows as every kernel clips them."""
+    out, row = [], 0
+    for g, s in enumerate(sizes):
+        end = min(row + s, M)
+        if end > row:
+            out.append((g, row, end))
+        row = end
+    return out
+
+
+def _plan_sizes(rng, M, G):
+    """Group sizes a plan must hold for: none active, every row in one
+    group, rows spread over as many groups as can have them (rows past the
+    sum), and three random draws (some summing past M)."""
+    yield [0] * G
+    one = [0] * G
+    one[G - 1] = M
+    yield one
+    spread = [0] * G
+    for r in range(M - 1 if M > 1 else M):
+        spread[r % G] += 1
+    yield spread
+    for _ in range(3):
+        yield rng.multinomial(max(0, M + int(rng.integers(-2, 3))),
+                              rng.dirichlet(np.ones(G) * 0.3)).tolist()
+
+
+@pytest.mark.parametrize("M", [1, 4, 32, 64])
+@pytest.mark.parametrize("G", [8, 128])
+@pytest.mark.parametrize("N", [768, 1536, 2048])
+def test_stream_plan_covers_every_active_group(M, G, N):
+    """``stream_plan`` is a pure function of shapes and the SM count. Walk
+    its grid the way the kernel does (block (split, slot, tile) serves the
+    slot-th group that has rows) for group sizes it never saw: every
+    (active group, column tile) gets its splits' stages covering K's stages
+    once each, in order, every split at least one stage, and the grid fits
+    the card's resident blocks in one wave."""
+    rng = np.random.default_rng(M * 1000 + G + N)
+    for K in (768, 2048):
+        for int8 in (False, True):
+            plan = gg.stream_plan(M, K, N, G, 132, int8)
+            slots, tiles, splits, per = plan
+            assert plan == gg.stream_plan(M, K, N, G, 132, int8)
+            stages = K // gg.STREAM_STAGE
+            assert (tiles - 1) * gg.STREAM_COLS < N <= tiles * gg.STREAM_COLS
+            assert 1 <= splits <= 8 and (splits - 1) * per < stages
+            assert splits * per >= stages
+            assert slots * tiles * splits <= max(
+                slots * tiles, gg._STREAM_BLOCKS_PER_SM[int8] * 132)
+            for sizes in _plan_sizes(rng, M, G):
+                active = _active_groups(sizes, M)
+                assert len(active) <= slots
+                covered = {}
+                for split in range(splits):
+                    first = split * per
+                    n_st = min(per, stages - first)
+                    assert n_st >= 1
+                    for slot in range(slots):
+                        if slot >= len(active):
+                            continue      # the block leaves at once
+                        for tile in range(tiles):
+                            covered.setdefault((active[slot][0], tile),
+                                               []).append(
+                                list(range(first, first + n_st)))
+                assert set(covered) == {(g, t) for g, _, _ in active
+                                        for t in range(tiles)}
+                for ranges in covered.values():
+                    assert sum(ranges, []) == list(range(stages))
+
+
+def test_stream_plan_keeps_every_sm_busy_at_decode():
+    """At the decode and serving shapes (qwen3-30b-a3b, 132 SMs) the plan
+    gives at least one block to every SM, and splits K only while the whole
+    grid still fits one wave of resident blocks."""
+    for M, K, N, int8 in ((32, 2048, 768, False), (64, 2048, 768, False),
+                          (32, 768, 2048, False), (32, 2048, 1536, True),
+                          (32, 768, 2048, True), (64, 2048, 1536, True)):
+        slots, tiles, splits, _ = gg.stream_plan(M, K, N, 128, 132, int8)
+        blocks = slots * tiles * splits
+        assert blocks >= 132
+        assert splits == 1 or blocks <= gg._STREAM_BLOCKS_PER_SM[int8] * 132
+    assert gg.stream_plan(32, 2048, 768, 128, 132) == (32, 6, 2, 16)
 
 
 def test_cpu_backward_does_not_round_dout():

@@ -364,3 +364,42 @@ def test_int8_matmul_plain_follows_kernel_and_jax():
     w = _rand(rng, 64, 8)
     np.testing.assert_allclose(quant.linear(_t(x), _t(w)).numpy(), x @ w,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
+def test_int8_matmul_route_edge_shapes_match_jax(M):
+    """Decode-sized products (the split-K stream's M <= 16 on a card) and
+    the first sizes past it (the TMA kernel's), held to the Pallas kernel's
+    math and to the JAX function as the existing test holds them."""
+    rng = np.random.default_rng(40 + M)
+    x = _rand(rng, M, 128)
+    qd = jquant.quantize_int8(jnp.asarray(_rand(rng, 128, 48, scale=0.05)))
+    got = quant.int8_matmul(_t(x), {k: _t(v) for k, v in qd.items()}).numpy()
+    exact = (x.astype(np.float64) @ np.asarray(qd["w_q"], np.float64)
+             ) * np.asarray(qd["scale"], np.float64)
+    np.testing.assert_allclose(got, exact, atol=ATOL, rtol=1e-5)
+    ref = np.asarray(jquant.int8_matmul(jnp.asarray(x), qd))
+    np.testing.assert_allclose(got, ref, atol=1e-2 * np.abs(ref).max())
+    assert quant.int8_matmul.launches == quant.int8_matmul.launches_tma == 0
+
+
+@pytest.mark.parametrize("case,args,expected", [
+    ("prefill_qkv", (12288, 2048, 4096, torch.bfloat16, True), True),
+    ("qlora_gate", (4096, 2048, 6144, torch.bfloat16, True), True),
+    ("qlora_down", (4096, 6144, 2048, torch.bfloat16, True), True),
+    ("seventeen_rows", (17, 2048, 2048, torch.bfloat16, True), True),
+    ("smallest_k_and_n", (100, 64, 16, torch.bfloat16, True), True),
+    ("sixteen_rows", (16, 2048, 2048, torch.bfloat16, True), False),
+    ("decode_lm_head", (4, 2048, 151936, torch.bfloat16, True), False),
+    ("fp32_x", (4096, 2048, 6144, torch.float32, True), False),
+    ("k_not_a_multiple_of_64", (4096, 2000, 2048, torch.bfloat16, True),
+     False),
+    ("n_not_a_multiple_of_16", (4096, 2048, 2056, torch.bfloat16, True),
+     False),
+    ("unaligned_base", (4096, 2048, 6144, torch.bfloat16, False), False),
+])
+def test_int8_takes_tma_rule(case, args, expected):
+    """The int8 GEMM's route: bf16 x with more than 16 rows, K a multiple
+    of 64, N of 16, aligned bases run on the TMA and wgmma kernel; decode
+    (the split-K stream), fp32 x and odd shapes do not."""
+    assert quant.int8_takes_tma(*args) is expected
