@@ -24,17 +24,22 @@ Phases, each printed with its time; any failure exits non-zero:
      allow and only the weights of the experts this run's router chose. The
      grouped GEMMs take their group sizes from a real ``router_topk`` with
      one expert forced empty; each case names the source whose kernel ran
-     (the TMA and wgmma kernels at prefill and training shapes in bf16, the
-     split weight stream of ``grouped_gemm_decode.cu`` at decode and serving
-     shapes over bf16 and int8 experts, the mma.sync and SIMT kernels
-     elsewhere), two runs are bit-equal, a split-stream case replays a
+     (at prefill and training shapes the TMA and wgmma kernels over bf16
+     experts, the int8 TMA kernel of ``grouped_gemm_int8_tma.cu`` over int8
+     experts, the fp32 tensor-core kernels of ``grouped_gemm_f32_tc.cu`` for
+     the expert adapters; the split weight stream of
+     ``grouped_gemm_decode.cu`` at decode and serving shapes over bf16 and
+     int8 experts; the mma.sync and SIMT kernels elsewhere), two runs are
+     bit-equal, a split-stream, int8 TMA or fp32 tensor-core case replays a
      captured launch after the group sizes change (equal to an eager call),
      and a case with an fp32 ``dout`` times the wrapper, its one rounding
-     pass to bf16 included. The int8 GEMM runs its decode shapes on the
-     split-K stream and its prefill and QLoRA shapes on the TMA and wgmma
-     kernel of ``int8_matmul_tma.cu`` (route and counter printed, two runs
-     bit-equal there), with cuBLAS's bf16 product over dequantized weights
-     printed beside it as a yardstick, not as its library time. The flash
+     pass to bf16 included; an int8 case prints ``F.grouped_mm`` over
+     experts dequantized beforehand as a yardstick. The int8 GEMM runs its
+     decode shapes on the split-K stream and its prefill and QLoRA shapes on
+     the TMA and wgmma kernel of ``int8_matmul_tma.cu`` (route and counter
+     printed, two runs bit-equal there), with cuBLAS's bf16 product over
+     dequantized weights printed beside it as a yardstick, not as its
+     library time. The flash
      forward runs five cases (decoder, serving and MoE prefill, encoder,
      training), each on the TMA and wgmma kernel (its route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
@@ -116,10 +121,12 @@ Phases, each printed with its time; any failure exits non-zero:
      Each MoE phase prints its depth and peak device memory and must launch
      the grouped GEMM (the training phases tgmm too), and prints how many of
      those launches ran on the TMA and wgmma kernels (every prefill product
-     over bf16 experts, and every product of the full fine-tune) and on the
-     split stream (every decode and serving product, bf16 and int8: the
-     generation and serving phases fail on any other launch than these and,
-     over int8 experts, the prefill's).
+     over bf16 experts, and every product of the full fine-tune), on the
+     int8 TMA kernel (the int8-experts prefill's 96, and every int8 product
+     of the QLoRA run), on the fp32 tensor-core kernels (every adapter
+     product of the QLoRA run) and on the split stream (every decode and
+     serving product, bf16 and int8); the generation, serving and QLoRA
+     phases fail on any launch left on grouped_gemm.cu.
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
@@ -173,7 +180,7 @@ TRAIN_LOSS_ATOL = 1e-4  # fp32 small model, one step, card vs CPU
 TRAIN_GRAD_REL = 1e-3   # of each gradient's max-abs
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "tf32": 495e12}
 
 REPLACES = {
     "flash_attention_fwd": "molly_tpu/ops/flash_attention.py:61",
@@ -203,6 +210,11 @@ _GG_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_tma.cu"
 # every decode- and serving-shaped grouped GEMM (bf16 lhs, bf16 or int8
 # experts, M < 64 G)
 _GG_STREAM_CU = "molly_tpu_torch/csrc/grouped_gemm_decode.cu"
+# int8 experts at prefill and training shapes (M >= 64 G), forward and the
+# QLoRA lhs gradient
+_GG_INT8_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_int8_tma.cu"
+# the fp32 expert-LoRA adapters' products at M >= 64 G
+_GG_TC_CU = "molly_tpu_torch/csrc/grouped_gemm_f32_tc.cu"
 # the int8 GEMM: M <= 16 (the row's first case) and the SIMT fallback, then
 # every bf16 product at M > 16
 _INT8_CU = "molly_tpu_torch/csrc/int8_matmul.cu"
@@ -378,6 +390,8 @@ def reset_counts():
     counters()["grouped_gemm"].launches_int8 = 0
     counters()["grouped_gemm"].launches_tma = 0
     counters()["grouped_gemm"].launches_stream = 0
+    counters()["grouped_gemm"].launches_int8_tma = 0
+    counters()["grouped_gemm"].launches_tc = 0
     counters()["grouped_gemm_tgmm"].launches_tma = 0
     counters()["int8_matmul"].launches_tma = 0
     counters()["int8_matmul"].launches_gemv = 0
@@ -432,10 +446,12 @@ def check_int8_tma(label: str) -> None:
 
 
 def grouped_off_route() -> int:
-    """Forward grouped-GEMM launches since ``reset_counts`` on neither the
-    TMA kernel nor the split stream, i.e. on grouped_gemm.cu."""
+    """Forward grouped-GEMM launches since ``reset_counts`` on none of the
+    TMA, int8 TMA, fp32 tensor-core and split-stream kernels, i.e. on
+    grouped_gemm.cu."""
     c = counters()["grouped_gemm"]
-    return c.launches - c.launches_tma - c.launches_stream
+    return (c.launches - c.launches_tma - c.launches_stream
+            - c.launches_int8_tma - c.launches_tc)
 
 
 def int8_grouped_launches() -> int:
@@ -1162,14 +1178,21 @@ def grouped_replay_equal(lhs, rhs, gs, kw) -> bool:
 
 
 def parity_grouped_gemm(g, results):
-    """The grouped-GEMM kernels (forward, transposed, int8, tgmm) against
-    their plain versions at qwen3-30b-a3b width: 128 experts, top-8, hidden
-    2048, per-expert width 768. Each forward case prints the source that
-    ran (``grouped_gemm_tma.cu`` at prefill and training shapes in bf16,
-    ``grouped_gemm_decode.cu`` at decode and serving shapes in bf16 and
-    int8, ``grouped_gemm.cu`` for the rest) and checks two runs bit-equal;
-    the split-stream cases also replay a captured launch after the group
-    sizes change, which must equal an eager call bit for bit."""
+    """The grouped-GEMM kernels (forward, transposed, int8, fp32, tgmm)
+    against their plain versions at qwen3-30b-a3b width: 128 experts,
+    top-8, hidden 2048, per-expert width 768, LoRA rank 64. Each forward
+    case prints the source that ran (``grouped_gemm_tma.cu`` at prefill and
+    training shapes over bf16 experts, ``grouped_gemm_int8_tma.cu`` there
+    over int8 experts, ``grouped_gemm_f32_tc.cu`` for the fp32 adapters
+    there, ``grouped_gemm_decode.cu`` at decode and serving shapes in bf16
+    and int8, ``grouped_gemm.cu`` for the rest) and checks two runs
+    bit-equal; the split-stream, int8 TMA and fp32 tensor-core cases also
+    replay a captured launch after the group sizes change, which must equal
+    an eager call bit for bit. An int8 case prints, as a yardstick only,
+    ``F.grouped_mm`` over the experts dequantized to bf16 beforehand (not
+    the same function, so not its library time); an fp32 case's bound
+    counts its three split products at the TF32 rate, and the SIMT rate's
+    bound is printed beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -1230,15 +1253,19 @@ def parity_grouped_gemm(g, results):
                 rhs[e] = (torch.randn(shape[1:], generator=g, device=dev)
                           * K ** -0.5).to(rhs_dt)
         kw = dict(transpose_rhs=transpose_rhs, scale=scale)
-        c0 = (grouped_gemm.launches_tma, grouped_gemm.launches_stream)
+        c = grouped_gemm
+        c0 = (c.launches_tma, c.launches_int8_tma, c.launches_tc,
+              c.launches_stream)
         out = grouped_gemm(lhs, rhs, gs, out_dtype=out_dt, **kw)
-        source = (_GG_TMA_CU if grouped_gemm.launches_tma > c0[0] else
-                  _GG_STREAM_CU if grouped_gemm.launches_stream > c0[1]
-                  else _GG_CU)
+        moved = [a > b for a, b in zip(
+            (c.launches_tma, c.launches_int8_tma, c.launches_tc,
+             c.launches_stream), c0)]
+        source = ([_GG_TMA_CU, _GG_INT8_TMA_CU, _GG_TC_CU, _GG_STREAM_CU]
+                  [moved.index(True)] if any(moved) else _GG_CU)
         bit_equal = torch.equal(out, grouped_gemm(lhs, rhs, gs,
                                                   out_dtype=out_dt, **kw))
         replay_equal = None
-        if source == _GG_STREAM_CU:
+        if source in (_GG_STREAM_CU, _GG_INT8_TMA_CU, _GG_TC_CU):
             replay_equal = grouped_replay_equal(lhs, rhs, gs,
                                                 dict(out_dtype=out_dt, **kw))
         ref = grouped_gemm_plain(lhs, rhs, gs, bounds=bounds, **kw)
@@ -1250,8 +1277,12 @@ def parity_grouped_gemm(g, results):
                                  f"{bit_equal}, graph replay with new group "
                                  f"sizes equal {replay_equal}")
         err = (out.float() - ref).abs().max().item()
-        f32 = lhs_dt == out_dt == torch.float32 and rhs_dt != torch.bfloat16
-        tol = (GG_F32_REL if f32 else GG_BF16_REL) * ref.abs().max().item()
+        # a bf16 operand or result rounds; a bf16 lhs over fp32 weights is
+        # widened exactly, an int8 rhs with an fp32 lhs runs in fp32
+        rounded = (rhs_dt == torch.bfloat16 or out_dt == torch.bfloat16 or
+                   (lhs_dt == torch.bfloat16 and rhs_dt != torch.float32))
+        tol = (GG_BF16_REL if rounded else GG_F32_REL) * \
+            ref.abs().max().item()
         del ref
         ms = time_ms(lambda: grouped_gemm(lhs, rhs, gs, out_dtype=out_dt,
                                           **kw), iters)
@@ -1265,18 +1296,43 @@ def parity_grouped_gemm(g, results):
             call = library(name, lambda: grouped_mm(a16, b, offs=offs))
             if call is not None:
                 library_ms = time_ms(call, iters)
+        yardstick_ms = None
+        if rhs_dt == torch.int8 and grouped_mm is not None:
+            offs = torch.cumsum(gs, 0).to(torch.int32)
+            a16 = lhs.to(torch.bfloat16)
+            dense = torch.empty(shape, device=dev, dtype=torch.bfloat16)
+            for e in range(G):  # in slices: bounds the fp32 scratch
+                dense[e] = (rhs[e].float() * (1.0 if scale is None else
+                                              scale[e])).to(torch.bfloat16)
+            b = dense.transpose(1, 2) if transpose_rhs else dense
+            call = library(name, lambda: grouped_mm(a16, b, offs=offs))
+            if call is not None:
+                yardstick_ms = time_ms(call, iters)
+                log(f"  grouped {name}: yardstick, not the same function: "
+                    f"F.grouped_mm over the experts dequantized to bf16 "
+                    f"beforehand {yardstick_ms:.4f} ms")
+            del dense, b, a16
         # lhs once, only the ACTIVE groups' weights (and scales) once, the
         # sizes, out once
         w_bytes = active * K * N * rhs.element_size() + (
             active * N * 4 if scale is not None else 0)
-        bound_ms, bound_by = bound(
-            nbytes(lhs, gs, out) + w_bytes, 2 * M * K * N,
-            "fp32" if f32 else "bf16")
-        return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
-                      bound_by, f"{M} rows over {active} of {G} groups, "
-                      f"largest {int(gs.max())}, two runs bit-equal"
-                      + ("" if replay_equal is None else
-                         ", graph replay with new group sizes equal"), source)
+        io_bytes = nbytes(lhs, gs, out) + w_bytes
+        if source == _GG_TC_CU:  # three split products at the TF32 rate
+            bound_ms, bound_by = bound(io_bytes, 3 * 2 * M * K * N, "tf32")
+            log(f"  grouped {name}: bound at the SIMT fp32 rate "
+                f"(67 TFLOP/s) "
+                f"{bound(io_bytes, 2 * M * K * N, 'fp32')[0]:.4f} ms")
+        else:
+            bound_ms, bound_by = bound(io_bytes, 2 * M * K * N,
+                                       "bf16" if rounded else "fp32")
+        res = report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
+                     bound_by, f"{M} rows over {active} of {G} groups, "
+                     f"largest {int(gs.max())}, two runs bit-equal"
+                     + ("" if replay_equal is None else
+                        ", graph replay with new group sizes equal"), source)
+        if yardstick_ms is not None:
+            res["grouped_mm_bf16_yardstick_ms"] = yardstick_ms
+        return res
 
     def tgmm_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
                   dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK):
@@ -1336,7 +1392,9 @@ def parity_grouped_gemm(g, results):
         fwd_case("serving_gateup_int8[64,2048]x[128,2048,1536]", 8, 2048,
                  1536, 20, rhs_dt=i8),
         fwd_case("prefill_gateup_int8[98304,2048]x[128,2048,1536]", 12288,
-                 2048, 1536, 2, rhs_dt=i8),
+                 2048, 1536, 4, rhs_dt=i8),
+        fwd_case("prefill_down_int8[98304,768]x[128,768,2048]", 12288, 768,
+                 2048, 4, rhs_dt=i8),
         fwd_case("train_dlhs_f32xbf16T[32768,768]x[128,2048,768]T->bf16",
                  4096, 768, 2048, 4, lhs_dt=f32, out_dt=b16,
                  transpose_rhs=True),
@@ -1345,19 +1403,50 @@ def parity_grouped_gemm(g, results):
         fwd_case("train_dlhs_down_f32xbf16T[32768,2048]x[128,768,2048]T"
                  "->bf16", 4096, 2048, 768, 4, lhs_dt=f32, out_dt=b16,
                  transpose_rhs=True),
+        # the MoE QLoRA step: the int8 base's forward and lhs gradients (the
+        # fp32 lhs rounded to bf16 once before the launch)
+        fwd_case("qlora_gate_int8[32768,2048]x[128,2048,768]", 4096, 2048,
+                 768, 4, rhs_dt=i8),
+        fwd_case("qlora_down_int8[32768,768]x[128,768,2048]", 4096, 768,
+                 2048, 4, rhs_dt=i8),
         fwd_case("qlora_dlhs_f32xint8T[32768,768]x[128,2048,768]T->bf16",
                  4096, 768, 2048, 4, lhs_dt=f32, rhs_dt=i8, out_dt=b16,
                  transpose_rhs=True),
-        fwd_case("lora_a_fp32[32768,2048]x[128,2048,64]", 4096, 2048, 64, 4,
-                 lhs_dt=f32, rhs_dt=f32),
+        fwd_case("qlora_dlhs_down_f32xint8T[32768,2048]x[128,768,2048]T"
+                 "->bf16", 4096, 2048, 768, 4, lhs_dt=f32, rhs_dt=i8,
+                 out_dt=b16, transpose_rhs=True),
+        # ... and its expert adapters (rank 64): A and B of the gate / up
+        # (K, N 2048 / 768) and of the down projection, their lhs gradients
+        fwd_case("lora_a_bf16xfp32[32768,2048]x[128,2048,64]", 4096, 2048,
+                 64, 4, rhs_dt=f32),
+        fwd_case("lora_a_down_bf16xfp32[32768,768]x[128,768,64]", 4096, 768,
+                 64, 4, rhs_dt=f32),
+        fwd_case("lora_b_bf16xfp32[32768,64]x[128,64,768]", 4096, 64, 768, 4,
+                 rhs_dt=f32),
+        fwd_case("lora_b_down_bf16xfp32[32768,64]x[128,64,2048]", 4096, 64,
+                 2048, 4, rhs_dt=f32),
+        fwd_case("lora_dlhs_b_fp32T[32768,768]x[128,64,768]T->bf16", 4096,
+                 768, 64, 4, lhs_dt=f32, rhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
+        fwd_case("lora_dlhs_b_down_fp32T[32768,2048]x[128,64,2048]T->bf16",
+                 4096, 2048, 64, 4, lhs_dt=f32, rhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
+        fwd_case("lora_dlhs_a_fp32T[32768,64]x[128,2048,64]T->bf16", 4096,
+                 64, 2048, 4, lhs_dt=f32, rhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
+        fwd_case("lora_dlhs_a_down_fp32T[32768,64]x[128,768,64]T->bf16",
+                 4096, 64, 768, 4, lhs_dt=f32, rhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True),
         fwd_case("small_fp32[300,64]x[4,64,128]", 150, 64, 128, 20,
                  lhs_dt=f32, rhs_dt=f32, G=4, k=2),
     ]
     for case in results["grouped_gemm"]:
         name = case["case"]
         expected = (_GG_STREAM_CU if name.startswith(("decode_", "serving_"))
-                    else _GG_TMA_CU if name.startswith(("prefill_", "train_"))
-                    and "int8" not in name else _GG_CU)
+                    else _GG_CU if name.startswith("small_")
+                    else _GG_INT8_TMA_CU if "int8" in name
+                    else _GG_TC_CU if name.startswith("lora_")
+                    else _GG_TMA_CU)
         if case["source"] != expected:
             raise AssertionError(f"grouped {name}: ran from "
                                  f"{case['source']}, expected {expected}")
@@ -2012,7 +2101,10 @@ def drive_moe_paths(seed: int, launches, inp):
             f"({int8_grouped_launches()} over int8 experts, "
             f"{tma_launches()[0]} on the TMA and wgmma kernel, "
             f"{counters()['grouped_gemm'].launches_stream} on the split "
-            f"stream, {grouped_off_route()} on grouped_gemm.cu), tgmm "
+            f"stream, {counters()['grouped_gemm'].launches_int8_tma} on the "
+            f"int8 TMA kernel, {counters()['grouped_gemm'].launches_tc} on "
+            f"the fp32 tensor-core kernels, {grouped_off_route()} on "
+            f"grouped_gemm.cu), tgmm "
             f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
             f"and wgmma kernel)")
 
@@ -2078,12 +2170,15 @@ def drive_moe_paths(seed: int, launches, inp):
         if int8_grouped_launches() != counts["grouped_gemm"]:
             raise AssertionError(f"{label}: a grouped GEMM ran over "
                                  f"unquantized experts")
-        # the prefill's fused gate-and-up and down products (M >= 64 G) stay
-        # on grouped_gemm.cu; every decode product runs on the split stream
-        if grouped_off_route() != 2 * MOE_INT8_LAYERS:
+        # the prefill's fused gate-and-up and down products (M >= 64 G) run
+        # on the int8 TMA kernel, every decode product on the split stream
+        int8_tma = counters()["grouped_gemm"].launches_int8_tma
+        if grouped_off_route() or int8_tma != 2 * MOE_INT8_LAYERS:
             raise AssertionError(f"{label}: {grouped_off_route()} grouped "
-                                 f"GEMMs off the split stream, expected the "
-                                 f"prefill's {2 * MOE_INT8_LAYERS}")
+                                 f"GEMMs on grouped_gemm.cu (expected 0), "
+                                 f"{int8_tma} on the int8 TMA kernel "
+                                 f"(expected the prefill's "
+                                 f"{2 * MOE_INT8_LAYERS})")
     del params
     release()
 
@@ -2125,8 +2220,25 @@ def drive_moe_paths(seed: int, launches, inp):
             train_kernels + ("int8_matmul",))
         check(label, counts, train_kernels + ("int8_matmul",),
               MOE_TRAIN_LAYERS)
-        if int8_grouped_launches() <= 0:
-            raise AssertionError(f"{label}: no grouped GEMM over int8 experts")
+        # every int8 product (M = 32,768 >= 64 G: forward and lhs gradient)
+        # on the int8 TMA kernel, every fp32 adapter product on the fp32
+        # tensor-core kernels: nothing left on grouped_gemm.cu
+        c = counters()["grouped_gemm"]
+        fp32 = c.launches - c.launches_int8 - c.launches_tma - \
+            c.launches_stream
+        log(f"  {label}: {c.launches_int8} int8 grouped launches, "
+            f"{c.launches_int8_tma} on the int8 TMA kernel; {fp32} fp32 "
+            f"adapter launches, {c.launches_tc} on the fp32 tensor-core "
+            f"kernels")
+        if c.launches_int8 <= 0 or fp32 <= 0:
+            raise AssertionError(f"{label}: no grouped GEMM over int8 experts "
+                                 f"or fp32 adapters")
+        if c.launches_int8_tma != c.launches_int8 or c.launches_tc != fp32 \
+                or grouped_off_route():
+            raise AssertionError(f"{label}: a grouped GEMM missed the int8 "
+                                 f"TMA or fp32 tensor-core kernels "
+                                 f"({grouped_off_route()} on "
+                                 f"grouped_gemm.cu)")
     del state, qparams
     release()
 

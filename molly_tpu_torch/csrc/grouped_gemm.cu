@@ -26,15 +26,17 @@
 //
 // What bounds it on this card, and which kernel takes what. Prefill and
 // training send hundreds of rows to each expert (M = 98,304 over 128 experts
-// at qwen3-30b-a3b width): the product is bound by operations. Its bf16
-// form (a bf16 rhs, no scale, K a multiple of 64) is not in this file: it
-// runs on TMA and wgmma in grouped_gemm_tma.cu, and so does the bf16 tgmm.
-// Decode and the serving tick (a bf16 lhs over bf16 or int8 experts, few
-// rows a group) run the split weight stream of grouped_gemm_decode.cu;
-// ops/grouped_gemm.py picks the source. What stays here is everything else:
-// int8 experts at prefill and training shapes, the transposed product at
-// few rows a group, fp32 operands, unaligned shapes. Two forward kernels
-// sit behind the one entry point:
+// at qwen3-30b-a3b width): the product is bound by operations. At 64 rows a
+// group and more, with aligned shapes, it is not in this file: bf16 experts
+// (and the bf16 tgmm) run on TMA and wgmma in grouped_gemm_tma.cu, int8
+// experts in grouped_gemm_int8_tma.cu, the fp32 expert adapters in
+// grouped_gemm_f32_tc.cu. Decode and the serving tick (a bf16 lhs over bf16
+// or int8 experts, few rows a group) run the split weight stream of
+// grouped_gemm_decode.cu; ops/grouped_gemm.py picks the source. What stays
+// here is everything else: the transposed product at few rows a group,
+// fp32 products those rules exclude (an fp32 lhs in the forward, few rows a
+// group), the fp32 tgmm, unaligned shapes. Two forward kernels sit behind
+// the one entry point:
 //   - anything in bf16 (mma.sync m16n8k16, bf16 operands, fp32
 //     accumulators, 128-column tiles of 32 rows, or 128 at 64 rows a group
 //     and more): the tile is converted to bf16 (int8 exactly) on its way to
@@ -42,8 +44,6 @@
 //     tile's products; the int8 per-(group, column) scale multiplies the
 //     accumulator in the epilogue;
 //   - nothing in bf16 (the fp32 test models, fp32 adapters): fp32 SIMT tiles.
-// Not done yet: the int8 forward at prefill on wgmma with the tile converted
-// in registers (as int8_matmul_tma.cu does).
 
 #include <type_traits>
 

@@ -1,8 +1,10 @@
 """Grouped matrix products for the mixture-of-experts FFN: the wrappers of
 the hand-written CUDA kernels (``csrc/grouped_gemm.cu``;
-``csrc/grouped_gemm_tma.cu`` for bf16 operands at prefill and training
-shapes; ``csrc/grouped_gemm_decode.cu`` for decode and serving shapes) and
-their plain PyTorch versions.
+``csrc/grouped_gemm_tma.cu`` for bf16 experts at prefill and training
+shapes; ``csrc/grouped_gemm_int8_tma.cu`` for int8 experts there;
+``csrc/grouped_gemm_f32_tc.cu`` for the fp32 expert-LoRA adapters there;
+``csrc/grouped_gemm_decode.cu`` for decode and serving shapes) and their
+plain PyTorch versions.
 
 Replaces the megablox kernels that ``molly_tpu/ops/moe.py:_grouped_dot``
 launches: ``gmm`` (forward, and with ``transpose_rhs`` for the lhs gradient)
@@ -22,24 +24,31 @@ an empty group.
 An int8 rhs (``ops.moe.quantize_experts``) is converted tile by tile inside
 the kernel; its per-(group, column) ``scale`` multiplies the fp32
 accumulator once at the end (the scale factors out of the contraction).
+A bf16 lhs over an fp32 rhs (the expert adapters on a bf16 stream) is an
+fp32 product: the lhs is widened exactly.
 
-Three sources hold the kernels. ``takes_tma`` / ``tgmm_takes_tma`` /
-``takes_stream`` say which one a call goes to: bf16 products with many rows
-a group run on the TMA and wgmma kernels, a bf16 lhs over bf16 or int8
-experts with few rows a group (decode, the serving tick) on the split
-weight stream (its grid from ``stream_plan``), everything else (int8
-experts at prefill and training shapes, transposed products with few rows,
-fp32, unaligned shapes) on the ``mma.sync`` and SIMT kernels. The bf16
-routes multiply bf16 operands, so an fp32 operand of a bf16 product is
-rounded to bf16 once: inside the older kernels as they stage it, before the
-launch for the TMA ones (the autograd function rounds ``dout`` once for both
-of its products). The fp32 products and the CPU route are not touched by
-this.
+Five sources hold the kernels. ``takes_tma`` / ``int8_takes_tma`` /
+``f32_takes_tc`` / ``takes_stream`` / ``tgmm_takes_tma`` say which one a
+call goes to: at least 64 rows a group, bf16 experts run on the TMA and
+wgmma kernels, int8 experts on the int8 TMA kernel (the tile converted in
+registers), the fp32 adapters on the tensor cores at fp32 accuracy (split
+operands); a bf16 lhs over bf16 or int8 experts with few rows a group
+(decode, the serving tick) on the split weight stream (its grid from
+``stream_plan``); everything else (transposed products with few rows, fp32
+products the rules exclude, unaligned shapes) on the ``mma.sync`` and SIMT
+kernels. The bf16 routes multiply bf16 operands, so an fp32 operand of a
+bf16 product is rounded to bf16 once: inside the older kernels as they
+stage it, before the launch for the TMA ones (the autograd function rounds
+``dout`` once for both of its products, and folds an int8 scale into
+``dout`` in the same pass). The fp32 products and the CPU route are not
+touched by this.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. ``grouped_gemm.launches`` / ``grouped_gemm_tgmm.launches`` count
 kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs;
-``.launches_tma`` on either: those that went to the TMA and wgmma kernels;
+``.launches_tma`` on either: those that went to the bf16 TMA and wgmma
+kernels; ``grouped_gemm.launches_int8_tma``: those on the int8 TMA kernel;
+``grouped_gemm.launches_tc``: those on the fp32 tensor-core kernels;
 ``grouped_gemm.launches_stream``: those on the split weight stream).
 """
 
@@ -82,6 +91,43 @@ def takes_stream(M: int, K: int, N: int, G: int, lhs_dtype, rhs_dtype,
     else:
         return False
     return fits and K % 64 == 0 and aligned
+
+
+def int8_takes_tma(M: int, K: int, N: int, G: int, lhs_dtype, out_dtype,
+                   has_scale: bool, transpose_rhs: bool = False,
+                   aligned: bool = True) -> bool:
+    """Does this product over an int8 rhs go to the int8 TMA and wgmma
+    kernel (``csrc/grouped_gemm_int8_tma.cu``)? The forward with its scale,
+    or the transposed product without one (the caller folds the scale into
+    the lhs); a bf16 product (a bf16 lhs, or an fp32 lhs rounded once before
+    the launch when the result is bf16: an all-fp32 product stays fp32), at
+    least 64 rows a group on average, K a multiple of the 64-element stage,
+    N of 16 (whole 16-byte rows of int8), 16-byte aligned bases."""
+    if lhs_dtype != torch.bfloat16 and out_dtype != torch.bfloat16:
+        return False
+    return (has_scale != transpose_rhs and M >= 64 * G and K % 64 == 0
+            and N % 16 == 0 and aligned)
+
+
+def f32_takes_tc(M: int, K: int, N: int, G: int, lhs_dtype, rhs_dtype,
+                 out_dtype, has_scale: bool, transpose_rhs: bool = False,
+                 aligned: bool = True) -> bool:
+    """Does this product over an fp32 rhs (the expert adapters) go to the
+    tensor-core kernels of ``csrc/grouped_gemm_f32_tc.cu``, held at fp32
+    accuracy? At least 64 rows a group on average, no scale, 16-byte
+    aligned bases, N a multiple of 8, and: the forward takes a bf16 lhs
+    (widened exactly; the adapters' activations) into an fp32 result, K a
+    multiple of its 64-element stage; the transposed product (the lhs
+    gradient) takes an fp32 lhs into an fp32 or bf16 result, K a multiple of
+    its 32-element stage. An fp32 lhs in the forward (the fp32 test models)
+    stays on the SIMT kernel."""
+    if rhs_dtype != torch.float32 or has_scale or M < 64 * G or not aligned \
+            or N % 8:
+        return False
+    if transpose_rhs:
+        return lhs_dtype == torch.float32 and K % 32 == 0
+    return (lhs_dtype == torch.bfloat16 and out_dtype == torch.float32
+            and K % 64 == 0)
 
 
 STREAM_COLS = 128    # weight columns of a stream unit
@@ -238,13 +284,28 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
     out = torch.empty((M, N), dtype=out_dtype, device=lhs.device)
     if M == 0:
         return out
-    tma = takes_tma(M, K, N, G, rhs.dtype, scale is not None, _aligned(rhs))
-    if tma:
+    has_scale = scale is not None
+    bases = (rhs, out) + ((scale,) if has_scale else ())
+    tma = takes_tma(M, K, N, G, rhs.dtype, has_scale, _aligned(rhs))
+    i8 = rhs.dtype == torch.int8 and int8_takes_tma(
+        M, K, N, G, lhs.dtype, out_dtype, has_scale, transpose_rhs,
+        _aligned(*bases))
+    tc = f32_takes_tc(M, K, N, G, lhs.dtype, rhs.dtype, out_dtype, has_scale,
+                      transpose_rhs, _aligned(*bases))
+    if tma or i8:
         lhs = lhs.to(torch.bfloat16)
+    elif rhs.dtype == torch.float32 and not tc:
+        lhs = lhs.to(torch.float32)  # the SIMT kernel: fp32 operands
     lhs = lhs.contiguous()
-    tma = tma and _aligned(lhs, out)
+    if not _aligned(lhs):
+        tma = i8 = tc = False
+    # the SIMT kernel writes fp32; a bf16 result of an fp32 product is that,
+    # rounded once
+    simt_out = (torch.empty((M, N), dtype=torch.float32, device=lhs.device)
+                if rhs.dtype == torch.float32 and not tc
+                and out_dtype != torch.float32 else out)
     operands = (lhs, rhs, out) + (() if scale is None else (scale,))
-    stream = takes_stream(M, K, N, G, lhs.dtype, rhs.dtype, scale is not None,
+    stream = takes_stream(M, K, N, G, lhs.dtype, rhs.dtype, has_scale,
                           transpose_rhs, _aligned(*operands))
 
     from . import _cuda_build
@@ -253,6 +314,19 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
         if tma:
             lib = _lib_tma()
             err = lib.molly_grouped_gemm_tma(
+                lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
+                int(transpose_rhs), cuda_stream)
+        elif i8:
+            lib = _lib_int8_tma()
+            err = lib.molly_grouped_gemm_int8_tma(
+                lhs.data_ptr(), rhs.data_ptr(),
+                None if scale is None else scale.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
+                int(transpose_rhs), cuda_stream)
+        elif tc:
+            lib = _lib_tc()
+            err = lib.molly_grouped_gemm_f32_tc(
                 lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(),
                 group_sizes.data_ptr(), M, K, N, G, _DTYPES[out_dtype],
                 int(transpose_rhs), cuda_stream)
@@ -270,16 +344,20 @@ def _forward(lhs, rhs, group_sizes, transpose_rhs, out_dtype, scale):
             lib = _lib()
             err = lib.molly_grouped_gemm(
                 lhs.data_ptr(), rhs.data_ptr(),
-                None if scale is None else scale.data_ptr(), out.data_ptr(),
-                group_sizes.data_ptr(), M, K, N, G, _DTYPES[lhs.dtype],
-                _DTYPES[rhs.dtype], _DTYPES[out_dtype], int(transpose_rhs),
-                cuda_stream)
+                None if scale is None else scale.data_ptr(),
+                simt_out.data_ptr(), group_sizes.data_ptr(), M, K, N, G,
+                _DTYPES[lhs.dtype], _DTYPES[rhs.dtype],
+                _DTYPES[simt_out.dtype], int(transpose_rhs), cuda_stream)
     _cuda_build.check(lib, err, "grouped_gemm")
     grouped_gemm.launches += 1
     grouped_gemm.launches_tma += int(tma)
+    grouped_gemm.launches_int8_tma += int(i8)
+    grouped_gemm.launches_tc += int(tc)
     grouped_gemm.launches_stream += int(stream)
     if rhs.dtype == torch.int8:
         grouped_gemm.launches_int8 += 1
+    if simt_out is not out:
+        out.copy_(simt_out)
     return out
 
 
@@ -341,6 +419,24 @@ grouped_gemm_tgmm.launches = 0
 grouped_gemm_tgmm.launches_tma = 0
 
 
+def _lhs_grad(dout, rhs, group_sizes, scale, transpose_rhs, out_dtype):
+    """The lhs gradient: dout against the rhs transposed. An int8 rhs's
+    scale lies on that product's contraction axis, so it is folded into
+    dout's rows first (the JAX VJP of ``y * scale[eid]``). On a card, a
+    bf16 result means a bf16 product: that pass rounds to bf16, once, as
+    the kernels would on their way in."""
+    if scale is not None:
+        G = rhs.shape[0]
+        eid = row_groups(group_sizes, dout.shape[0]).clamp(max=G - 1)
+        s = scale.reshape(G, -1)[eid]
+        if dout.is_cuda and out_dtype == torch.bfloat16:
+            dout = torch.mul(dout, s, out=torch.empty(
+                dout.shape, dtype=torch.bfloat16, device=dout.device))
+        else:
+            dout = dout * s.to(dout.dtype)
+    return _forward(dout, rhs, group_sizes, transpose_rhs, out_dtype, None)
+
+
 class _GroupedGemm(torch.autograd.Function):
     """Forward: the grouped kernel. Backward, as megablox's VJP: the lhs
     gradient is the same kernel over the transposed rhs (in the lhs dtype),
@@ -364,16 +460,11 @@ class _GroupedGemm(torch.autograd.Function):
             # both products below run in bf16: round dout once for both
             dout = dout.to(torch.bfloat16)
         if ctx.needs_input_grad[0]:
-            g = dout
-            if scale is not None:
-                # the scale lies on the contraction axis of the transposed
-                # product: fold it into dout's rows, then contract with w_q
-                eid = row_groups(group_sizes, dout.shape[0]).clamp(
-                    max=rhs.shape[0] - 1)
-                g = dout * scale.reshape(rhs.shape[0], -1)[eid].to(dout.dtype)
-            dlhs = _forward(g, rhs, group_sizes, not ctx.transpose_rhs,
-                            lhs.dtype, None)
+            dlhs = _lhs_grad(dout, rhs, group_sizes, scale,
+                             not ctx.transpose_rhs, lhs.dtype)
         if ctx.needs_input_grad[1]:
+            if rhs.dtype == torch.float32:  # an fp32 product: widen the lhs
+                lhs = lhs.to(torch.float32)
             drhs = (grouped_gemm_tgmm(dout, lhs, group_sizes, rhs.dtype)
                     if ctx.transpose_rhs else
                     grouped_gemm_tgmm(lhs, dout, group_sizes, rhs.dtype))
@@ -400,6 +491,8 @@ grouped_gemm.launches = 0
 grouped_gemm.launches_int8 = 0
 grouped_gemm.launches_tma = 0
 grouped_gemm.launches_stream = 0
+grouped_gemm.launches_int8_tma = 0
+grouped_gemm.launches_tc = 0
 
 
 def _lib():
@@ -437,5 +530,27 @@ def _lib_decode():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P] + [I] * 9 + [P]
+        fn.restype = I
+    return lib
+
+
+def _lib_int8_tma():
+    from . import _cuda_build
+    lib = _cuda_build.library("grouped_gemm_int8_tma")
+    fn = lib.molly_grouped_gemm_int8_tma
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P] + [I] * 6 + [P]
+        fn.restype = I
+    return lib
+
+
+def _lib_tc():
+    from . import _cuda_build
+    lib = _cuda_build.library("grouped_gemm_f32_tc")
+    fn = lib.molly_grouped_gemm_f32_tc
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
     return lib

@@ -68,10 +68,14 @@ def _grouped_dot(lhs: torch.Tensor, rhs, group_sizes: torch.Tensor
     """[M, K] x [G, K, N] with per-group row counts -> [M, N] fp32. rhs may
     be a ``quantize_experts`` dict: the kernel converts the int8 tiles as it
     loads them and applies the scale to its accumulator. Operands of two
-    floating types (fp32 adapters on a bf16 stream) promote, as in JAX."""
+    floating types promote, as in JAX; a bf16 lhs over an fp32 rhs (fp32
+    adapters on a bf16 stream) goes to the kernel as it is, which widens it
+    exactly (no fp32 copy), and its gradient comes back in bf16, rounded
+    once as the cast's would be."""
     if isinstance(rhs, dict):
         return grouped_gemm(lhs, rhs["w_q"], group_sizes, scale=rhs["scale"])
-    if lhs.dtype != rhs.dtype:
+    if lhs.dtype != rhs.dtype and not (lhs.dtype == torch.bfloat16
+                                       and rhs.dtype == torch.float32):
         dt = torch.promote_types(lhs.dtype, rhs.dtype)
         lhs, rhs = lhs.to(dt), rhs.to(dt)
     return grouped_gemm(lhs, rhs, group_sizes)

@@ -1035,19 +1035,27 @@ def test_grouped_gemm_stream_kernel_replays_with_new_group_sizes(dev, int8):
     assert bool((out == 0).all())   # the last sizes own no row
 
 
-@pytest.mark.parametrize("case", ["k_not_a_multiple_of_64", "int8_rhs",
-                                  "few_rows_transposed", "tgmm_k_not_of_8",
-                                  "tgmm_all_fp32"])
+def _route_counts():
+    c = gg.grouped_gemm
+    return (c.launches, c.launches_tma, c.launches_stream,
+            c.launches_int8_tma, c.launches_tc)
+
+
+@pytest.mark.parametrize("case", [
+    "k_not_a_multiple_of_64", "int8_k_not_a_multiple_of_64",
+    "int8_all_fp32", "int8_n_not_a_multiple_of_16", "few_rows_transposed",
+    "few_rows_int8_transposed", "fp32_forward", "fp32_transposed_few_rows",
+    "fp32_transposed_k_not_of_32", "tgmm_k_not_of_8", "tgmm_all_fp32"])
 def test_grouped_gemm_falls_to_the_mma_sync_kernels(dev, case):
-    """What the TMA, wgmma and stream kernels do not take still launches (on
-    the mma.sync or SIMT kernels) and still agrees with the plain
-    version."""
+    """What the TMA, int8 TMA, fp32 tensor-core and stream kernels do not
+    take still launches (on the mma.sync or SIMT kernels of
+    grouped_gemm.cu: no other route's counter moves) and still agrees with
+    the plain version."""
     M, counts = _TMA_SIZES["ragged"]
     G = len(counts)
     g = torch.Generator(device=dev).manual_seed(17)
     gs = torch.tensor(counts, dtype=torch.int32, device=dev)
-    fwd0 = (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma,
-            gg.grouped_gemm.launches_stream)
+    fwd0 = _route_counts()
     tg0 = (gg.grouped_gemm_tgmm.launches, gg.grouped_gemm_tgmm.launches_tma)
     if case.startswith("tgmm"):
         K, dt = (68, _BF16) if case == "tgmm_k_not_of_8" else (64, _F32)
@@ -1059,28 +1067,195 @@ def test_grouped_gemm_falls_to_the_mma_sync_kernels(dev, case):
         assert gg.grouped_gemm_tgmm.launches_tma == tg0[1]
         tol = _gg_tol(ref, dt)
     else:
-        K = 96 if case == "k_not_a_multiple_of_64" else 64
-        scale, trans = None, case == "few_rows_transposed"
-        if trans:     # M < 64 G, transposed: the 32-row tiles
+        K, N = {"k_not_a_multiple_of_64": (96, 128),
+                "int8_k_not_a_multiple_of_64": (96, 128),
+                "int8_n_not_a_multiple_of_16": (64, 72),
+                "fp32_transposed_k_not_of_32": (48, 128)}.get(case, (64, 128))
+        trans = "transposed" in case
+        int8 = case.startswith(("int8", "few_rows_int8"))
+        lhs_dt = _F32 if case.startswith(("int8_all", "fp32")) else _BF16
+        rhs_dt = torch.int8 if int8 else (
+            _F32 if case.startswith("fp32") else _BF16)
+        if case.startswith("few_rows") or case == "fp32_transposed_few_rows":
             M, gs = 40, torch.tensor([3, 0, 20, 9, 7, 0], dtype=torch.int32,
                                      device=dev)
-        lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
-        if case == "int8_rhs":   # M >= 64 G over int8 experts
-            rhs = torch.randint(-127, 128, (G, K, 128), generator=g,
-                                device=dev, dtype=torch.int8)
-            scale = torch.rand((G, 128), generator=g, device=dev) * 1e-2 + 1e-3
+        lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+        shape = (G, N, K) if trans else (G, K, N)
+        scale = None
+        if int8:
+            rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8)
+            if not trans:
+                scale = torch.rand((G, N), generator=g, device=dev) * 1e-2 \
+                    + 1e-3
         else:
-            rhs = torch.randn((G, 128, K) if trans else (G, K, 128),
-                              generator=g, device=dev).to(_BF16)
+            rhs = torch.randn(shape, generator=g, device=dev).to(rhs_dt)
         out = gg.grouped_gemm(lhs, rhs, gs, scale=scale, transpose_rhs=trans)
         ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale,
                                     transpose_rhs=trans)
-        assert (gg.grouped_gemm.launches, gg.grouped_gemm.launches_tma,
-                gg.grouped_gemm.launches_stream) == (fwd0[0] + 1, fwd0[1],
-                                                     fwd0[2])
-        tol = _gg_tol(ref, _BF16)
+        assert _route_counts() == (fwd0[0] + 1,) + fwd0[1:]
+        tol = _gg_tol(ref, lhs_dt, _F32 if int8 else rhs_dt)
     torch.cuda.synchronize()
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+def _nan_past_the_sum(lhs, counts):
+    """NaN in the rows no group owns: they must not reach any output."""
+    owned = sum(counts)
+    lhs[owned:] = float("nan")
+    return owned
+
+
+@pytest.mark.parametrize("sizes", sorted(_TMA_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 16), (128, 272), (768, 128),
+                                 (2048, 768)])
+@pytest.mark.parametrize("out_dt", [_F32, _BF16])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_grouped_gemm_int8_tma_kernel_matches_plain(dev, sizes, K, N, out_dt,
+                                                    transpose_rhs):
+    """int8 experts at many rows a group (csrc/grouped_gemm_int8_tma.cu):
+    the forward with its scale, and the transposed product (the lhs
+    gradient); N at the route's edge (16) and past a 256-column tile; NaN in
+    the rows past the sum reaches no output (those rows come out 0); parity
+    with the plain version over the bf16 lhs, the same bits on a second
+    run."""
+    M, counts = _TMA_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(21)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+    owned = _nan_past_the_sum(lhs, counts)
+    shape = (G, N, K) if transpose_rhs else (G, K, N)
+    rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+                        dtype=torch.int8)
+    scale = None if transpose_rhs else (
+        torch.rand((G, N), generator=g, device=dev) * 1e-2 + 1e-3) * K ** -0.5
+    kw = dict(transpose_rhs=transpose_rhs, out_dtype=out_dt, scale=scale)
+    assert gg.int8_takes_tma(M, K, N, G, _BF16, out_dt, scale is not None,
+                             transpose_rhs)
+    before = _route_counts()
+    out = gg.grouped_gemm(lhs, rhs, gs, **kw)
+    again = gg.grouped_gemm(lhs, rhs, gs, **kw)
+    after = _route_counts()
+    assert (after[0] - before[0], after[3] - before[3]) == (2, 2)
+    ref = gg.grouped_gemm_plain(lhs[:owned], rhs, gs,
+                                transpose_rhs=transpose_rhs, scale=scale)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and out.shape == (M, N)
+    assert torch.isfinite(out).all()
+    assert bool((out[owned:] == 0).all())
+    assert (out[:owned].float() - ref).abs().max().item() <= _gg_tol(
+        ref, _BF16)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("sizes", sorted(_TMA_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 64), (64, 8), (128, 136), (2048, 64),
+                                 (64, 768)])
+def test_grouped_gemm_f32_tc_forward_matches_plain(dev, sizes, K, N):
+    """The adapters' forward (csrc/grouped_gemm_f32_tc.cu): a bf16 lhs over
+    fp32 weights into fp32, held to the fp32 tolerance (the weights split
+    into three bf16 parts); one m64 tile (N <= 64) or 128-column tiles, a
+    column tile past N; NaN past the sum reaches no output; two runs
+    bit-equal."""
+    M, counts = _TMA_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(22)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+    owned = _nan_past_the_sum(lhs, counts)
+    rhs = torch.randn((G, K, N), generator=g, device=dev) * K ** -0.5
+    assert gg.f32_takes_tc(M, K, N, G, _BF16, _F32, _F32, False)
+    before = _route_counts()
+    out = gg.grouped_gemm(lhs, rhs, gs)
+    again = gg.grouped_gemm(lhs, rhs, gs)
+    after = _route_counts()
+    assert (after[0] - before[0], after[4] - before[4]) == (2, 2)
+    ref = gg.grouped_gemm_plain(lhs[:owned], rhs, gs)
+    torch.cuda.synchronize()
+    assert out.dtype == _F32 and torch.isfinite(out).all()
+    assert bool((out[owned:] == 0).all())
+    assert (out[:owned] - ref).abs().max().item() <= _gg_tol(ref, _F32)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("sizes", sorted(_TMA_SIZES))
+@pytest.mark.parametrize("K,N", [(64, 64), (32, 8), (768, 64), (64, 2048),
+                                 (96, 200)])
+@pytest.mark.parametrize("out_dt", [_F32, _BF16])
+def test_grouped_gemm_f32_tc_transposed_matches_plain(dev, sizes, K, N,
+                                                      out_dt):
+    """The adapters' lhs gradient (csrc/grouped_gemm_f32_tc.cu): fp32 lhs
+    against fp32 weights transposed, three TF32 products held to the fp32
+    tolerance (bf16 out: one rounding); 64-column tiles (N <= 64) or 128,
+    K at the 32-element stage's edge; NaN past the sum reaches no output;
+    two runs bit-equal."""
+    M, counts = _TMA_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(23)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev)
+    owned = _nan_past_the_sum(lhs, counts)
+    rhs = torch.randn((G, N, K), generator=g, device=dev) * K ** -0.5
+    assert gg.f32_takes_tc(M, K, N, G, _F32, _F32, out_dt, False, True)
+    before = _route_counts()
+    out = gg.grouped_gemm(lhs, rhs, gs, transpose_rhs=True, out_dtype=out_dt)
+    again = gg.grouped_gemm(lhs, rhs, gs, transpose_rhs=True,
+                            out_dtype=out_dt)
+    after = _route_counts()
+    assert (after[0] - before[0], after[4] - before[4]) == (2, 2)
+    ref = gg.grouped_gemm_plain(lhs[:owned], rhs, gs, transpose_rhs=True)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dt and torch.isfinite(out).all()
+    assert bool((out[owned:] == 0).all())
+    assert (out[:owned].float() - ref).abs().max().item() <= _gg_tol(
+        ref, out_dt)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("case", ["int8", "int8_transposed", "f32",
+                                  "f32_transposed"])
+def test_grouped_gemm_new_kernels_replay_with_new_group_sizes(dev, case):
+    """Both kernels read the group sizes on the device only: one captured
+    launch, replayed after the sizes change in place (one group empty,
+    then every row in one group, then no row owned), equals an eager call
+    on the new sizes bit for bit."""
+    M, G, K, N = 1024, 8, 128, 128
+    g = torch.Generator(device=dev).manual_seed(24)
+    trans = case.endswith("transposed")
+    lhs = torch.randn((M, K), generator=g, device=dev)
+    kw = dict(transpose_rhs=trans)
+    shape = (G, N, K) if trans else (G, K, N)
+    if case.startswith("int8"):
+        lhs = lhs.to(_BF16)
+        rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8)
+        if not trans:
+            kw["scale"] = torch.rand((G, N), generator=g, device=dev) * 1e-3
+    else:
+        lhs = lhs if trans else lhs.to(_BF16)
+        rhs = torch.randn(shape, generator=g, device=dev) * K ** -0.5
+    gs = torch.full((G,), M // G, dtype=torch.int32, device=dev)
+    counters = _route_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gg.grouped_gemm(lhs, rhs, gs, **kw)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = gg.grouped_gemm(lhs, rhs, gs, **kw)
+    moved = _route_counts()
+    assert moved[3 if case.startswith("int8") else 4] == \
+        counters[3 if case.startswith("int8") else 4] + 2
+    one = [0] * G
+    one[G - 1] = M - 7
+    for sizes in ([0] + [M // (G - 1)] * (G - 1), one, [0] * G):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gg.grouped_gemm(lhs, rhs, gs, **kw))
+    assert bool((out == 0).all())   # the last sizes own no row
 
 
 def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
@@ -1126,6 +1301,42 @@ def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
     dense = (w_q.float() * scale[:, None, :])
     r3 = gg.grouped_gemm_plain(dout, dense, gs, transpose_rhs=True)
     assert (dl3.float() - r3).abs().max().item() <= _gg_tol(r3, torch.bfloat16)
+
+
+def test_lora_grouped_runs_the_tc_kernels_forward_and_backward(dev):
+    """The expert adapters' bypass (ops.moe._lora_grouped: a bf16 stream
+    over fp32 adapters, M >= 64 G) on the card against the same call on the
+    CPU (the plain versions): its two forward products and two lhs
+    gradients run on the fp32 tensor-core kernels, its two weight gradients
+    on the fp32 SIMT tgmm. Every result within 1e-2 of its max: the
+    bypass rounds its rank-64 intermediate to bf16, and an fp32 product of
+    the card and of the CPU may round an element to different neighbours
+    (each product alone is held to 1e-4 above)."""
+    from molly_tpu_torch.ops import moe
+    M, counts = _TMA_SIZES["ragged"]
+    G, H, r = len(counts), 128, 64
+    g = torch.Generator().manual_seed(25)
+    xs = torch.randn((M, H), generator=g).to(_BF16)
+    ab = {"a": torch.randn((G, H, r), generator=g) / r,
+          "b": torch.randn((G, r, H), generator=g) * 0.05}
+    c = torch.randn((M, H), generator=g)
+    gs = torch.tensor(counts, dtype=torch.int32)
+    got = {}
+    for where in ("cpu", dev):
+        x = xs.to(where).requires_grad_(True)
+        w = {k: v.to(where).requires_grad_(True) for k, v in ab.items()}
+        before = _route_counts()
+        y = moe._lora_grouped(x, w, gs.to(where), 2.0)
+        grads = torch.autograd.grad((y * c.to(where)).sum(),
+                                    (x, w["a"], w["b"]))
+        if where != "cpu":
+            after = _route_counts()
+            assert after[0] - before[0] == after[4] - before[4] == 4
+        got[str(where)] = [t.detach().cpu() for t in (y,) + grads]
+    for i, (k, p) in enumerate(zip(got[str(dev)], got["cpu"])):
+        assert k.dtype == p.dtype
+        tol = _gg_tol(p.float(), _BF16)
+        assert (k.float() - p.float()).abs().max().item() <= tol, i
 
 
 def test_grouped_gemm_refuses_what_the_kernel_does_not_take(dev):

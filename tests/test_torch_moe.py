@@ -299,6 +299,204 @@ def test_stream_route_rule(case):
     assert not (takes and gg.takes_tma(M, K, N, G, rhs_dt, scale, aligned))
 
 
+# (M, K, N, G, lhs dtype, out dtype, scale?, transposed?, aligned?) -> the
+# product over int8 experts goes to the int8 TMA kernel. The first five are
+# what MoE prefill over int8 experts and a QLoRA step launch at
+# qwen3-30b-a3b width (fused gate-and-up, down, their lhs gradients).
+INT8_TMA_ROUTES = {
+    "prefill_gateup": ((98304, 2048, 1536, 128, B16, F32, True, False, True),
+                       True),
+    "prefill_down": ((98304, 768, 2048, 128, B16, F32, True, False, True),
+                     True),
+    "qlora_gate": ((32768, 2048, 768, 128, B16, F32, True, False, True), True),
+    "qlora_dlhs_gate": ((32768, 768, 2048, 128, B16, B16, False, True, True),
+                        True),
+    "qlora_dlhs_down": ((32768, 2048, 768, 128, B16, B16, False, True, True),
+                        True),
+    "fp32_lhs_into_bf16": ((32768, 768, 2048, 128, F32, B16, False, True,
+                            True), True),
+    "exactly_64_a_group": ((64 * 128, 2048, 768, 128, B16, F32, True, False,
+                            True), True),
+    "smallest_k_and_n": ((256, 64, 16, 4, B16, F32, True, False, True), True),
+    "one_row_short_of_64_a_group": ((64 * 128 - 1, 2048, 768, 128, B16, F32,
+                                     True, False, True), False),
+    "transposed_one_row_short": ((64 * 128 - 1, 768, 2048, 128, B16, B16,
+                                  False, True, True), False),
+    "all_fp32": ((32768, 2048, 768, 128, F32, F32, True, False, True), False),
+    "forward_without_scale": ((32768, 2048, 768, 128, B16, F32, False, False,
+                               True), False),
+    "transposed_with_scale": ((32768, 768, 2048, 128, B16, B16, True, True,
+                               True), False),
+    "k_not_a_multiple_of_64": ((32768, 2048 + 32, 768, 128, B16, F32, True,
+                                False, True), False),
+    "n_not_a_multiple_of_16": ((32768, 2048, 776, 128, B16, F32, True, False,
+                                True), False),
+    "transposed_k_not_of_64": ((32768, 768 + 32, 2048, 128, B16, B16, False,
+                                True, True), False),
+    "transposed_n_not_of_16": ((32768, 768, 2056, 128, B16, B16, False, True,
+                                True), False),
+    "unaligned_base": ((32768, 2048, 768, 128, B16, F32, True, False, False),
+                       False),
+}
+# (M, K, N, G, lhs, rhs, out dtypes, scale?, transposed?, aligned?) -> the
+# fp32 tensor-core kernels. The first six are the MoE QLoRA step's adapter
+# products (rank 64: A and B forward, the lhs gradients of B and A).
+F32_TC_ROUTES = {
+    "lora_a": ((32768, 2048, 64, 128, B16, F32, F32, False, False, True),
+               True),
+    "lora_a_down": ((32768, 768, 64, 128, B16, F32, F32, False, False, True),
+                    True),
+    "lora_b": ((32768, 64, 768, 128, B16, F32, F32, False, False, True), True),
+    "lora_b_down": ((32768, 64, 2048, 128, B16, F32, F32, False, False, True),
+                    True),
+    "lora_dlhs_b": ((32768, 768, 64, 128, F32, F32, B16, False, True, True),
+                    True),
+    "lora_dlhs_a": ((32768, 64, 2048, 128, F32, F32, B16, False, True, True),
+                    True),
+    "transposed_into_fp32": ((32768, 64, 2048, 128, F32, F32, F32, False,
+                              True, True), True),
+    "transposed_k_of_32": ((256, 32, 8, 4, F32, F32, F32, False, True, True),
+                           True),
+    "fp32_lhs_forward": ((300, 64, 128, 4, F32, F32, F32, False, False, True),
+                         False),
+    "bf16_out_forward": ((32768, 2048, 64, 128, B16, F32, B16, False, False,
+                          True), False),
+    "bf16_lhs_transposed": ((32768, 768, 64, 128, B16, F32, B16, False, True,
+                             True), False),
+    "one_row_short_of_64_a_group": ((64 * 128 - 1, 2048, 64, 128, B16, F32,
+                                     F32, False, False, True), False),
+    "forward_k_not_of_64": ((32768, 2048 + 32, 64, 128, B16, F32, F32, False,
+                             False, True), False),
+    "transposed_k_not_of_32": ((32768, 80, 64, 128, F32, F32, B16, False,
+                                True, True), False),
+    "n_not_a_multiple_of_8": ((32768, 2048, 68, 128, B16, F32, F32, False,
+                               False, True), False),
+    "bf16_rhs": ((32768, 2048, 64, 128, B16, B16, F32, False, False, True),
+                 False),
+    "with_scale": ((32768, 2048, 64, 128, B16, F32, F32, True, False, True),
+                   False),
+    "unaligned_base": ((32768, 2048, 64, 128, B16, F32, F32, False, False,
+                        False), False),
+}
+
+
+@pytest.mark.parametrize("case", INT8_TMA_ROUTES)
+def test_int8_tma_route_rule(case):
+    """The int8 TMA kernel's rule; the bf16 TMA kernel and the split stream
+    never take what it takes."""
+    args, takes = INT8_TMA_ROUTES[case]
+    assert gg.int8_takes_tma(*args) is takes
+    M, K, N, G, lhs_dt, _, scale, trans, aligned = args
+    assert not (takes and (
+        gg.takes_tma(M, K, N, G, I8, scale, aligned) or gg.takes_stream(
+            M, K, N, G, lhs_dt, I8, scale, trans, aligned)))
+
+
+@pytest.mark.parametrize("case", F32_TC_ROUTES)
+def test_f32_tc_route_rule(case):
+    """The fp32 tensor-core kernels' rule; neither the bf16 TMA kernel nor
+    the split stream takes what it takes (the int8 rule is asked only for
+    an int8 rhs)."""
+    args, takes = F32_TC_ROUTES[case]
+    assert gg.f32_takes_tc(*args) is takes
+    M, K, N, G, lhs_dt, rhs_dt, out_dt, scale, trans, aligned = args
+    assert not (takes and (
+        gg.takes_tma(M, K, N, G, rhs_dt, scale, aligned)
+        or gg.takes_stream(M, K, N, G, lhs_dt, rhs_dt, scale, trans,
+                           aligned)))
+
+
+# at least 64 rows a group (the int8 TMA and fp32 tensor-core routes'
+# shapes): uneven sizes, an empty group, 8 rows past the sum
+WIDE_SIZES = np.asarray([300, 0, 64, 140], np.int32)
+
+
+@pytest.mark.parametrize("backend", ["ragged", "gmm"], indirect=True)
+def test_int8_experts_and_scale_gradient_match_jax_at_64_rows_a_group(
+        backend):
+    """A ``quantize_experts`` stack at the int8 TMA kernel's shapes
+    (M 512 over 4 groups, K 128, N 96) against ``_grouped_dot`` over JAX's
+    quantized dict: the forward, and the lhs gradient through the scale
+    (the scale folded into dout, then the product over w_q transposed).
+    megablox pads its last group, so only the owned rows compare there;
+    rows past the sum are exact zeros here. ATOL forward; the gradient
+    within the existing 1e-3 of its max."""
+    M, K, N = 512, 128, 96
+    G = len(WIDE_SIZES)
+    rng = np.random.default_rng(12)
+    lhs = rng.normal(size=(M, K)).astype(np.float32)
+    rhs = (rng.normal(size=(G, K, N)) * K ** -0.5).astype(np.float32)
+    dout = rng.normal(size=(M, N)).astype(np.float32)
+    owned = int(WIDE_SIZES.sum())
+    jq = jmoe.quantize_experts(jnp.asarray(rhs))
+    q = moe.quantize_experts(_t(rhs))
+
+    def f(x):
+        y = jmoe._grouped_dot(x, jq, jnp.asarray(WIDE_SIZES))
+        return jnp.sum(y[:owned] * dout[:owned]), y
+
+    (_, ref), rg = jax.value_and_grad(f, has_aux=True)(jnp.asarray(lhs))
+    tl = _t(lhs).requires_grad_(True)
+    got = moe._grouped_dot(tl, q, _t(WIDE_SIZES))
+    (gl,) = torch.autograd.grad((got[:owned] * _t(dout[:owned])).sum(), tl)
+    rows = M if backend == "ragged" else owned
+    np.testing.assert_allclose(got.detach().numpy()[:rows],
+                               np.asarray(ref)[:rows], atol=ATOL)
+    assert not got[owned:].any() and not gl[owned:].any()
+    rg = np.asarray(rg)[:rows]
+    np.testing.assert_allclose(gl.numpy()[:rows], rg,
+                               atol=1e-3 * np.abs(rg).max())
+    assert gg.grouped_gemm.launches == gg.grouped_gemm.launches_int8_tma == 0
+
+
+@pytest.mark.parametrize("backend", ["ragged", "gmm"], indirect=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_grouped_matches_jax_at_64_rows_a_group(backend, dtype):
+    """The expert adapters' bypass, ``_lora_grouped`` (A then B, rank 16,
+    scale 2), at the fp32 tensor-core route's shapes against JAX's: an fp32
+    or a bf16 activation stream (bf16: handed to the grouped GEMM as it is,
+    where JAX promotes it; the same fp32 product), M 512 over 4 groups with
+    one empty and 8 rows past the sum. The output within ATOL, the
+    gradients of the activations and of both adapters within the existing
+    1e-3 of each one's max; only owned rows compare under megablox, which
+    pads its last group."""
+    M, K, N, r = 512, 128, 96, 16
+    G = len(WIDE_SIZES)
+    rng = np.random.default_rng(13)
+    xs = rng.normal(size=(M, K)).astype(np.float32)
+    a = (rng.normal(size=(G, K, r)) / r).astype(np.float32)
+    b = (rng.normal(size=(G, r, N)) * 0.05).astype(np.float32)
+    c = rng.normal(size=(M, N)).astype(np.float32)
+    owned = int(WIDE_SIZES.sum())
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def f(x, wa, wb):
+        y = jmoe._lora_grouped(x, {"a": wa, "b": wb},
+                               jnp.asarray(WIDE_SIZES), 2.0)
+        return jnp.sum(y[:owned] * c[:owned]), y
+
+    (_, ref), rgs = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(xs).astype(jdt), jnp.asarray(a), jnp.asarray(b))
+    tx = _t(xs).to(tdt).requires_grad_(True)
+    ta, tb = _t(a).requires_grad_(True), _t(b).requires_grad_(True)
+    got = moe._lora_grouped(tx, {"a": ta, "b": tb}, _t(WIDE_SIZES), 2.0)
+    tgs = torch.autograd.grad((got[:owned] * _t(c[:owned])).sum(),
+                              (tx, ta, tb))
+    rows = M if backend == "ragged" else owned
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy()[:rows],
+                               np.asarray(ref)[:rows], atol=ATOL)
+    for i, (g, rg) in enumerate(zip(tgs, rgs)):
+        rg = np.asarray(rg.astype(jnp.float32))
+        if i == 0:
+            assert g.dtype == tdt
+            g, rg = g[:rows], rg[:rows]
+        np.testing.assert_allclose(g.float().numpy(), rg,
+                                   atol=1e-3 * np.abs(rg).max(),
+                                   err_msg=str(i))
+    assert gg.grouped_gemm.launches == gg.grouped_gemm.launches_tc == 0
+
+
 def _active_groups(sizes, M):
     """(group, first row, end row) of every group that owns rows, with the
     sizes clipped to M rows as every kernel clips them."""
