@@ -35,11 +35,17 @@ Phases, each printed with its time; any failure exits non-zero:
      and a case with an fp32 ``dout`` times the wrapper, its one rounding
      pass to bf16 included; an int8 case prints ``F.grouped_mm`` over
      experts dequantized beforehand as a yardstick. The int8 GEMM runs its
-     decode shapes on the split-K stream and its prefill and QLoRA shapes on
-     the TMA and wgmma kernel of ``int8_matmul_tma.cu`` (route and counter
-     printed, two runs bit-equal there), with cuBLAS's bf16 product over
+     decode shapes (the lm head, and every fused layer product of both
+     decoders) on the weight stream of ``int8_matmul_stream.cu``, and its
+     prefill and QLoRA shapes on the
+     TMA and wgmma kernel of ``int8_matmul_tma.cu`` (route and counter
+     printed, two runs bit-equal on both), with cuBLAS's bf16 product over
      dequantized weights printed beside it as a yardstick, not as its
-     library time. The flash
+     library time. The RMSNorm forward runs the hidden, decode, training
+     and every per-head shape of the main paths, the fused branch's
+     stacked qk_norm also as the strided view of the qkv product that the
+     main path hands it (two runs bit-equal); its backward the training
+     step's hidden and per-head shapes of both decoders. The flash
      forward runs five cases (decoder, serving and MoE prefill, encoder,
      training), each on the TMA and wgmma kernel (its route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
@@ -100,9 +106,9 @@ Phases, each printed with its time; any failure exits non-zero:
      RMSNorm forward; every flash forward, dQ and dK/dV launch of every
      main-path run (the MoE ones too) ran on the TMA and wgmma kernels,
      every paged launch of the three paged serving runs (bf16, int8, MoE) on
-     the split TMA kernel, and every int8 GEMM launch at M > 16 (1.7B int8
-     generation, QLoRA, MoE int8 experts and expert QLoRA) on the int8 TMA
-     kernel.
+     the split TMA kernel, and every int8 GEMM launch (1.7B int8
+     generation, QLoRA, MoE int8 experts and expert QLoRA) at M > 16 on the
+     int8 TMA kernel, at M <= 16 on the weight stream (none on SIMT).
  13. main path, MoE generation, bf16: qwen3-30b-a3b width (hidden 2048, 128
      experts of width 768, top-8, 32 q heads over 4 kv heads, vocab 151,936,
      untied head, 48 layers) fused with nt-500m and esm2-650m, after the
@@ -215,17 +221,18 @@ _GG_STREAM_CU = "molly_tpu_torch/csrc/grouped_gemm_decode.cu"
 _GG_INT8_TMA_CU = "molly_tpu_torch/csrc/grouped_gemm_int8_tma.cu"
 # the fp32 expert-LoRA adapters' products at M >= 64 G
 _GG_TC_CU = "molly_tpu_torch/csrc/grouped_gemm_f32_tc.cu"
-# the int8 GEMM: M <= 16 (the row's first case) and the SIMT fallback, then
-# every bf16 product at M > 16
+# the int8 GEMM: the SIMT fallback (fp32 x, unaligned), every bf16 product
+# at M > 16, every one at M <= 16 (the row's first case)
 _INT8_CU = "molly_tpu_torch/csrc/int8_matmul.cu"
 _INT8_TMA_CU = "molly_tpu_torch/csrc/int8_matmul_tma.cu"
+_INT8_STREAM_CU = "molly_tpu_torch/csrc/int8_matmul_stream.cu"
 SOURCES = {
     "flash_attention_fwd": ("cuda", _FWD_TMA_CU),
     "flash_attention_dq": ("cuda", _BWD_TMA_CU),
     "flash_attention_dkv": ("cuda", _BWD_TMA_CU),
     "rmsnorm_fwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
     "rmsnorm_bwd": ("triton", "molly_tpu_torch/ops/rmsnorm_triton.py"),
-    "int8_matmul": ("cuda", _INT8_CU),
+    "int8_matmul": ("cuda", _INT8_STREAM_CU),
     "paged_attention": ("cuda", _PAGED_TMA_CU),
     "paged_attention_int8": ("cuda", _PAGED_TMA_CU),
     "grouped_gemm": ("cuda", _GG_TMA_CU),
@@ -432,17 +439,17 @@ def check_paged_tma(label: str) -> None:
 
 def check_int8_tma(label: str) -> None:
     """Every int8 GEMM launch since ``reset_counts`` ran on the TMA and
-    wgmma kernel or (M <= 16) on the split-K stream: the main paths give it
-    bf16 x only, so a launch on the SIMT kernel is an M > 16 product that
-    missed the TMA kernel."""
+    wgmma kernel (M > 16) or on the weight stream (M <= 16): the main paths
+    give it bf16 x at aligned shapes only, so a launch on the SIMT kernel
+    is a product that missed its route."""
     fn = counters()["int8_matmul"]
     if fn.launches:
         log(f"  {label}: int8_matmul {fn.launches} launches, "
             f"{fn.launches_tma} on the TMA and wgmma kernel, "
-            f"{fn.launches_gemv} on the split-K stream (M <= 16)")
+            f"{fn.launches_gemv} on the weight stream (M <= 16)")
     if fn.launches != fn.launches_tma + fn.launches_gemv:
-        raise AssertionError(f"{label}: an int8 launch at M > 16 ran on the "
-                             f"SIMT kernel")
+        raise AssertionError(f"{label}: an int8 launch ran on the SIMT "
+                             f"kernel")
 
 
 def grouped_off_route() -> int:
@@ -781,10 +788,12 @@ def parity_rmsnorm(g, results):
 
     def case(name, x, w, iters):
         y = rms_norm(x, w, 1e-6)
+        bit_equal = torch.equal(y, rms_norm(x, w, 1e-6))
         ref = rms_norm_plain(x.float(), w.float(), 1e-6)
         err = (y.float() - ref).abs()
         rel_excess = (err - RMS_REL * ref.abs()).max().item()
         max_err = err.max().item()
+        del ref
         ms = time_ms(lambda: rms_norm(x, w, 1e-6), iters)
         eager = eager_ms(lambda: rms_norm(x, w, 1e-6), iters)
         plain_ms = time_ms(lambda: rms_norm_plain(x, w, 1e-6), iters)
@@ -793,19 +802,21 @@ def parity_rmsnorm(g, results):
                               iters) if w.ndim == 1 else None)
         bound_ms, bound_by = bound(nbytes(x, w, y), 4 * x.numel(), "fp32")
         log(f"  rmsnorm {name}: max|err| {max_err:.3e}, max(err - 2^-7|ref|)"
-            f" {rel_excess:.3e} (must be <= 0); kernel {ms:.4f} ms "
+            f" {rel_excess:.3e} (must be <= 0), two runs bit-equal: "
+            f"{bit_equal}; kernel {ms:.4f} ms "
             f"({eager:.4f} ms a call in an eager loop), "
             f"plain {plain_ms:.4f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
-        if rel_excess > 0 or not bool(torch.isfinite(y).all()):
+        if rel_excess > 0 or not bool(torch.isfinite(y).all()) or \
+                not bit_equal:
             raise AssertionError(f"rmsnorm {name}: parity miss")
         return {"case": name, "max_abs_err": max_err, "ms": ms,
                 "eager_ms": eager, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    def bwd_case(name, shape, iters):
+    def bwd_case(name, shape, iters, g=g):
         H = shape[-1]
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         gr = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -874,6 +885,39 @@ def parity_rmsnorm(g, results):
     w = (1 + 0.1 * torch.randn((128,), generator=g, device=dev)).to(
         torch.bfloat16)
     cases.append(case("train_q_norm_bf16[4,1024,16,128]x[128]", x, w, 20))
+    # the cases below draw from a generator of their own, so that every
+    # later case gets the inputs it got before they were added
+    extra = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
+
+    def heads(shape, stacked, qkv_width=None, g=extra):
+        """bf16 per-head rows [B, S, N, 128] with a weight [N, 128]
+        (stacked) or [128]; with ``qkv_width``, as the fused branch's view
+        ``qkv[..., :N * 128]`` of a [B, S, qkv_width] product."""
+        B, S, N, Dh = shape
+        if qkv_width is None:
+            x = torch.randn(shape, generator=g, device=dev)
+        else:
+            qkv = torch.randn((B, S, qkv_width), generator=g, device=dev)
+            x = qkv.to(torch.bfloat16)[..., :N * Dh].reshape(shape)
+        w = 1 + 0.1 * torch.randn((N, Dh) if stacked else (Dh,),
+                                  generator=g, device=dev)
+        return x.to(torch.bfloat16), w.to(torch.bfloat16)
+
+    # the main paths' other per-head shapes: 1.7B k_norm at prefill; the
+    # MoE decoder's q_norm (32 heads) and its fused branch's stacked
+    # qk_norm (int8 experts); the 1.7B fused branch's view as it lies in
+    # qkv [4,3072,4096] (q 2048 + k 1024 + v 1024 columns)
+    for name, shape, stacked, width in (
+            ("k_norm_bf16[4,3072,8,128]x[128]", (4, 3072, 8, 128), False,
+             None),
+            ("moe_q_norm_bf16[4,3072,32,128]x[128]", (4, 3072, 32, 128),
+             False, None),
+            ("moe_qk_norm_view_bf16[4,3072,36,128]x[36,128] of "
+             "[4,3072,5120]", (4, 3072, 36, 128), True, 5120),
+            ("qk_norm_view_bf16[4,3072,24,128]x[24,128] of [4,3072,4096]",
+             (4, 3072, 24, 128), True, 4096)):
+        x, w = heads(shape, stacked, width)
+        cases.append(case(name, x, w, 20))
     results["rmsnorm_fwd"] = cases
     results["rmsnorm_bwd"] = [
         bwd_case("train_hidden_bf16[4096,2048]", (4096, 2048), 20),
@@ -881,26 +925,32 @@ def parity_rmsnorm(g, results):
                  (4, 1024, 16, 128), 20),
         bwd_case("train_k_norm_bf16[4,1024,8,128]x[128]",
                  (4, 1024, 8, 128), 20),
+        # the MoE training step's per-head norms (32 q heads, 4 kv heads)
+        bwd_case("moe_train_q_norm_bf16[4,1024,32,128]x[128]",
+                 (4, 1024, 32, 128), 20, extra),
+        bwd_case("moe_train_k_norm_bf16[4,1024,4,128]x[128]",
+                 (4, 1024, 4, 128), 20, extra),
     ]
 
 
 def parity_int8(g, results):
-    """The int8 GEMM at the main paths' shapes: decode (M = 4: the split-K
-    stream of int8_matmul.cu) and the --int8 prefill and QLoRA base products
-    (bf16 x at M > 16: the TMA and wgmma kernel of int8_matmul_tma.cu). Each
-    case prints its route and the counter that shows it, checks it against
-    ``int8_takes_tma`` (and, on the TMA kernel, two runs bit-equal), its
-    bound, and on a line of its own, as a yardstick only, cuBLAS's time for
-    the bf16 product of the same shape over the weights dequantized
-    beforehand: not the same function (no PyTorch call multiplies bf16 by
-    int8 weights), so not the library column."""
+    """The int8 GEMM at the main paths' shapes: decode (M = 4: the weight
+    stream of int8_matmul_stream.cu) and the --int8
+    prefill and QLoRA base products (bf16 x at M > 16: the TMA and wgmma
+    kernel of int8_matmul_tma.cu). Each case prints its route and the
+    counter that shows it, checks it against ``int8_takes_tma`` and
+    ``int8_takes_stream``, two runs bit-equal on either, its bound, and on
+    a line of its own, as a yardstick only, cuBLAS's time for the bf16
+    product of the same shape over the weights dequantized beforehand: not
+    the same function (no PyTorch call multiplies bf16 by int8 weights), so
+    not the library column."""
     import torch
 
     from molly_tpu_torch.ops.quant import (int8_matmul, int8_matmul_plain,
-                                           int8_takes_tma)
+                                           int8_takes_stream, int8_takes_tma)
     dev = "cuda"
 
-    def case(name, M, K, N, iters):
+    def case(name, M, K, N, iters, g=g):
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         w_q = torch.randint(-127, 128, (K, N), generator=g, device=dev,
                             dtype=torch.int8)
@@ -909,10 +959,8 @@ def parity_int8(g, results):
         c0 = (int8_matmul.launches_tma, int8_matmul.launches_gemv)
         y = int8_matmul(x, q)
         route = ("tma" if int8_matmul.launches_tma > c0[0] else
-                 "gemv" if int8_matmul.launches_gemv > c0[1] else "simt")
-        # the split-K stream sums with atomics: its bits may differ
-        bit_equal = (torch.equal(y, int8_matmul(x, q)) if route == "tma"
-                     else None)
+                 "stream" if int8_matmul.launches_gemv > c0[1] else "simt")
+        bit_equal = torch.equal(y, int8_matmul(x, q))
         ref = int8_matmul_plain(x.float(), q)
         err = (y.float() - ref).abs().max().item()
         tol = INT8_REL * ref.abs().max().item()
@@ -924,7 +972,8 @@ def parity_int8(g, results):
         del w_bf16
         bound_ms, bound_by = bound(nbytes(x, w_q, scale, y), 2 * M * N * K,
                                    "bf16")
-        source = _INT8_TMA_CU if route == "tma" else _INT8_CU
+        source = {"tma": _INT8_TMA_CU, "stream": _INT8_STREAM_CU,
+                  "simt": _INT8_CU}[route]
         log(f"  int8 {name}: route {route} ({source.rsplit('/', 1)[1]}); "
             f"max|err| {err:.3e} (tol {tol:.3e}), two runs bit-equal: "
             f"{bit_equal}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -935,8 +984,10 @@ def parity_int8(g, results):
             f"{cublas_ms:.4f} ms")
         if not err <= tol or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"int8 {name}: parity miss")
-        expected = "tma" if int8_takes_tma(M, K, N, x.dtype) else "gemv"
-        if route != expected or bit_equal is False:
+        expected = ("tma" if int8_takes_tma(M, K, N, x.dtype) else
+                    "stream" if int8_takes_stream(M, K, N, x.dtype) else
+                    "simt")
+        if route != expected or not bit_equal:
             raise AssertionError(f"int8 {name}: ran on the {route} route "
                                  f"(expected {expected}), bit-equal "
                                  f"{bit_equal}")
@@ -945,6 +996,9 @@ def parity_int8(g, results):
                 "library_ms": None, "cublas_bf16_yardstick_ms": cublas_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
+    # the decode cases at the end draw from a generator of their own, so that
+    # every later phase gets the inputs it got before they were added
+    extra = torch.Generator(device=dev).manual_seed(g.initial_seed() + 2)
     results["int8_matmul"] = [
         case("lm_head_decode_bf16[4,2048]x[2048,151936]", 4, 2048, 151936,
              20),
@@ -954,6 +1008,17 @@ def parity_int8(g, results):
         # the QLoRA train step's base products
         case("qlora_gate_bf16[4096,2048]x[2048,6144]", 4096, 2048, 6144, 5),
         case("qlora_down_bf16[4096,6144]x[6144,2048]", 4096, 6144, 2048, 5),
+        # the decode step's other fused products: 1.7B qkv, o and gate-up,
+        # the MoE decoder's qkv (32 q heads, 4 kv heads) and o
+        case("qkv_decode_bf16[4,2048]x[2048,4096]", 4, 2048, 4096, 50,
+             extra),
+        case("o_decode_bf16[4,2048]x[2048,2048]", 4, 2048, 2048, 50, extra),
+        case("gateup_decode_bf16[4,2048]x[2048,12288]", 4, 2048, 12288, 50,
+             extra),
+        case("moe_qkv_decode_bf16[4,2048]x[2048,5120]", 4, 2048, 5120, 50,
+             extra),
+        case("moe_o_decode_bf16[4,4096]x[4096,2048]", 4, 4096, 2048, 50,
+             extra),
     ]
 
 
@@ -1463,6 +1528,13 @@ def parity_grouped_gemm(g, results):
                   lhs_dt=f32, out_dt=f32),
         tgmm_case("small_fp32[64,300].[300,128]->[4,64,128]", 150, 64, 128,
                   20, lhs_dt=f32, out_dt=f32, G=4, k=2),
+        # the other three expert-adapter weight gradients of the QLoRA step
+        tgmm_case("lora_a_down_fp32[768,32768].[32768,64]", 4096, 768, 64, 4,
+                  lhs_dt=f32, out_dt=f32),
+        tgmm_case("lora_b_fp32[64,32768].[32768,768]", 4096, 64, 768, 4,
+                  lhs_dt=f32, out_dt=f32),
+        tgmm_case("lora_b_down_fp32[64,32768].[32768,2048]", 4096, 64, 2048,
+                  4, lhs_dt=f32, out_dt=f32),
     ]
 
 

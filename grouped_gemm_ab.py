@@ -1,14 +1,29 @@
 #!/usr/bin/env python3
-"""Times the grouped GEMM's products over int8 experts and fp32 expert
-adapters at the MoE shapes of qwen3-30b-a3b width (128 experts, top-8,
-hidden 2048, expert width 768, LoRA rank 64) on one NVIDIA card, through
-the ``molly_tpu_torch`` package of the tree given by ``--root`` (default:
-the tree of this script), so that two trees compare in one call:
+"""Times kernels of the port on one NVIDIA card through the
+``molly_tpu_torch`` package of the tree given by ``--root`` (default: the
+tree of this script), so that two trees compare in one call:
 
     python3 grouped_gemm_ab.py --root PARENT; python3 grouped_gemm_ab.py; ...
 
-Each case is the call the main path makes for that product in that tree,
-on the same seeded inputs (group sizes from a real router, one expert
+``--sections`` picks what runs (default: all):
+  - ``grouped``: the grouped GEMM's products over int8 experts and fp32
+    expert adapters at the MoE shapes of qwen3-30b-a3b width (128 experts,
+    top-8, hidden 2048, expert width 768, LoRA rank 64);
+  - ``tgmm``: the fp32 weight gradients of the four expert adapters;
+  - ``rmsnorm``: the RMSNorm forward at every shape of the main paths (the
+    fused branch's stacked qk_norm also as the strided view of the qkv
+    product it is handed) and its backward at the training shapes;
+  - ``int8``: the int8 weight-only GEMM at every decode shape of the main
+    paths (M = 4) and at the prefill and QLoRA shapes;
+  - ``gemv_splits``: the int8 weight stream (``csrc/int8_matmul_stream.cu``)
+    at each decode shape for every split count of K from 1 to 8, beside
+    the one ``quant.gemv_plan`` picks (trees that have the stream only).
+A ``rmsnorm`` or ``int8`` case prints the bound (``chip_smoke.bound``) and
+the library call (``F.rms_norm``, 1-D weights) or, for int8, cuBLAS's bf16
+product over the weights dequantized beforehand as a yardstick.
+
+Each grouped case is the call the main path makes for that product in that
+tree, on the same seeded inputs (group sizes from a real router, one expert
 empty, as ``chip_smoke.py`` makes them):
   - int8 forward: ``grouped_gemm(lhs, w_q, scale=...)``, bf16 lhs, fp32 out;
   - int8 lhs gradient (QLoRA): the scale folded into an fp32 ``dout`` by the
@@ -37,6 +52,11 @@ import sys
 
 E, TOPK, H, I, R = 128, 8, 2048, 768, 64
 TOKENS = {"prefill": 12288, "train": 4096}
+# (M, K, N) of the int8 GEMM at decode: the lm head, 1.7B down, qkv, o and
+# gate-up, the MoE decoder's qkv and o
+DECODE_INT8 = ((4, 2048, 151936), (4, 6144, 2048), (4, 2048, 4096),
+               (4, 2048, 2048), (4, 2048, 12288), (4, 2048, 5120),
+               (4, 4096, 2048))
 
 
 def main() -> int:
@@ -46,7 +66,11 @@ def main() -> int:
                     help="the tree whose molly_tpu_torch is timed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--sections", default="grouped,tgmm,rmsnorm,int8",
+                    help="comma-separated: grouped, tgmm, rmsnorm, int8, "
+                         "gemv_splits")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
     import torch
     if not torch.cuda.is_available():
         print("grouped_gemm_ab: no CUDA device", file=sys.stderr)
@@ -57,7 +81,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     for name in [m for m in sys.modules if m.startswith("molly_tpu_torch")]:
         del sys.modules[name]
-    from molly_tpu_torch.ops import _cuda_build, moe
+    from molly_tpu_torch.ops import _cuda_build, moe, quant, rmsnorm_triton
     from molly_tpu_torch.ops import grouped_gemm as gg
     assert os.path.abspath(gg.__file__).startswith(os.path.abspath(args.root))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,6 +175,171 @@ def main() -> int:
             raise AssertionError(f"{name}: parity miss, {err} > {tol}")
         torch.cuda.empty_cache()
 
+    def emit(**fields):
+        print(json.dumps({**fields, "root": os.path.abspath(args.root)}),
+              flush=True)
+
+    def tgmm(name, K, N):
+        """An fp32 adapter's weight gradient [G, K, N] from an fp32 lhs
+        [M, K] and dout [M, N] (the QLoRA step's LoRA A and B)."""
+        M = TOKENS["train"] * TOPK
+        gs = cs.routed_group_sizes(g, TOKENS["train"], H, E, TOPK,
+                                   empty=E // 2)
+        lhs = torch.randn((M, K), generator=g, device=dev)
+        dout = torch.randn((M, N), generator=g, device=dev)
+        call = lambda: gg.grouped_gemm_tgmm(  # noqa: E731
+            lhs, dout, gs, f32)
+        out = call()
+        want = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, f32,
+                                          bounds=gg._bounds(gs, M))
+        err = (out - want).abs().max().item()
+        tol = cs.GG_F32_REL * want.abs().max().item()
+        del want, out
+        bound_ms, by = cs.bound(cs.nbytes(lhs, dout, gs) + 4 * E * K * N,
+                                2 * M * K * N, "fp32")
+        emit(case=name, ms=cs.time_ms(call, args.iters), max_abs_err=err,
+             tol=tol, bound_ms=bound_ms, bound_by=by)
+        if not err <= tol:
+            raise AssertionError(f"{name}: parity miss, {err} > {tol}")
+
+    def norm(name, shape, w_shape, qkv_width=None, iters=20):
+        """The RMSNorm forward over bf16 rows (with ``qkv_width``, the view
+        ``qkv[..., :N Dh]`` of a [B, S, qkv_width] product)."""
+        if qkv_width is None:
+            x = torch.randn(shape, generator=g, device=dev).to(b16)
+        else:
+            qkv = torch.randn((*shape[:2], qkv_width), generator=g,
+                              device=dev).to(b16)
+            x = qkv[..., :shape[2] * shape[3]].reshape(shape)
+        w = (1 + 0.1 * torch.randn(w_shape, generator=g, device=dev)).to(b16)
+        call = lambda: rmsnorm_triton.rms_norm(x, w, 1e-6)  # noqa: E731
+        y = call()
+        ref = rmsnorm_triton.rms_norm_plain(x.float(), w.float(), 1e-6)
+        excess = ((y.float() - ref).abs() - cs.RMS_REL * ref.abs()).max()
+        bit_equal = torch.equal(y, call())
+        del ref
+        library_ms = (cs.time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (shape[-1],), w, 1e-6), iters) if len(w_shape) == 1 else None)
+        bound_ms, by = cs.bound(cs.nbytes(x, w, y), 4 * x.numel(), "fp32")
+        emit(case=name, ms=cs.time_ms(call, iters),
+             excess_over_2e7_rel=excess.item(), bit_equal=bit_equal,
+             bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+        if excess.item() > 0 or not bit_equal:
+            raise AssertionError(f"{name}: parity miss")
+
+    def norm_bwd(name, shape, iters=20):
+        """The RMSNorm backward (dx and dw) of bf16 rows, 1-D weight."""
+        x = torch.randn(shape, generator=g, device=dev).to(b16)
+        gr = torch.randn(shape, generator=g, device=dev).to(b16)
+        w = (1 + 0.1 * torch.randn((shape[-1],), generator=g,
+                                   device=dev)).to(b16)
+        call = lambda: rmsnorm_triton.rms_norm_bwd(  # noqa: E731
+            x, w, gr, 1e-6, True)
+        dx, dw = call()
+        bound_ms, by = cs.bound(cs.nbytes(x, gr, w, dx, dw), 12 * x.numel(),
+                                "fp32")
+        emit(case=name, ms=cs.time_ms(call, iters), bound_ms=bound_ms,
+             bound_by=by)
+
+    def int8(name, M, K, N, iters=20):
+        """The int8 GEMM over bf16 x, as the main path calls it."""
+        x = torch.randn((M, K), generator=g, device=dev).to(b16)
+        q = {"w_q": torch.randint(-127, 128, (K, N), generator=g,
+                                  device=dev, dtype=torch.int8),
+             "scale": torch.rand((N,), generator=g, device=dev) * 1e-3
+             + 1e-4}
+        c = quant.int8_matmul
+        before = (c.launches_tma, c.launches_gemv)
+        y = quant.int8_matmul(x, q)
+        route = ("tma" if c.launches_tma > before[0] else
+                 "gemv" if c.launches_gemv > before[1] else "simt")
+        bit_equal = torch.equal(y, quant.int8_matmul(x, q))
+        ref = quant.int8_matmul_plain(x.float(), q)
+        err = (y.float() - ref).abs().max().item()
+        tol = cs.INT8_REL * ref.abs().max().item()
+        del ref
+        w16 = (q["w_q"].float() * q["scale"]).to(b16)
+        yard = cs.time_ms(lambda: x @ w16, iters)
+        del w16
+        bound_ms, by = cs.bound(cs.nbytes(x, q["w_q"], q["scale"], y),
+                                2 * M * K * N, "bf16")
+        emit(case=name, ms=cs.time_ms(lambda: quant.int8_matmul(x, q),
+                                      iters),
+             route=route, bit_equal=bit_equal, max_abs_err=err, tol=tol,
+             bound_ms=bound_ms, bound_by=by, cublas_bf16_yardstick_ms=yard)
+        if not err <= tol:
+            raise AssertionError(f"{name}: parity miss, {err} > {tol}")
+
+    if "rmsnorm" in sections:
+        for name, shape, w_shape, width in (
+                ("hidden[12288,2048]", (12288, 2048), (2048,), None),
+                ("qk_norm[4,3072,24,128]", (4, 3072, 24, 128), (24, 128),
+                 None),
+                ("qk_norm_view[4,3072,24,128] of [4,3072,4096]",
+                 (4, 3072, 24, 128), (24, 128), 4096),
+                ("decode[4,1,2048]", (4, 1, 2048), (2048,), None),
+                ("train_hidden[4096,2048]", (4096, 2048), (2048,), None),
+                ("train_q_norm[4,1024,16,128]", (4, 1024, 16, 128), (128,),
+                 None),
+                ("k_norm[4,3072,8,128]", (4, 3072, 8, 128), (128,), None),
+                ("moe_q_norm[4,3072,32,128]", (4, 3072, 32, 128), (128,),
+                 None),
+                ("moe_qk_norm_view[4,3072,36,128] of [4,3072,5120]",
+                 (4, 3072, 36, 128), (36, 128), 5120)):
+            norm(name, shape, w_shape, width)
+        for name, shape in (("bwd_train_hidden[4096,2048]", (4096, 2048)),
+                            ("bwd_train_q_norm[4,1024,16,128]",
+                             (4, 1024, 16, 128)),
+                            ("bwd_train_k_norm[4,1024,8,128]",
+                             (4, 1024, 8, 128)),
+                            ("bwd_moe_q_norm[4,1024,32,128]",
+                             (4, 1024, 32, 128)),
+                            ("bwd_moe_k_norm[4,1024,4,128]",
+                             (4, 1024, 4, 128))):
+            norm_bwd(name, shape)
+        torch.cuda.empty_cache()
+    if "int8" in sections:
+        for name, M, K, N in (
+                *((f"decode[{M},{K}]x[{K},{N}]", M, K, N)
+                  for M, K, N in DECODE_INT8),
+                ("qkv_prefill[12288,2048]x[2048,4096]", 12288, 2048, 4096),
+                ("qlora_gate[4096,2048]x[2048,6144]", 4096, 2048, 6144),
+                ("qlora_down[4096,6144]x[6144,2048]", 4096, 6144, 2048)):
+            int8(name, M, K, N, 20 if M <= 16 else 5)
+        torch.cuda.empty_cache()
+    if "gemv_splits" in sections:
+        lib = quant._int8_stream_lib()
+        for M, K, N in DECODE_INT8:
+            x = torch.randn((M, K), generator=g, device=dev).to(b16)
+            w_q = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                                dtype=torch.int8)
+            scale = torch.rand((N,), generator=g, device=dev) + 1e-3
+            out = torch.empty((M, N), dtype=b16, device=dev)
+            tiles, _, _ = plan = quant.gemv_plan(
+                K, N, _cuda_build.sm_count(out.device.index))
+            stages, ms = K // 64, {}
+            for splits in range(1, 9):
+                per = -(-stages // splits)
+                if -(-stages // per) != splits:
+                    continue  # the same cut as a smaller count
+                ms[splits] = cs.time_ms(
+                    lambda: _cuda_build.check(  # noqa: B023
+                        lib, lib.molly_int8_gemv_stream(
+                            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                            out.data_ptr(), M, K, N, tiles, splits, per,
+                            torch.cuda.current_stream().cuda_stream),
+                        "int8 stream"), 20)
+            emit(case=f"gemv_splits[{M},{K}]x[{K},{N}]", plan=plan,
+                 ms_by_splits=ms)
+        torch.cuda.empty_cache()
+    if "tgmm" in sections:
+        tgmm("tgmm_lora_a_fp32[2048,32768].[32768,64]", H, R)
+        tgmm("tgmm_lora_a_down_fp32[768,32768].[32768,64]", I, R)
+        tgmm("tgmm_lora_b_fp32[64,32768].[32768,768]", R, I)
+        tgmm("tgmm_lora_b_down_fp32[64,32768].[32768,2048]", R, H)
+        torch.cuda.empty_cache()
+    if "grouped" not in sections:
+        return 0
     run("prefill_gateup_int8", "prefill", H, 2 * I, "int8_fwd")
     run("prefill_down_int8", "prefill", I, H, "int8_fwd")
     run("qlora_gate_int8", "train", H, I, "int8_fwd")

@@ -94,16 +94,6 @@ struct Ring {
   }
 };
 
-// byte offset of (row, 16-byte chunk) in a box of 128-byte rows that TMA
-// wrote with the 128-byte swizzle (the box is 1024-byte aligned)
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* p) {
   asm volatile(
@@ -111,26 +101,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// every thread of every block of the cluster; divergent arrival is allowed
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// four floats at `addr` in the shared memory of the cluster's block `rank`
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
 }
 
 // One warp: the `slot`-th group that has rows, as unit = {group (-1: none),

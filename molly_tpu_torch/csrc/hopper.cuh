@@ -2,8 +2,10 @@
 // shared-memory addresses, mbarriers, TMA loads and stores, the proxy
 // fence, the warpgroup barrier, wgmma and its shared-memory descriptors,
 // the host's lookup of cuTensorMapEncodeTiled and the 4-D maps of the
-// attention kernels, and the exact int8 -> bf16 conversion of A fragments.
-// Included by every *_tma.cu source and grouped_gemm_decode.cu.
+// attention kernels, the exact int8 -> bf16 conversion of A fragments, the
+// 128-byte swizzle's offsets and the cluster barrier and loads.
+// Included by every *_tma.cu source, grouped_gemm_decode.cu and
+// int8_matmul_stream.cu.
 #pragma once
 
 #include <cuda.h>
@@ -59,6 +61,36 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(c1)
       : "memory");
 }
+// byte offset of (row, 16-byte chunk) in a box of 128-byte rows that TMA
+// wrote with the 128-byte swizzle (the box is 1024-byte aligned)
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// every thread of every block of the cluster; divergent arrival is allowed
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// four floats at `addr` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {

@@ -4,9 +4,9 @@
 //
 // Replaces: molly_tpu/ops/quant.py:_kernel (launched from int8_matmul) for
 // the calls that ops/quant.py:int8_takes_tma names: bf16 x, M > 16, K a
-// multiple of 64, N of 16, 16-byte aligned bases. int8_matmul.cu keeps the
-// split-K weight stream (M <= 16) and the SIMT GEMM (fp32 x, unaligned
-// views). Same semantics: x [M, K] bf16 as given, w_q [K, N] int8 in the
+// multiple of 64, N of 16, 16-byte aligned bases. Decode (M <= 16) runs on
+// int8_matmul_stream.cu, fp32 x and unaligned views on the SIMT GEMM of
+// int8_matmul.cu. Same semantics: x [M, K] bf16 as given, w_q [K, N] int8 in the
 // layout quantize_int8 gives (row-major, nothing reordered at quantize
 // time), fp32 accumulation, the per-column fp32 scale applied once in the
 // epilogue, out [M, N] bf16.

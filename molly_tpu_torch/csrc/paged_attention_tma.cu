@@ -135,12 +135,6 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
            8388736.f;
 }
 
-// byte offset of (row, 16-byte chunk) in a box of 128-byte rows written by
-// TMA with the 128-byte swizzle (the box is 1024-byte aligned)
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
 template <bool INT8, int DH>
 __global__ void __launch_bounds__(Warps<INT8>::THREADS)
     paged_split_kernel(const __grid_constant__ CUtensorMap map_k,

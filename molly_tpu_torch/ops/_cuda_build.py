@@ -32,9 +32,10 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("flash_attention_fwd", "flash_attention_fwd_tma",
            "flash_attention_bwd", "flash_attention_bwd_tma", "int8_matmul",
-           "int8_matmul_tma", "paged_attention", "paged_attention_tma",
-           "grouped_gemm", "grouped_gemm_tma", "grouped_gemm_decode",
-           "grouped_gemm_int8_tma", "grouped_gemm_f32_tc")
+           "int8_matmul_tma", "int8_matmul_stream", "paged_attention",
+           "paged_attention_tma", "grouped_gemm", "grouped_gemm_tma",
+           "grouped_gemm_decode", "grouped_gemm_int8_tma",
+           "grouped_gemm_f32_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

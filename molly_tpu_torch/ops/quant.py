@@ -1,12 +1,16 @@
 """Int8 weight-only quantization (decode, and the frozen QLoRA base in
 training): the wrapper of the hand-written CUDA GEMMs and its plain PyTorch
-version. ``int8_takes_tma`` is the route: bf16 x with more than ``SMALL_M``
-rows and aligned shapes (prefill, the QLoRA step) runs on TMA and wgmma
-(``csrc/int8_matmul_tma.cu``); the rest on ``csrc/int8_matmul.cu``: the
-split-K weight stream at M <= ``SMALL_M`` (decode), the SIMT GEMM for fp32 x
-and unaligned views. ``int8_matmul.launches`` counts every launch,
+version. Three routes: ``int8_takes_tma`` sends bf16 x with more than
+``SMALL_M`` rows and aligned shapes (prefill, the QLoRA step) to TMA and
+wgmma (``csrc/int8_matmul_tma.cu``); ``int8_takes_stream`` sends bf16 x with
+at most ``SMALL_M`` rows and aligned shapes (decode) to a weight stream
+(``csrc/int8_matmul_stream.cu``: operands swapped on mma.sync, the weights
+by TMA, K split where the column tiles are too few for the card, the
+splits summed in a fixed order across a cluster, one launch, no atomics;
+``gemv_plan`` is its grid); the rest (fp32 x, unaligned views, K or N off
+the multiples) runs the SIMT GEMM of ``csrc/int8_matmul.cu``. ``int8_matmul.launches`` counts every launch,
 ``.launches_tma`` those on the TMA kernel, ``.launches_gemv`` those on the
-split-K stream.
+stream.
 
 Replaces ``molly_tpu/ops/quant.py:_kernel`` (launched from ``int8_matmul``).
 Math: y = (x @ w_q) * scale, with w_q = round(w / scale) per output column
@@ -29,7 +33,11 @@ from typing import Dict
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMALL_M = 16  # rows up to which the split-K stream runs (int8_matmul.cu too)
+SMALL_M = 16  # rows up to which the weight stream runs
+_GEMV_COLS = 128      # weight columns of a stream block
+_GEMV_STAGE = 64      # contraction elements of a TMA stage
+_GEMV_MAX_SPLITS = 8  # blocks of a cluster (int8_matmul_stream.cu too)
+_GEMV_MIN_STAGES = 4  # stages a split keeps: fewer and prologue dominates
 
 
 def int8_takes_tma(M: int, K: int, N: int, dtype,
@@ -39,6 +47,33 @@ def int8_takes_tma(M: int, K: int, N: int, dtype,
     (int8 rows of 16 bytes, four-column stores), 16-byte aligned bases."""
     return (dtype == torch.bfloat16 and M > SMALL_M and K % 64 == 0
             and N % 16 == 0 and aligned)
+
+
+def int8_takes_stream(M: int, K: int, N: int, dtype,
+                      aligned: bool = True) -> bool:
+    """Does this product go to the weight stream
+    (``csrc/int8_matmul_stream.cu``)? bf16 x with 1 to ``SMALL_M`` rows, K a
+    multiple of the 64-element stage, N of 16, 16-byte aligned bases."""
+    return (dtype == torch.bfloat16 and 0 < M <= SMALL_M and K % 64 == 0
+            and N % 16 == 0 and aligned)
+
+
+def gemv_plan(K: int, N: int, sm_count: int):
+    """(column tiles, splits, stages a split) of the weight stream, from the
+    shapes and the SM count only (a captured graph replays with new x).
+    Block (split, tile) takes columns [128 tile, +128) and stages [split *
+    per, +per) of K's 64-element stages; the splits of a tile form one
+    cluster and are summed in order. K is split as far as the blocks stay
+    within three quarters of the SMs (a cluster's blocks share a GPC: a grid
+    near the SM count leaves some SMs two blocks), at most 8 ways, each
+    split keeping ``_GEMV_MIN_STAGES`` stages: the lm head's 1,187 column
+    tiles take one split, decode down's 16 take 6."""
+    tiles = -(-N // _GEMV_COLS)
+    stages = K // _GEMV_STAGE
+    splits = max(1, min(_GEMV_MAX_SPLITS, 3 * sm_count // (4 * tiles),
+                        stages // _GEMV_MIN_STAGES))
+    per = -(-stages // splits)
+    return tiles, -(-stages // per), per
 
 
 def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -117,36 +152,38 @@ def _int8_matmul_fwd(x: torch.Tensor,
         return out.reshape(*lead, N)
 
     from . import _cuda_build
-    tma = int8_takes_tma(M, K, N, x.dtype,
-                         all(t.data_ptr() % 16 == 0
-                             for t in (x2, w_q, scale, out)))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w_q, scale, out))
+    tma = int8_takes_tma(M, K, N, x.dtype, aligned)
+    stream = int8_takes_stream(M, K, N, x.dtype, aligned)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
         if tma:
             lib = _int8_tma_lib()
             err = lib.molly_int8_matmul_tma(
                 x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), M, N, K, stream)
+                out.data_ptr(), M, N, K, cuda_stream)
+        elif stream:
+            lib = _int8_stream_lib()
+            err = lib.molly_int8_gemv_stream(
+                x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N,
+                *gemv_plan(K, N, _cuda_build.sm_count(x.device.index)),
+                cuda_stream)
         else:
             lib = _int8_lib()
-            # decode-sized M takes the split-K path, which sums into an fp32
-            # workspace (zeroed by the kernel's launcher)
-            ws = (torch.empty((M, N), dtype=torch.float32, device=x.device)
-                  if M <= SMALL_M else None)
             err = lib.molly_int8_matmul(
                 x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), None if ws is None else ws.data_ptr(), M, N,
-                K, _DTYPES[x.dtype], stream)
+                out.data_ptr(), M, N, K, _DTYPES[x.dtype], cuda_stream)
     _cuda_build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
     int8_matmul.launches_tma += int(tma)
-    int8_matmul.launches_gemv += int(M <= SMALL_M)
+    int8_matmul.launches_gemv += int(stream)
     return out.reshape(*lead, N)
 
 
 int8_matmul.launches = 0
 int8_matmul.launches_tma = 0    # those on csrc/int8_matmul_tma.cu
-int8_matmul.launches_gemv = 0   # those on the split-K stream (M <= SMALL_M)
+int8_matmul.launches_gemv = 0   # those on the weight stream (M <= SMALL_M)
 
 
 def linear(x: torch.Tensor, p) -> torch.Tensor:
@@ -162,7 +199,18 @@ def _int8_lib():
     fn = lib.molly_int8_matmul
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, P]
+        fn.restype = I
+    return lib
+
+
+def _int8_stream_lib():
+    from . import _cuda_build
+    lib = _cuda_build.library("int8_matmul_stream")
+    fn = lib.molly_int8_gemv_stream
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
     return lib
 

@@ -9,12 +9,22 @@ fp32, and the weight multiplies *after* the cast back to the input dtype
 
 What bounds it on this card: one read and one write of each row with a
 handful of operations per element — far below the card's ops-per-byte
-ridge, so it is bound by device-memory bandwidth, and for the narrow
-per-head rows (Dh = 128) by how many rows are in flight. The design: one
-program per row, the whole row in registers (one read, one write, no
+ridge, so it is bound by device-memory bandwidth, which it reaches only
+with enough bytes in flight on every SM. The narrow per-head rows (Dh =
+128, 256 bytes in bf16) are most of its launches: one program per row moved
+too little at a time (24% of the bound on the stacked qk_norm). The design:
+``rmsnorm_plan`` gives each program a [rows, H] tile of about 8,192
+elements (64 rows at Dh = 128: 16 KB read and 16 KB written in bf16; a
+hidden row of 2048 or more alone, as before), eight warps, and at least two
+programs an SM wherever the row count allows; each row is held in registers (one read, one write, no
 second pass), the weight row picked as ``weight[row % W]`` so one kernel
-serves the 1-D norms (W = 1), the per-head q/k norms and the fused decode
-branch's stacked [Nq+Nkv, Dh] ``qk_norm``.
+serves the 1-D norms (W = 1, loaded once a program), the per-head q/k norms
+and the fused decode branch's stacked [Nq+Nkv, Dh] ``qk_norm``. x is read
+as ``[outer, heads, H]`` through two strides (``_row_strides``), so the fused
+branch's ``qkv[..., :q_dim+kv_dim]`` view is normalised where it lies, with
+no copy first; y is written contiguous. Triton specialises the strides and
+the base on their divisibility by 16, so rows on 16-byte boundaries load
+and store 16 bytes a thread, and other views still run (narrower accesses).
 
 The backward, as the Pallas kernel: inv is recomputed from x,
 dx = (w*g - x_hat * mean(w*g*x_hat)) * inv and dw = sum over rows of
@@ -46,13 +56,70 @@ _BWD_WARPS = 4
 
 
 def _rows_and_weight(x: torch.Tensor, weight: torch.Tensor):
-    """x [..., H] and weight of shape x.shape[-weight.ndim:] -> (x as
-    [R, H], weight as [W, H]) with row r normalised by weight[r % W]."""
-    H = x.shape[-1]
+    """Check that weight has the shape of x's trailing dims; -> weight as
+    [W, H], row r of x normalised by weight[r % W]."""
     if tuple(weight.shape) != tuple(x.shape[x.ndim - weight.ndim:]):
         raise ValueError(f"rms_norm: weight {tuple(weight.shape)} does not "
                          f"match the trailing dims of x {tuple(x.shape)}")
-    return x.reshape(-1, H), weight.reshape(-1, H)
+    return weight.reshape(-1, x.shape[-1])
+
+
+def _fold(sizes, strides):
+    """The one stride of dims that fold into a single dim in C order (0 if
+    none is longer than 1), or None if they do not fold."""
+    stride, span = 0, None
+    for n, s in zip(reversed(sizes), reversed(strides)):
+        if n == 1:
+            continue
+        if span is not None and s != span:
+            return None
+        if span is None:
+            stride = s
+        span = s * n
+    return stride
+
+
+def _row_strides(x: torch.Tensor):
+    """(outer, heads, stride_o, stride_h) that read x [..., H] in place as
+    [outer, heads, H] with H contiguous: the rows of one stride, or rows in
+    groups of ``x.shape[-2]`` heads (the fused branch's ``qkv[..., :q+kv]``
+    view); None if x's leading dims do not fold so (it is copied first). A
+    dim of one gets stride 0: an odd stride there would keep Triton's
+    divisibility analysis, and so the 16-byte accesses, from the rest."""
+    sizes, strides = x.shape[:-1], x.stride()[:-1]
+    if x.stride(-1) != 1 and x.shape[-1] != 1:
+        return None
+    stride = _fold(sizes, strides)
+    if stride is not None:
+        return x.numel() // max(1, x.shape[-1]), 1, stride, 0
+    stride = _fold(sizes[:-1], strides[:-1])
+    if stride is None:
+        return None
+    heads = sizes[-1]
+    return (x.numel() // max(1, x.shape[-1] * heads), heads, stride,
+            strides[-1] if heads > 1 else 0)
+
+
+_TILE = 8192     # elements of a program's [rows, H] tile (forward)
+_WIDE = 1024     # rows this wide (padded) already move enough alone
+
+
+def rmsnorm_plan(R: int, H: int, sm_count: int):
+    """(rows a program, programs, warps) of the forward kernel, from the
+    shapes only: tiles of about ``_TILE`` elements (a power of two of
+    rows; one row a program from ``_WIDE`` elements up, as the hidden
+    rows measured fastest), halved while there would be fewer than two
+    programs an SM, so that a short call still spreads; program p takes
+    rows [p * rows, (p + 1) * rows) of R."""
+    block = _next_pow2(H)
+    rows = max(1, _TILE // block) if block < _WIDE else 1
+    while rows > 1 and -(-R // rows) < 2 * sm_count:
+        rows //= 2
+    return rows, -(-R // rows), max(1, min(8, rows * block // 256))
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -201,22 +268,30 @@ def _build_kernel():
     import triton.language as tl
 
     @triton.jit
-    def rmsnorm_fwd(x_ptr, w_ptr, y_ptr, H, W, stride_x, stride_w, stride_y,
-                    eps, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
+    def rmsnorm_fwd(x_ptr, w_ptr, y_ptr, R, H, heads, W, stride_o, stride_h,
+                    eps, BLOCK: tl.constexpr, ROWS: tl.constexpr,
+                    ONE_W: tl.constexpr):
+        rows = (tl.program_id(0) * ROWS + tl.arange(0, ROWS)).to(tl.int64)
         cols = tl.arange(0, BLOCK)
         inb = cols < H
-        x = tl.load(x_ptr + row * stride_x + cols, mask=inb,
+        m = (rows < R)[:, None] & inb[None, :]
+        # row r of the [outer, heads, H] view lies at (r // heads, r % heads)
+        at = (rows // heads) * stride_o + (rows % heads) * stride_h
+        x = tl.load(x_ptr + at[:, None] + cols[None, :], mask=m,
                     other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=0) / H
+        var = tl.sum(x * x, axis=1) / H
         inv = 1.0 / tl.sqrt(var + eps)
         # cast to the input dtype first, then scale by the weight (in fp32)
         # and round once more on the store
-        xn = (x * inv).to(x_ptr.dtype.element_ty).to(tl.float32)
-        w = tl.load(w_ptr + (row % W) * stride_w + cols, mask=inb,
-                    other=0.0).to(tl.float32)
-        tl.store(y_ptr + row * stride_y + cols,
-                 (w * xn).to(y_ptr.dtype.element_ty), mask=inb)
+        xn = (x * inv[:, None]).to(x_ptr.dtype.element_ty).to(tl.float32)
+        if ONE_W:
+            w = tl.load(w_ptr + cols, mask=inb, other=0.0).to(
+                tl.float32)[None, :]
+        else:
+            w = tl.load(w_ptr + (rows % W)[:, None] * H + cols[None, :],
+                        mask=m, other=0.0).to(tl.float32)
+        tl.store(y_ptr + rows[:, None] * H + cols[None, :],
+                 (w * xn).to(y_ptr.dtype.element_ty), mask=m)
 
     return rmsnorm_fwd
 
@@ -239,25 +314,30 @@ def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != "cuda" or weight.device != x.device:
         raise RuntimeError(f"rms_norm: unsupported devices x {x.device}, "
                            f"weight {weight.device}")
-    x2, w2 = _rows_and_weight(x, weight)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
-    w2 = w2.contiguous()
-    R, H = x2.shape
+    w2 = _rows_and_weight(x, weight).contiguous()
+    H = x.shape[-1]
     out_dtype = torch.promote_types(x.dtype, weight.dtype)
-    y = torch.empty((R, H), dtype=out_dtype, device=x.device)
-    if R == 0:
-        return y.reshape(x.shape)
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    fold = _row_strides(x)
+    if fold is None:
+        x = x.contiguous()
+        fold = x.numel() // H, 1, H, 0
+    outer, heads, stride_o, stride_h = fold
+    R = outer * heads
     if _KERNEL is None:
         _KERNEL = _build_kernel()
-    import triton
-    block = triton.next_power_of_2(H)
+    from . import _cuda_build
+    rows, programs, warps = rmsnorm_plan(
+        R, H, _cuda_build.sm_count(x.device.index))
     with torch.cuda.device(x.device):
-        _KERNEL[(R,)](x2, w2, y, H, w2.shape[0], x2.stride(0), w2.stride(0),
-                      y.stride(0), float(eps), BLOCK=block,
-                      num_warps=max(1, min(8, block // 256)))
+        _KERNEL[(programs,)](
+            x, w2, y, R, H, heads, w2.shape[0], stride_o, stride_h,
+            float(eps), BLOCK=_next_pow2(H), ROWS=rows,
+            ONE_W=w2.shape[0] == 1, num_warps=warps)
     rms_norm.launches += 1
-    return y.reshape(x.shape)
+    return y
 
 
 rms_norm.launches = 0

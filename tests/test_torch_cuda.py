@@ -170,12 +170,55 @@ def test_rmsnorm_kernel_matches_plain(dev, dtype, x_shape, w_shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [64, 128, 1000, 2048])
+@pytest.mark.parametrize("outer", [1, 7, 3001])
+@pytest.mark.parametrize("layout", ["contiguous", "fused_view", "copied"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_rmsnorm_kernel_tiles_and_views_match_plain(dev, dtype, H, outer,
+                                                    layout, stacked):
+    """Rows of three heads, [outer, 3, H]: a weight [H] or stacked [3, H];
+    H a power of two or not; 3 rows, 21 (one partial tile) or 9,003 (many
+    tiles of the plan, the last partial); x contiguous, the fused branch's
+    view (the first three heads of a [outer, 5 H] product, read in place)
+    or a view the kernel cannot fold (last stride not 1: copied first).
+    Parity with the plain version in fp32 (bf16: max(err - 2^-7 |ref|) <=
+    0, as chip_smoke.py holds it: the kernel rounds twice, x_hat and then
+    w * x_hat), the same bits on a second run."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    if layout == "fused_view":
+        qkv = torch.randn((outer, 5 * H), generator=g, device=dev).to(dtype)
+        x = qkv[:, :3 * H].view(outer, 3, H)
+        assert rmsnorm_triton._row_strides(x) is not None  # read in place
+    elif layout == "copied":
+        x = torch.randn((outer, H, 3), generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+        assert x.stride(-1) != 1
+    else:
+        x = torch.randn((outer, 3, H), generator=g, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn((3, H) if stacked else (H,), generator=g,
+                               device=dev)).to(dtype)
+    before = rmsnorm_triton.rms_norm.launches
+    y = rmsnorm_triton.rms_norm(x, w, 1e-6)
+    again = rmsnorm_triton.rms_norm(x, w, 1e-6)
+    assert rmsnorm_triton.rms_norm.launches == before + 2
+    ref = rmsnorm_triton.rms_norm_plain(x.float(), w.float(), 1e-6)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous()
+    err = (y.float() - ref).abs()
+    if dtype == torch.float32:
+        assert (err <= 1e-5 * ref.abs() + 1e-6).all()
+    else:
+        assert (err - 2.0 ** -7 * ref.abs()).max().item() <= 0
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [
     (1, 64, 40), (4, 2048, 1000), (4, 6144, 2048), (16, 1000, 520),
     (17, 300, 129), (70, 300, 129), (257, 512, 256), (130, 256, 2064)])
 def test_int8_kernel_matches_plain(dev, dtype, M, K, N):
-    """M <= 16 takes the split-K weight stream; larger M the TMA and wgmma
-    GEMM (bf16, K % 64 == 0, N % 16 == 0) or else the SIMT GEMM."""
+    """bf16 x with K % 64 == 0 and N % 16 == 0 takes the weight stream (M <=
+    16) or the TMA and wgmma GEMM (larger M); the rest the SIMT GEMM."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((M, K), generator=g, device=dev).to(dtype)
     w = torch.randn((K, N), generator=g, device=dev) * 0.05
@@ -226,7 +269,7 @@ def test_int8_tma_kernel_matches_plain(dev, M, K, N):
 def test_int8_other_routes_match_plain(dev, case):
     """What the TMA kernel does not take: an x whose base is 2 bytes off a
     16-byte boundary, K or N off the route's multiples, fp32 x (the SIMT
-    GEMM), 16 rows (the split-K stream)."""
+    GEMM), 16 rows (the weight stream)."""
     M, K, N = (16 if case == "sixteen_rows" else 70,
                96 if case == "k_not_of_64" else 128,
                40 if case == "n_not_of_16" else 256)
@@ -241,14 +284,69 @@ def test_int8_other_routes_match_plain(dev, case):
     before = (quant.int8_matmul.launches, quant.int8_matmul.launches_tma,
               quant.int8_matmul.launches_gemv)
     y = quant.int8_matmul(x, q)
+    stream = quant.int8_takes_stream(M, K, N, x.dtype,
+                                     x.data_ptr() % 16 == 0)
+    assert stream is (case == "sixteen_rows")
     assert (quant.int8_matmul.launches, quant.int8_matmul.launches_tma,
             quant.int8_matmul.launches_gemv) == (
-        before[0] + 1, before[1], before[2] + (M <= quant.SMALL_M))
+        before[0] + 1, before[1], before[2] + stream)
     ref = quant.int8_matmul_plain(x.float(), q)
     torch.cuda.synchronize()
     rel = 1e-4 if case == "fp32" else 1e-2
     assert (y.float() - ref).abs().max().item() <= \
         rel * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 9, 16])
+@pytest.mark.parametrize("K,N", [(64, 16), (64, 272), (2048, 272),
+                                 (2048, 2048), (2048, 151936), (6144, 272),
+                                 (6144, 2048)])
+def test_int8_stream_kernel_matches_plain(dev, M, K, N):
+    """bf16 x with at most 16 rows runs on the weight stream
+    (int8_matmul_stream.cu): one or two n8 chunks of rows, one K stage
+    or 96, a partial column tile (272 = 2 x 128 + 16), K split (8 ways at
+    N 2048) or not (the lm head's 1,187 tiles); parity with the plain
+    version (one bf16 rounding of the output) and the same bits on a
+    second run (the splits are summed in a fixed order, no atomics)."""
+    x, q = _int8_operands(dev, M, K, N, seed=5)
+    assert quant.int8_takes_stream(M, K, N, x.dtype)
+    c = quant.int8_matmul
+    before = (c.launches, c.launches_tma, c.launches_gemv)
+    y = quant.int8_matmul(x, q)
+    again = quant.int8_matmul(x, q)
+    assert (c.launches, c.launches_tma, c.launches_gemv) == (
+        before[0] + 2, before[1], before[2] + 2)
+    ref = quant.int8_matmul_plain(x.float(), q)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert torch.isfinite(y).all()
+    assert (y.float() - ref).abs().max().item() <= \
+        1e-2 * ref.abs().max().item()
+    assert torch.equal(y, again)
+
+
+def test_int8_stream_kernel_replays_in_a_graph_with_new_x(dev):
+    """The plan depends on shapes only: one captured launch, replayed after
+    x changes in place, equals an eager call on the new x bit for bit."""
+    M, K, N = 4, 6144, 2048
+    x, q = _int8_operands(dev, M, K, N, seed=6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant.int8_matmul(x, q)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = quant.int8_matmul(x, q)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(3):
+        x.copy_(torch.randn((M, K), generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, quant.int8_matmul(x, q))
+        ref = quant.int8_matmul_plain(x.float(), q)
+        assert (out.float() - ref).abs().max().item() <= \
+            1e-2 * ref.abs().max().item()
 
 
 # ------------------------------------------------------------- backward

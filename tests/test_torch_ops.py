@@ -368,7 +368,7 @@ def test_int8_matmul_plain_follows_kernel_and_jax():
 
 @pytest.mark.parametrize("M", [1, 4, 16, 17, 64])
 def test_int8_matmul_route_edge_shapes_match_jax(M):
-    """Decode-sized products (the split-K stream's M <= 16 on a card) and
+    """Decode-sized products (the weight stream's M <= 16 on a card) and
     the first sizes past it (the TMA kernel's), held to the Pallas kernel's
     math and to the JAX function as the existing test holds them."""
     rng = np.random.default_rng(40 + M)
@@ -401,5 +401,5 @@ def test_int8_matmul_route_edge_shapes_match_jax(M):
 def test_int8_takes_tma_rule(case, args, expected):
     """The int8 GEMM's route: bf16 x with more than 16 rows, K a multiple
     of 64, N of 16, aligned bases run on the TMA and wgmma kernel; decode
-    (the split-K stream), fp32 x and odd shapes do not."""
+    (the weight stream), fp32 x and odd shapes do not."""
     assert quant.int8_takes_tma(*args) is expected
