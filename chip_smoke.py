@@ -27,13 +27,16 @@ Phases, each printed with its time; any failure exits non-zero:
      (at prefill and training shapes the TMA and wgmma kernels over bf16
      experts, the int8 TMA kernel of ``grouped_gemm_int8_tma.cu`` over int8
      experts, the fp32 tensor-core kernels of ``grouped_gemm_f32_tc.cu`` for
-     the expert adapters; the split weight stream of
+     the expert adapters' products and weight gradients; the split weight
+     stream of
      ``grouped_gemm_decode.cu`` at decode and serving shapes over bf16 and
      int8 experts; the mma.sync and SIMT kernels elsewhere), two runs are
      bit-equal, a split-stream, int8 TMA or fp32 tensor-core case replays a
      captured launch after the group sizes change (equal to an eager call),
-     and a case with an fp32 ``dout`` times the wrapper, its one rounding
-     pass to bf16 included; an int8 case prints ``F.grouped_mm`` over
+     a case with an fp32 ``dout`` times the wrapper, its one rounding
+     pass to bf16 included, and a weight gradient is timed through the call
+     the autograd backward makes (the adapters': a bf16 lhs and an fp32
+     ``dout``, no widening pass); an int8 case prints ``F.grouped_mm`` over
      experts dequantized beforehand as a yardstick. The int8 GEMM runs its
      decode shapes (the lm head, and every fused layer product of both
      decoders) on the weight stream of ``int8_matmul_stream.cu``, and its
@@ -45,7 +48,8 @@ Phases, each printed with its time; any failure exits non-zero:
      and every per-head shape of the main paths, the fused branch's
      stacked qk_norm also as the strided view of the qkv product that the
      main path hands it (two runs bit-equal); its backward the training
-     step's hidden and per-head shapes of both decoders. The flash
+     step's hidden and per-head shapes of both decoders, with and without
+     dw (two runs bit-equal, dx and dw). The flash
      forward runs five cases (decoder, serving and MoE prefill, encoder,
      training), each on the TMA and wgmma kernel (its route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
@@ -130,9 +134,10 @@ Phases, each printed with its time; any failure exits non-zero:
      over bf16 experts, and every product of the full fine-tune), on the
      int8 TMA kernel (the int8-experts prefill's 96, and every int8 product
      of the QLoRA run), on the fp32 tensor-core kernels (every adapter
-     product of the QLoRA run) and on the split stream (every decode and
-     serving product, bf16 and int8); the generation, serving and QLoRA
-     phases fail on any launch left on grouped_gemm.cu.
+     product and every weight gradient of the QLoRA run) and on the split
+     stream (every decode and serving product, bf16 and int8); the
+     generation, serving and QLoRA phases fail on any launch left on
+     grouped_gemm.cu.
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
@@ -236,7 +241,7 @@ SOURCES = {
     "paged_attention": ("cuda", _PAGED_TMA_CU),
     "paged_attention_int8": ("cuda", _PAGED_TMA_CU),
     "grouped_gemm": ("cuda", _GG_TMA_CU),
-    "grouped_gemm_tgmm": ("cuda", _GG_TMA_CU),
+    "grouped_gemm_tgmm": ("cuda", _GG_TC_CU),
 }
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "rmsnorm_fwd", "rmsnorm_bwd")
@@ -400,6 +405,7 @@ def reset_counts():
     counters()["grouped_gemm"].launches_int8_tma = 0
     counters()["grouped_gemm"].launches_tc = 0
     counters()["grouped_gemm_tgmm"].launches_tma = 0
+    counters()["grouped_gemm_tgmm"].launches_tc = 0
     counters()["int8_matmul"].launches_tma = 0
     counters()["int8_matmul"].launches_gemv = 0
     for name in ("flash_attention_fwd", "flash_attention_dq",
@@ -823,8 +829,10 @@ def parity_rmsnorm(g, results):
         w = (1 + 0.1 * torch.randn((H,), generator=g, device=dev)).to(
             torch.bfloat16)
         dx, dw = rms_norm_bwd(x, w, gr, 1e-6, True)
+        dx_again, dw_again = rms_norm_bwd(x, w, gr, 1e-6, True)
         dx_only, none = rms_norm_bwd(x, w, gr, 1e-6, False)
         rx, rw = rms_norm_bwd_plain(x.float(), w.float(), gr.float(), 1e-6)
+        bit_equal = torch.equal(dx, dx_again) and torch.equal(dw, dw_again)
         torch.cuda.synchronize()
         err = (dx.float() - rx).abs()
         dx_excess = (err - RMS_BWD_REL * rx.abs() - RMS_BWD_ABS).max().item()
@@ -844,13 +852,14 @@ def parity_rmsnorm(g, results):
                                    "fp32")
         log(f"  rmsnorm bwd {name}: max|dx err| {err.max().item():.3e}, "
             f"max(err - 2^-7|ref| - 1e-5) {dx_excess:.3e} (must be <= 0), "
-            f"max|dw err| {dw_err:.3e} (tol {dw_tol:.3e}); kernel "
+            f"max|dw err| {dw_err:.3e} (tol {dw_tol:.3e}), two runs "
+            f"bit-equal: {bit_equal}; kernel "
             f"{ms:.4f} ms ({dx_ms:.4f} ms without dw, {eager:.4f} ms a call "
             f"in an eager loop), plain "
             f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
         if dx_excess > 0 or dw_err > dw_tol or none is not None or \
-                not torch.equal(dx, dx_only) or \
+                not bit_equal or not torch.equal(dx, dx_only) or \
                 not bool(torch.isfinite(dx).all()):
             raise AssertionError(f"rmsnorm bwd {name}: parity miss")
         return {"case": name, "max_abs_err": max(err.max().item(), dw_err),
@@ -1208,23 +1217,22 @@ def routed_group_sizes(g, tokens, hidden, experts, k, empty):
     return counts.to(torch.int32)
 
 
-def grouped_replay_equal(lhs, rhs, gs, kw) -> bool:
-    """Capture one grouped-GEMM launch, change the group sizes in place on
-    the device (the same rows over other experts with one of the old ones
-    empty, then every row in one expert), replay, and compare each replay
-    with an eager call on the new sizes, bit for bit."""
+def grouped_replay_equal(call, gs) -> bool:
+    """Capture one grouped-GEMM launch ``call(gs)``, change the group sizes
+    in place on the device (the same rows over other experts with one of
+    the old ones empty, then every row in one expert), replay, and compare
+    each replay with an eager call on the new sizes, bit for bit."""
     import torch
 
-    from molly_tpu_torch.ops.grouped_gemm import grouped_gemm
     gs = gs.clone()
     side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        grouped_gemm(lhs, rhs, gs, **kw)
+        call(gs)
     side.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        out = grouped_gemm(lhs, rhs, gs, **kw)
+        out = call(gs)
     G, owned = gs.shape[0], gs.sum()
     busiest = int(gs.argmax())
     moved = gs.roll(G // 3)
@@ -1237,7 +1245,7 @@ def grouped_replay_equal(lhs, rhs, gs, kw) -> bool:
         gs.copy_(sizes)
         graph.replay()
         torch.cuda.synchronize()
-        same &= torch.equal(out, grouped_gemm(lhs, rhs, gs, **kw))
+        same &= torch.equal(out, call(gs))
     del graph
     return bool(same)
 
@@ -1253,15 +1261,20 @@ def parity_grouped_gemm(g, results):
     and int8, ``grouped_gemm.cu`` for the rest) and checks two runs
     bit-equal; the split-stream, int8 TMA and fp32 tensor-core cases also
     replay a captured launch after the group sizes change, which must equal
-    an eager call bit for bit. An int8 case prints, as a yardstick only,
-    ``F.grouped_mm`` over the experts dequantized to bf16 beforehand (not
-    the same function, so not its library time); an fp32 case's bound
-    counts its three split products at the TF32 rate, and the SIMT rate's
-    bound is printed beside it."""
+    an eager call bit for bit. Each tgmm case likewise, through the call
+    the autograd backward makes (``_rhs_grad``): the adapters' gradients on
+    ``grouped_gemm_f32_tc.cu``, the bf16 experts' on
+    ``grouped_gemm_tma.cu``, an all-fp32 one on ``grouped_gemm.cu``. An
+    int8 case prints, as a yardstick only, ``F.grouped_mm`` over the
+    experts dequantized to bf16 beforehand (not the same function, so not
+    its library time); an fp32 tensor-core case's bound counts its three
+    split products (at the TF32 rate, or bf16 for the weight gradient's
+    bf16 parts), and the SIMT rate's bound is printed beside it."""
     import torch
     import torch.nn.functional as F
 
-    from molly_tpu_torch.ops.grouped_gemm import (_bounds, grouped_gemm,
+    from molly_tpu_torch.ops.grouped_gemm import (_bounds, _rhs_grad,
+                                                  grouped_gemm,
                                                   grouped_gemm_plain,
                                                   grouped_gemm_tgmm,
                                                   grouped_gemm_tgmm_plain)
@@ -1331,8 +1344,9 @@ def parity_grouped_gemm(g, results):
                                                   out_dtype=out_dt, **kw))
         replay_equal = None
         if source in (_GG_STREAM_CU, _GG_INT8_TMA_CU, _GG_TC_CU):
-            replay_equal = grouped_replay_equal(lhs, rhs, gs,
-                                                dict(out_dtype=out_dt, **kw))
+            replay_equal = grouped_replay_equal(
+                lambda sizes: grouped_gemm(lhs, rhs, sizes, out_dtype=out_dt,
+                                           **kw), gs)
         ref = grouped_gemm_plain(lhs, rhs, gs, bounds=bounds, **kw)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
@@ -1406,37 +1420,60 @@ def parity_grouped_gemm(g, results):
         bounds = _bounds(gs, M)
         lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
         dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
-        tma0 = grouped_gemm_tgmm.launches_tma
-        out = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
-        source = _GG_TMA_CU if grouped_gemm_tgmm.launches_tma > tma0 else _GG_CU
-        again = grouped_gemm_tgmm(lhs, dout, gs, out_dt)
+
+        def call(sizes):
+            """The call the autograd backward makes for this gradient."""
+            return _rhs_grad(lhs, dout, sizes, False, out_dt)
+
+        c = grouped_gemm_tgmm
+        c0 = (c.launches_tma, c.launches_tc)
+        out = call(gs)
+        source = (_GG_TMA_CU if c.launches_tma > c0[0] else
+                  _GG_TC_CU if c.launches_tc > c0[1] else _GG_CU)
+        again = call(gs)
+        replay_equal = (grouped_replay_equal(call, gs)
+                        if source == _GG_TC_CU else None)
         ref = grouped_gemm_tgmm_plain(lhs, dout, gs, torch.float32,
                                       bounds=bounds)
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
-        f32 = lhs_dt == dout_dt == out_dt == torch.float32
+        # an fp32 result of an fp32 operand is an fp32 product (a bf16 lhs
+        # is exact); anything else is a bf16 product
+        f32 = out_dt == torch.float32 and torch.float32 in (lhs_dt, dout_dt)
         tol = (GG_F32_REL if f32 else GG_BF16_REL) * ref.abs().max().item()
         del ref
-        if not torch.equal(out, again):
-            raise AssertionError(f"grouped {name}: two runs differ")
+        if not torch.equal(out, again) or replay_equal is False:
+            raise AssertionError(f"grouped {name}: two runs bit-equal "
+                                 f"{torch.equal(out, again)}, graph replay "
+                                 f"with new group sizes equal {replay_equal}")
         if bool(out[G // 2].any()):
             raise AssertionError(f"grouped {name}: the empty group's "
                                  f"gradient is not zero")
-        ms = time_ms(lambda: grouped_gemm_tgmm(lhs, dout, gs, out_dt), iters)
+        ms = time_ms(lambda: call(gs), iters)
         plain_ms = time_ms(lambda: grouped_gemm_tgmm_plain(
             lhs, dout, gs, torch.float32, bounds=bounds), max(1, iters // 4))
         library_ms = None
         if not f32:
             offs = torch.cumsum(gs, 0).to(torch.int32)
             at, d16 = lhs.to(torch.bfloat16).t(), dout.to(torch.bfloat16)
-            call = library(name, lambda: grouped_mm(at, d16, offs=offs))
-            if call is not None:
-                library_ms = time_ms(call, iters)
-        bound_ms, bound_by = bound(nbytes(lhs, dout, gs, out), 2 * M * K * N,
-                                   "fp32" if f32 else "bf16")
+            call16 = library(name, lambda: grouped_mm(at, d16, offs=offs))
+            if call16 is not None:
+                library_ms = time_ms(call16, iters)
+        io_bytes = nbytes(lhs, dout, gs, out)
+        if source == _GG_TC_CU:  # three split products at the bf16 rate
+            bound_ms, bound_by = bound(io_bytes, 3 * 2 * M * K * N, "bf16")
+            log(f"  grouped {name}: bound at the SIMT fp32 rate "
+                f"(67 TFLOP/s) "
+                f"{bound(io_bytes, 2 * M * K * N, 'fp32')[0]:.4f} ms")
+        else:
+            bound_ms, bound_by = bound(io_bytes, 2 * M * K * N,
+                                       "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
-                      bound_by, f"{M} rows, empty group exact zero, two "
-                      f"runs bit-equal", source)
+                      bound_by, f"{M} rows, largest group {int(gs.max())}, "
+                      f"empty group exact zero, two runs bit-equal"
+                      + ("" if replay_equal is None else
+                         ", graph replay with new group sizes equal"),
+                      source)
 
     i8, f32, b16 = torch.int8, torch.float32, torch.bfloat16
     results["grouped_gemm"] = [
@@ -1516,6 +1553,12 @@ def parity_grouped_gemm(g, results):
             raise AssertionError(f"grouped {name}: ran from "
                                  f"{case['source']}, expected {expected}")
     results["grouped_gemm_tgmm"] = [
+        # the MoE QLoRA step's expert-adapter weight gradients (rank 64), as
+        # its backward makes them: a bf16 lhs (the activations xs, h, or the
+        # rank-64 intermediate) and an fp32 dout into fp32; LoRA A and B of
+        # the gate / up (K, N 2048 / 768) and of the down projection
+        tgmm_case("lora_a_bf16xf32[2048,32768].[32768,64]", 4096, 2048, 64,
+                  4, out_dt=f32),
         tgmm_case("train_bf16xf32[2048,32768].[32768,768]->[128,2048,768]",
                   4096, 2048, 768, 4),
         tgmm_case("train_down_bf16xf32[768,32768].[32768,2048]", 4096, 768,
@@ -1524,18 +1567,22 @@ def parity_grouped_gemm(g, results):
                   4096, 2048, 768, 4, dout_dt=b16),
         tgmm_case("train_down_bf16xbf16[768,32768].[32768,2048]", 4096, 768,
                   2048, 4, dout_dt=b16),
-        tgmm_case("lora_a_fp32[2048,32768].[32768,64]", 4096, 2048, 64, 4,
-                  lhs_dt=f32, out_dt=f32),
         tgmm_case("small_fp32[64,300].[300,128]->[4,64,128]", 150, 64, 128,
                   20, lhs_dt=f32, out_dt=f32, G=4, k=2),
-        # the other three expert-adapter weight gradients of the QLoRA step
-        tgmm_case("lora_a_down_fp32[768,32768].[32768,64]", 4096, 768, 64, 4,
-                  lhs_dt=f32, out_dt=f32),
-        tgmm_case("lora_b_fp32[64,32768].[32768,768]", 4096, 64, 768, 4,
-                  lhs_dt=f32, out_dt=f32),
-        tgmm_case("lora_b_down_fp32[64,32768].[32768,2048]", 4096, 64, 2048,
-                  4, lhs_dt=f32, out_dt=f32),
+        tgmm_case("lora_a_down_bf16xf32[768,32768].[32768,64]", 4096, 768,
+                  64, 4, out_dt=f32),
+        tgmm_case("lora_b_bf16xf32[64,32768].[32768,768]", 4096, 64, 768, 4,
+                  out_dt=f32),
+        tgmm_case("lora_b_down_bf16xf32[64,32768].[32768,2048]", 4096, 64,
+                  2048, 4, out_dt=f32),
     ]
+    for case in results["grouped_gemm_tgmm"]:
+        name = case["case"]
+        expected = (_GG_TC_CU if name.startswith("lora_") else
+                    _GG_CU if name.startswith("small_") else _GG_TMA_CU)
+        if case["source"] != expected:
+            raise AssertionError(f"grouped {name}: ran from "
+                                 f"{case['source']}, expected {expected}")
 
 
 # ---------------------------------------------------------------------------
@@ -2178,7 +2225,9 @@ def drive_moe_paths(seed: int, launches, inp):
             f"the fp32 tensor-core kernels, {grouped_off_route()} on "
             f"grouped_gemm.cu), tgmm "
             f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
-            f"and wgmma kernel)")
+            f"and wgmma kernel, "
+            f"{counters()['grouped_gemm_tgmm'].launches_tc} on the fp32 "
+            f"tensor-core kernel)")
 
     gen_kernels = ("grouped_gemm", "flash_attention_fwd", "rmsnorm_fwd")
     cfg = config(MOE_LAYERS, 1024)
@@ -2311,6 +2360,17 @@ def drive_moe_paths(seed: int, launches, inp):
                                  f"TMA or fp32 tensor-core kernels "
                                  f"({grouped_off_route()} on "
                                  f"grouped_gemm.cu)")
+        # every weight gradient is an fp32 adapter's (the int8 base is
+        # frozen): all on the tensor-core kernel, none on grouped_gemm.cu
+        t = counters()["grouped_gemm_tgmm"]
+        log(f"  {label}: {t.launches} tgmm launches, {t.launches_tc} on the "
+            f"fp32 tensor-core kernel, "
+            f"{t.launches - t.launches_tc - t.launches_tma} left on "
+            f"grouped_gemm.cu")
+        if t.launches <= 0 or t.launches_tc != t.launches:
+            raise AssertionError(f"{label}: a tgmm missed the fp32 "
+                                 f"tensor-core kernel ({t.launches_tc} of "
+                                 f"{t.launches})")
     del state, qparams
     release()
 

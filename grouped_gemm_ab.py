@@ -9,10 +9,17 @@ tree of this script), so that two trees compare in one call:
   - ``grouped``: the grouped GEMM's products over int8 experts and fp32
     expert adapters at the MoE shapes of qwen3-30b-a3b width (128 experts,
     top-8, hidden 2048, expert width 768, LoRA rank 64);
-  - ``tgmm``: the fp32 weight gradients of the four expert adapters;
+  - ``tgmm``: the fp32 weight gradients of the four expert adapters, from
+    a bf16 lhs and an fp32 ``dout`` through the call the tree's autograd
+    backward makes (a tree that widened the lhs to fp32 first pays that
+    pass here too); ``tgmm_plans`` adds the tensor-core kernel's time at
+    each of its tiles (trees that have it);
   - ``rmsnorm``: the RMSNorm forward at every shape of the main paths (the
     fused branch's stacked qk_norm also as the strided view of the qkv
-    product it is handed) and its backward at the training shapes;
+    product it is handed) and its backward at the training shapes, with
+    and without dw, beside ``F.rms_norm``'s autograd backward;
+    ``rmsnorm_bwd_plans`` adds the backward's time at each setting of its
+    plan's knobs (trees that have ``rmsnorm_bwd_plan``);
   - ``int8``: the int8 weight-only GEMM at every decode shape of the main
     paths (M = 4) and at the prefill and QLoRA shapes;
   - ``gemv_splits``: the int8 weight stream (``csrc/int8_matmul_stream.cu``)
@@ -68,7 +75,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--sections", default="grouped,tgmm,rmsnorm,int8",
                     help="comma-separated: grouped, tgmm, rmsnorm, int8, "
-                         "gemv_splits")
+                         "gemv_splits, tgmm_plans, rmsnorm_bwd_plans")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     import torch
@@ -179,28 +186,59 @@ def main() -> int:
         print(json.dumps({**fields, "root": os.path.abspath(args.root)}),
               flush=True)
 
+    def rhs_grad(lhs16, dout, gs):
+        """The tree's autograd backward for an fp32 adapter's gradient: a
+        tree without ``_rhs_grad`` widened the bf16 lhs to fp32 first."""
+        if hasattr(gg, "_rhs_grad"):
+            return gg._rhs_grad(lhs16, dout, gs, False, f32)
+        return gg.grouped_gemm_tgmm(lhs16.to(f32), dout, gs, f32)
+
     def tgmm(name, K, N):
-        """An fp32 adapter's weight gradient [G, K, N] from an fp32 lhs
-        [M, K] and dout [M, N] (the QLoRA step's LoRA A and B)."""
+        """An fp32 adapter's weight gradient [G, K, N] from a bf16 lhs
+        [M, K] and an fp32 dout [M, N] (the QLoRA step's LoRA A and B), as
+        the tree's backward computes it. Bound: bytes with the bf16 lhs and
+        three split bf16 products; the SIMT bound beside it."""
         M = TOKENS["train"] * TOPK
         gs = cs.routed_group_sizes(g, TOKENS["train"], H, E, TOPK,
                                    empty=E // 2)
-        lhs = torch.randn((M, K), generator=g, device=dev)
+        lhs = torch.randn((M, K), generator=g, device=dev).to(b16)
         dout = torch.randn((M, N), generator=g, device=dev)
-        call = lambda: gg.grouped_gemm_tgmm(  # noqa: E731
-            lhs, dout, gs, f32)
+        call = lambda: rhs_grad(lhs, dout, gs)  # noqa: E731
+        c = gg.grouped_gemm_tgmm
+        tc0 = getattr(c, "launches_tc", 0)
         out = call()
+        src = ("grouped_gemm_f32_tc.cu" if getattr(c, "launches_tc", 0) > tc0
+               else "grouped_gemm.cu")
+        bit_equal = torch.equal(out, call())
         want = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, f32,
                                           bounds=gg._bounds(gs, M))
         err = (out - want).abs().max().item()
         tol = cs.GG_F32_REL * want.abs().max().item()
         del want, out
-        bound_ms, by = cs.bound(cs.nbytes(lhs, dout, gs) + 4 * E * K * N,
-                                2 * M * K * N, "fp32")
-        emit(case=name, ms=cs.time_ms(call, args.iters), max_abs_err=err,
-             tol=tol, bound_ms=bound_ms, bound_by=by)
-        if not err <= tol:
+        nb = cs.nbytes(lhs, dout, gs) + 4 * E * K * N
+        bound_ms, by = cs.bound(nb, 3 * 2 * M * K * N, "bf16")
+        emit(case=name, ms=cs.time_ms(call, args.iters), source=src,
+             bit_equal=bit_equal, max_abs_err=err, tol=tol,
+             bound_ms=bound_ms, bound_by=by,
+             simt_bound_ms=cs.bound(nb, 2 * M * K * N, "fp32")[0],
+             largest_group=int(gs.max()))
+        if not err <= tol or not bit_equal:
             raise AssertionError(f"{name}: parity miss, {err} > {tol}")
+        if "tgmm_plans" in sections and hasattr(gg, "tgmm_tc_plan"):
+            # the tensor-core kernel at each of its tiles, beside the one
+            # ``tgmm_tc_plan`` picks
+            lib, res = gg._lib_tc(), torch.empty_like(c(lhs, dout, gs, f32))
+            ms = {}
+            for plan in range(2):
+                ms[plan] = cs.time_ms(
+                    lambda: _cuda_build.check(  # noqa: B023
+                        lib, lib.molly_grouped_gemm_tgmm_f32_tc(
+                            lhs.data_ptr(), dout.data_ptr(), res.data_ptr(),
+                            gs.data_ptr(), M, K, N, E, plan,  # noqa: B023
+                            torch.cuda.current_stream().cuda_stream),
+                        "tgmm tc"), args.iters)
+            emit(case=f"{name} by plan", plan=gg.tgmm_tc_plan(K, N),
+                 ms_by_plan=ms)
 
     def norm(name, shape, w_shape, qkv_width=None, iters=20):
         """The RMSNorm forward over bf16 rows (with ``qkv_width``, the view
@@ -228,7 +266,8 @@ def main() -> int:
             raise AssertionError(f"{name}: parity miss")
 
     def norm_bwd(name, shape, iters=20):
-        """The RMSNorm backward (dx and dw) of bf16 rows, 1-D weight."""
+        """The RMSNorm backward of bf16 rows, 1-D weight: with dw, without
+        (a frozen norm), and ``F.rms_norm``'s autograd backward."""
         x = torch.randn(shape, generator=g, device=dev).to(b16)
         gr = torch.randn(shape, generator=g, device=dev).to(b16)
         w = (1 + 0.1 * torch.randn((shape[-1],), generator=g,
@@ -236,10 +275,60 @@ def main() -> int:
         call = lambda: rmsnorm_triton.rms_norm_bwd(  # noqa: E731
             x, w, gr, 1e-6, True)
         dx, dw = call()
+        dx2, dw2 = call()
+        bit_equal = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        library_ms = cs.time_ms(
+            lambda yl: torch.autograd.grad(yl, (xl, wl), gr,
+                                           retain_graph=True),
+            iters, setup=lambda: torch.nn.functional.rms_norm(
+                xl, (shape[-1],), wl, 1e-6))
         bound_ms, by = cs.bound(cs.nbytes(x, gr, w, dx, dw), 12 * x.numel(),
                                 "fp32")
-        emit(case=name, ms=cs.time_ms(call, iters), bound_ms=bound_ms,
-             bound_by=by)
+        emit(case=name, ms=cs.time_ms(call, iters),
+             ms_without_dw=cs.time_ms(lambda: rmsnorm_triton.rms_norm_bwd(
+                 x, w, gr, 1e-6, False), iters), bit_equal=bit_equal,
+             bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+        if "rmsnorm_bwd_plans" in sections and hasattr(
+                rmsnorm_triton, "rmsnorm_bwd_plan"):
+            # the plan's knobs: programs an SM, stages in flight, tile
+            # size; [with dw, without]
+            m = rmsnorm_triton
+            saved = dict(m._BWD_PLAN)
+            ms = {}
+            try:
+                for per_sm in (1, 2, 4):
+                    for stages in (1, 2, 3):
+                        for tile in (4096, 8192):
+                            m._BWD_PLAN = dict.fromkeys(
+                                (True, False), (per_sm, stages, tile))
+                            ms[f"{per_sm}/{stages}/{tile}"] = [
+                                cs.time_ms(call, iters), cs.time_ms(
+                                    lambda: m.rms_norm_bwd(
+                                        x, w, gr, 1e-6, False), iters)]
+            finally:
+                m._BWD_PLAN = saved
+            emit(case=f"{name} by programs an SM/stages/tile", ms_by=ms)
+            # the two kernels of the dw path apart, at the plan
+            H = shape[-1]
+            x2, g2 = x.reshape(-1, H), gr.reshape(-1, H)
+            rows, tiles, programs, warps, stages = m.rmsnorm_bwd_plan(
+                x2.shape[0], H, _cuda_build.sm_count(0))
+            dwp = torch.empty((programs, H), dtype=f32, device=dev)
+            dx_, dw_ = torch.empty_like(x2), torch.empty_like(w)
+            prows = m._next_pow2(programs)
+            cols = max(16, m._DW_TILE // prows)
+            main_ms = cs.time_ms(lambda: m._BWD_KERNEL[(programs,)](
+                x2, w, g2, dx_, dwp, x2.shape[0], H, tiles, x2.stride(0),
+                g2.stride(0), dx_.stride(0), 1e-6, BLOCK=m._next_pow2(H),
+                ROWS=rows, NEED_DW=True, STAGES=stages,
+                num_warps=warps), iters)
+            finish_ms = cs.time_ms(lambda: m._DW_KERNEL[(-(-H // cols),)](
+                dwp, dw_, programs, H, COLS=cols, ROWS=prows, num_warps=4),
+                iters)
+            emit(case=f"{name} apart", main_with_partials_ms=main_ms,
+                 finish_ms=finish_ms, programs=programs)
 
     def int8(name, M, K, N, iters=20):
         """The int8 GEMM over bf16 x, as the main path calls it."""

@@ -3,20 +3,24 @@
 // accuracy by splitting operands.
 //
 // Replaces: megablox `gmm` (launched from molly_tpu/ops/moe.py:_grouped_dot,
-// which _lora_grouped calls with an fp32 adapter stack) and `gmm` with
-// transpose_rhs in its VJP, for the calls that
-// ops/grouped_gemm.py:f32_takes_tc names (at least 64 rows a group, aligned
-// shapes). grouped_gemm.cu keeps fp32 products at few rows a group, the
-// forward over an fp32 lhs, and tgmm.
+// which _lora_grouped calls with an fp32 adapter stack), `gmm` with
+// transpose_rhs in its VJP, and `tgmm` (megablox/gmm.py, reached through
+// gmm's VJP: the adapters' weight gradients), for the calls that
+// ops/grouped_gemm.py:f32_takes_tc and tgmm_takes_tc name (at least 64 rows
+// a group, aligned shapes). grouped_gemm.cu keeps fp32 products at few rows
+// a group, the forward over an fp32 lhs, and an all-fp32 tgmm.
 //   forward  out[r, :] = lhs[r, :] @ w[g(r)]      lhs [M, K] bf16 (widened
 //            exactly), w [G, K, N] fp32, out [M, N] fp32
 //   TRANS    out[r, :] = lhs[r, :] @ w[g(r)]^T    lhs [M, K] fp32,
 //            w [G, N, K] fp32, out [M, N] fp32 or bf16 (rounded once)
-// Rows past the last group are written as zeros; an empty group owns no
-// tile and reads no weights. Tiles are aligned to groups as in
-// grouped_gemm_int8_tma.cu (grouped_tiles.cuh), persistent blocks walk them
-// group-major, a producer thread keeps 4 stages in flight by TMA across
-// tile boundaries, two consumer warpgroups multiply.
+//   tgmm     out[g] = lhs[rows_g]^T @ dout[rows_g]  lhs [M, K] bf16 (the
+//            adapters' activations, exact), dout [M, N] fp32, out [G, K, N]
+//            fp32
+// Forward and TRANS: rows past the last group are written as zeros; an
+// empty group owns no tile and reads no weights. Tiles are aligned to
+// groups as in grouped_gemm_int8_tma.cu (grouped_tiles.cuh), persistent
+// blocks walk them group-major, a producer thread keeps 4 stages in flight
+// by TMA across tile boundaries, two consumer warpgroups multiply.
 //
 // What bounds them: bytes. With the adapters' rank (64) on one side every
 // MoE QLoRA shape is below the card's operations-per-byte ridge once the
@@ -35,6 +39,8 @@
 //     hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is exact in
 //     fp32), the same for w, and three TF32 wgmmas, hi hi + hi lo + lo hi
 //     (the lo lo term is below 2^-22 of the product).
+//   tgmm: the lhs is bf16 and exact; dout is split into three bf16 parts as
+//     the forward's weights are, and the product is three bf16 wgmmas.
 // An lhs that came from bf16 has lo = 0; the forward takes such an lhs as
 // bf16 and needs no lhs split; the lhs gradients arrive in fp32 and take
 // all three TF32 products.
@@ -56,9 +62,28 @@
 //     consumers split each stage's tile in place (hi) and into a second
 //     buffer (lo) before its products, while the previous stage's products
 //     run.
-// One block a tile, k in order, no atomics: two runs give the same bits.
-// The tensor maps are encoded at each launch and nothing is allocated, so
-// a captured graph replays with new group sizes.
+//   tgmm: the contraction runs over a group's rows, the outermost axis of
+//     both operands, so both are MN-major, and TF32 cannot read that from
+//     shared memory: hence bf16 parts. out^T = dout^T lhs: the fp32 dout
+//     tile is the register A operand (64 dout columns a warpgroup on
+//     wgmma's m), loaded and split by each thread exactly as the forward's
+//     weight tile; the lhs rows are the bf16 B operand, MN-major as TMA
+//     brings them. A tile is one group's rows against 256 lhs columns and
+//     all 64 columns of a rank-64 dout (the A gradients), or 64 lhs
+//     columns of a rank-64 lhs against 128 dout columns (the B
+//     gradients), so every lhs row tile is streamed once. The last stage of
+//     a group reaches into the next group's rows: each thread zeroes those
+//     rows of its dout fragments, and each warpgroup those rows of its lhs
+//     boxes, so they add exactly nothing. An empty group's tiles write the
+//     zeros the accumulators start with. Random routers are uneven (a group
+//     may hold several times the mean), so every block orders the groups by
+//     size, largest first, and the persistent grid takes the tiles in that
+//     order, every other round backwards: each block's rounds pair a long
+//     tile with a short one.
+// One block a tile, k (tgmm: rows) in order, no atomics: two runs give the
+// same bits. The tensor maps are encoded at each launch, the group sizes
+// are read on the device only, and nothing is allocated, so a captured
+// graph replays with new group sizes.
 
 #include "common.cuh"
 #include "grouped_tiles.cuh"
@@ -539,6 +564,251 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Weight gradient: bf16 lhs, fp32 dout, three bf16 products
+// ---------------------------------------------------------------------------
+
+// A tile of out[g] is CK lhs columns (out's rows k) by CN dout columns
+// (out's columns n), computed as out^T = dout^T lhs: dout^T is the register
+// A operand (n on wgmma's m, one m64 tile a warpgroup), the lhs rows the
+// bf16 B operand (k on wgmma's n, NB a warpgroup), both over the group's
+// rows. WM = 1: the two warpgroups take NB lhs columns each of the same 64
+// dout columns (CN 64, CK 2 NB: the LoRA A gradients, N = 64; NB = 128,
+// as 128-column tiles measured 10-25% slower); WM = 2: 64 dout columns
+// each of the same NB lhs columns (CN 128, CK NB: the LoRA B gradients,
+// K = 64).
+template <int NB, int WM>
+struct Tg {
+  static constexpr int CN = 64 * WM;
+  static constexpr int CK = NB * (3 - WM);
+  static constexpr int D_BOXES = CN / 32;  // 64 rows x 32 fp32 each
+  static constexpr int X_BOXES = CK / 64;  // 64 rows x 64 bf16 each
+  static constexpr int D_BYTES = D_BOXES * BOX;
+  static constexpr int STAGE_BYTES = (D_BOXES + X_BOXES) * BOX;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+};
+
+// s_order lists the G groups by size, largest first (ties by index), from
+// the row starts of scan_group_tiles, so that the grid starts on the
+// longest tiles. Ends with __syncthreads().
+__device__ __forceinline__ void order_by_size(const int* s_row, int G,
+                                              int* s_order) {
+  for (int g = threadIdx.x; g < G; g += THREADS) {
+    const int sz = s_row[g + 1] - s_row[g];
+    int rank = 0;
+    for (int h = 0; h < G; ++h) {
+      const int o = s_row[h + 1] - s_row[h];
+      rank += o > sz || (o == sz && h < g);
+    }
+    s_order[rank] = g;
+  }
+  __syncthreads();
+}
+
+template <int NB, int WM>
+__global__ void __launch_bounds__(THREADS, 1)
+    tc_tgmm_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_d,
+                   float* __restrict__ out,
+                   const int* __restrict__ group_sizes, int G, int M, int K,
+                   int N) {
+  using P = Tg<NB, WM>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_row[MAX_GROUPS + 2], s_tile[MAX_GROUPS + 2];
+  __shared__ int s_order[MAX_GROUPS];
+  __shared__ __align__(8) uint64_t s_full[STAGES], s_empty[STAGES];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // group g owns rows [s_row[g], s_row[g + 1]) (s_tile is not used)
+  molly::scan_group_tiles<64, THREADS>(group_sizes, G, M, s_row, s_tile);
+  order_by_size(s_row, G, s_order);
+  init_barriers(s_full, s_empty);
+  __syncthreads();
+
+  const int n_cb = (N + P::CN - 1) / P::CN, n_kb = (K + P::CK - 1) / P::CK;
+  const int per_group = n_cb * n_kb;
+  const int total = G * per_group;
+  // the block's i-th tile: rounds of gridDim.x tiles in the groups' size
+  // order, every other round walked backwards, so that a block that took
+  // one of the largest tiles in a round takes one of the smallest in the
+  // next
+  auto tile_of = [&](int i) {
+    const int pos = (i & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    return i * (int)gridDim.x + pos;
+  };
+  // tile -> group, first dout column, first lhs column
+  auto locate = [&](int tile, int* c0, int* k0) {
+    const int rem = tile % per_group;
+    *c0 = (rem / n_kb) * P::CN;
+    *k0 = (rem % n_kb) * P::CK;
+    return s_order[tile / per_group];
+  };
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      Ring r;
+      for (int i = 0;; ++i) {
+        const int tile = tile_of(i);
+        if (tile >= total) break;
+        int c0, k0;
+        const int grp = locate(tile, &c0, &k0);
+        // boxes wholly past N or K are not loaded: they feed only outputs
+        // that are not stored
+        const int nd = min(P::D_BOXES, (N - c0 + 31) / 32);
+        const int nx = min(P::X_BOXES, (K - k0 + 63) / 64);
+        for (int row = s_row[grp]; row < s_row[grp + 1]; row += 64) {
+          mbar_wait(&s_empty[r.stage], r.phase ^ 1);
+          uint64_t* bar = &s_full[r.stage];
+          mbar_expect_tx(bar, (nd + nx) * BOX);
+          unsigned char* st = ring + r.stage * P::STAGE_BYTES;
+          for (int q = 0; q < nd; ++q)  // 64 rows x 32 dout columns
+            tma_load_2d(st + q * BOX, &map_d, bar, c0 + 32 * q, row);
+          for (int q = 0; q < nx; ++q)  // 64 rows x 64 lhs columns
+            tma_load_2d(st + P::D_BYTES + q * BOX, &map_x, bar, k0 + 64 * q,
+                        row);
+          r.advance();
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t ring_u32 = smem_u32(ring);
+  // this warpgroup's dout columns [cw, cw + 64) and lhs columns
+  // [kw, kw + NB) of the tile
+  const int cw = WM == 2 ? 64 * wg : 0;
+  const int kw = WM == 2 ? 0 : NB * wg;
+  // this thread's dout columns cw + 2 (8 warp + g), + 1 (its A rows 16 warp
+  // + g and + 8): half g & 1 of chunk 4 (warp & 1) + g / 2 of box
+  // cw / 32 + warp / 2
+  const int box = cw / 32 + (warp >> 1);
+  const int chunk = 4 * (warp & 1) + (g >> 1);
+  const int half = 8 * (g & 1);
+  auto d_at = [&](int stage, int row) {
+    return ring + stage * P::STAGE_BYTES + box * BOX + row * 128 +
+           ((chunk ^ (row & 7)) << 4) + half;
+  };
+  using Frag = uint32_t[3][4];  // [part]: the A fragments of one k16 step
+  // the A fragments of k16 step ks: dout rows 16 ks + 2t, + 1, + 8, + 9 at
+  // this thread's two columns, rows at or past `valid` taken as zero
+  auto convert = [&](Frag& a, int stage, int ks, int valid) {
+    const int k = 16 * ks + 2 * t;
+    float2 v0 = *reinterpret_cast<const float2*>(d_at(stage, k));
+    float2 v1 = *reinterpret_cast<const float2*>(d_at(stage, k + 1));
+    float2 v8 = *reinterpret_cast<const float2*>(d_at(stage, k + 8));
+    float2 v9 = *reinterpret_cast<const float2*>(d_at(stage, k + 9));
+    if (valid < 64) {  // rows of the next group, or that no group owns
+      const float2 z = make_float2(0.f, 0.f);
+      if (k >= valid) v0 = z;
+      if (k + 1 >= valid) v1 = z;
+      if (k + 8 >= valid) v8 = z;
+      if (k + 9 >= valid) v9 = z;
+    }
+    split3(v0.x, v1.x, a[0][0], a[1][0], a[2][0]);
+    split3(v0.y, v1.y, a[0][1], a[1][1], a[2][1]);
+    split3(v8.x, v9.x, a[0][2], a[1][2], a[2][2]);
+    split3(v8.y, v9.y, a[0][3], a[1][3], a[2][3]);
+  };
+  // the lhs rows at or past `valid` of this warpgroup's boxes of the stage
+  // are zeroed too (an Inf or NaN there would survive a zero dout); with
+  // WM = 2 both warpgroups write the same zeros into the one box
+  auto clear_lhs = [&](int stage, int valid) {
+    uint4* x = reinterpret_cast<uint4*>(ring + stage * P::STAGE_BYTES +
+                                        P::D_BYTES + (kw / 64) * BOX);
+#pragma unroll
+    for (int q = 0; q < NB / 64; ++q)
+      for (int c = valid * 8 + tid; c < 64 * 8; c += 128)
+        x[q * (BOX / 16) + c] = make_uint4(0u, 0u, 0u, 0u);
+    fence_async_shared();
+    warpgroup_sync(wg);
+  };
+  float acc[NB / 2];
+  auto products = [&](Frag& a, int stage, int ks) {
+    // this warpgroup's lhs columns, MN-major: 16 rows further is +2048
+    // bytes, the next 64 columns the next box
+    const uint64_t desc = smem_desc(ring_u32 + stage * P::STAGE_BYTES +
+                                        P::D_BYTES + (kw / 64) * BOX +
+                                        ks * 2048,
+                                    BOX);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if constexpr (NB == 128)
+        wgmma_m64n128k16_rs<1>(acc, a[p], desc);
+      else
+        wgmma_m64n64k16_rs<1>(acc, a[p], desc);
+    }
+    wgmma_commit();
+  };
+  Ring r;
+  int n_steps = 0, b = 0, end = 0;
+  // rows of the group in the stage of k16 step s
+  auto valid_of = [&](int s) { return end - b - 64 * (s >> 2); };
+  // k16 step s of the tile with `cur`; meanwhile step s + 1 (if any) is
+  // converted into `nxt` (its stage waited for, and cleared if ragged); the
+  // stage is released after its last step
+  auto step = [&](Frag& cur, Frag& nxt, int s) {
+    products(cur, r.stage, s & 3);
+    Ring n = r;
+    if ((s & 3) == 3) n.advance();
+    if (s + 1 < n_steps) {
+      if ((s & 3) == 3) {
+        mbar_wait(&s_full[n.stage], n.phase);
+        if (valid_of(s + 1) < 64) clear_lhs(n.stage, valid_of(s + 1));
+      }
+      convert(nxt, n.stage, (s + 1) & 3, valid_of(s + 1));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_regs(cur);
+    if ((s & 3) == 3 && lane == 0) mbar_arrive(&s_empty[r.stage]);
+    r = n;
+  };
+  Frag f0, f1;
+  for (int i = 0;; ++i) {
+    const int tile = tile_of(i);
+    if (tile >= total) break;
+    int c0, k0;
+    const int grp = locate(tile, &c0, &k0);
+    b = s_row[grp];
+    end = s_row[grp + 1];
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j) acc[j] = 0.f;
+    n_steps = 4 * ((end - b + 63) / 64);
+    if (n_steps) {
+      mbar_wait(&s_full[r.stage], r.phase);
+      if (valid_of(0) < 64) clear_lhs(r.stage, valid_of(0));
+      convert(f0, r.stage, 0, valid_of(0));
+      for (int s = 0; s < n_steps; s += 2) {
+        step(f0, f1, s);
+        step(f1, f0, s + 1);
+      }
+    }
+    // out^T row 16 warp + g is dout column c, row + 8 is c + 1;
+    // accumulator 4j + e (+ 2) is lhs column k + e: out[k + e][c (+ 1)]
+    const int c = c0 + cw + 2 * (8 * warp + g);
+    if (c < N) {  // N % 8 == 0: a thread's two columns lie in or out together
+      float* o = out + (long long)grp * K * N + c;
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + kw + 8 * j + 2 * t + e;
+          if (k < K)
+            *reinterpret_cast<float2*>(o + (long long)k * N) =
+                make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------------
 
@@ -618,4 +888,39 @@ extern "C" int molly_grouped_gemm_f32_tc(const void* lhs, const float* w,
   kernel<<<(int)(tiles < sms ? tiles : sms), THREADS, smem, s>>>(
       map_x, map_w, out, out_f32, group_sizes, G, M, K, N);
   return cudaGetLastError();
+}
+
+// The weight gradient out[g] = lhs[rows_g]^T dout[rows_g]: lhs [M, K] bf16,
+// dout [M, N] fp32, out [G, K, N] fp32, K and N multiples of 8, all
+// contiguous and 16-byte aligned. `plan` (ops/grouped_gemm.py:tgmm_tc_plan)
+// picks the tile: 0: 256 lhs x 64 dout columns, 1: 64 x 128.
+extern "C" int molly_grouped_gemm_tgmm_f32_tc(const void* lhs,
+                                              const float* dout, float* out,
+                                              const int* group_sizes, int M,
+                                              int K, int N, int G, int plan,
+                                              void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || G > MAX_GROUPS || K % 8 ||
+      N % 8 || plan < 0 || plan > 1 || !aligned16(lhs) || !aligned16(dout) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap map_x, map_d;
+  if (!make_map(&map_x, lhs, 2, M, K, 64, 64) ||
+      !make_map(&map_d, dout, 4, M, N, 64, 32))
+    return cudaErrorInvalidValue;
+  const int sms = current_sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  auto launch = [&](auto kernel, auto shape) -> int {
+    using P = decltype(shape);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    const long long tiles = (long long)G * ((N + P::CN - 1) / P::CN) *
+                            ((K + P::CK - 1) / P::CK);
+    kernel<<<(int)(tiles < sms ? tiles : sms), THREADS, P::SMEM_BYTES,
+             static_cast<cudaStream_t>(stream)>>>(map_x, map_d, out,
+                                                  group_sizes, G, M, K, N);
+    return cudaGetLastError();
+  };
+  if (plan == 0) return launch(tc_tgmm_kernel<128, 1>, Tg<128, 1>{});
+  return launch(tc_tgmm_kernel<64, 2>, Tg<64, 2>{});
 }

@@ -25,14 +25,17 @@ An int8 rhs (``ops.moe.quantize_experts``) is converted tile by tile inside
 the kernel; its per-(group, column) ``scale`` multiplies the fp32
 accumulator once at the end (the scale factors out of the contraction).
 A bf16 lhs over an fp32 rhs (the expert adapters on a bf16 stream) is an
-fp32 product: the lhs is widened exactly.
+fp32 product: the lhs is widened exactly, and so is the bf16 lhs of its
+weight gradient (inside the kernels, never as an fp32 copy on the main
+path).
 
 Five sources hold the kernels. ``takes_tma`` / ``int8_takes_tma`` /
-``f32_takes_tc`` / ``takes_stream`` / ``tgmm_takes_tma`` say which one a
-call goes to: at least 64 rows a group, bf16 experts run on the TMA and
-wgmma kernels, int8 experts on the int8 TMA kernel (the tile converted in
-registers), the fp32 adapters on the tensor cores at fp32 accuracy (split
-operands); a bf16 lhs over bf16 or int8 experts with few rows a group
+``f32_takes_tc`` / ``takes_stream`` / ``tgmm_takes_tc`` / ``tgmm_takes_tma``
+say which one a call goes to: at least 64 rows a group, bf16 experts run
+on the TMA and wgmma kernels, int8 experts on the int8 TMA kernel (the
+tile converted in registers), the fp32 adapters (forward, lhs and weight
+gradients) on the tensor cores at fp32 accuracy (split operands); a bf16
+lhs over bf16 or int8 experts with few rows a group
 (decode, the serving tick) on the split weight stream (its grid from
 ``stream_plan``); everything else (transposed products with few rows, fp32
 products the rules exclude, unaligned shapes) on the ``mma.sync`` and SIMT
@@ -48,8 +51,9 @@ raises. ``grouped_gemm.launches`` / ``grouped_gemm_tgmm.launches`` count
 kernel launches (``grouped_gemm.launches_int8``: those over an int8 rhs;
 ``.launches_tma`` on either: those that went to the bf16 TMA and wgmma
 kernels; ``grouped_gemm.launches_int8_tma``: those on the int8 TMA kernel;
-``grouped_gemm.launches_tc``: those on the fp32 tensor-core kernels;
-``grouped_gemm.launches_stream``: those on the split weight stream).
+``grouped_gemm.launches_tc`` / ``grouped_gemm_tgmm.launches_tc``: those
+on the fp32 tensor-core kernels; ``grouped_gemm.launches_stream``: those
+on the split weight stream).
 """
 
 from __future__ import annotations
@@ -162,13 +166,39 @@ def stream_plan(M: int, K: int, N: int, G: int, sm_count: int,
     return slots, tiles, -(-stages // per), per
 
 
+def tgmm_takes_tc(M: int, K: int, N: int, G: int, dtypes,
+                  aligned: bool = True) -> bool:
+    """Does this weight gradient go to the tensor-core kernel of
+    ``csrc/grouped_gemm_f32_tc.cu``, held at fp32 accuracy? The expert
+    adapters' gradient: a bf16 lhs (exact), an fp32 dout and an fp32 result
+    (``dtypes``: lhs, dout, out), at least 64 rows a group on average, K and
+    N multiples of 8, contiguous operands on 16-byte aligned bases. Asked
+    before ``tgmm_takes_tma``."""
+    return (tuple(dtypes) == (torch.bfloat16, torch.float32, torch.float32)
+            and M >= 64 * G and K % 8 == 0 and N % 8 == 0 and aligned)
+
+
+def tgmm_tc_plan(K: int, N: int) -> int:
+    """The tile of the tensor-core weight gradient (the ``plan`` of
+    ``molly_grouped_gemm_tgmm_f32_tc``): a rank-64 dout (the A gradients)
+    takes all 64 of its columns against 256 lhs columns (0); a wider dout
+    (the B gradients, a rank-64 lhs) 128 of its columns against 64 lhs
+    columns (1)."""
+    return 0 if N <= 64 else 1
+
+
 def tgmm_takes_tma(M: int, K: int, N: int, dtypes, aligned: bool = True
                    ) -> bool:
-    """Does this weight gradient go to the TMA and wgmma kernel? Anything
-    but an all-fp32 product (``dtypes``: lhs, dout, out) runs in bf16 and
-    does, given rows of 16 bytes on both operands and aligned bases."""
-    return (any(d == torch.bfloat16 for d in dtypes) and M > 0
-            and K % 8 == 0 and N % 8 == 0 and aligned)
+    """Does this weight gradient go to the TMA and wgmma kernel? A bf16
+    product (``dtypes``: lhs, dout, out): a bf16 result, or bf16 operands
+    into fp32; given rows of 16 bytes on both operands and aligned bases.
+    The kernel rounds an fp32 operand to bf16, so an fp32 result of an fp32
+    operand (an fp32 product, such as the adapters') never comes here."""
+    lhs_dt, dout_dt, out_dt = dtypes
+    bf16_product = out_dt == torch.bfloat16 or (
+        lhs_dt == dout_dt == torch.bfloat16)
+    return (bf16_product and M > 0 and K % 8 == 0 and N % 8 == 0
+            and aligned)
 
 
 def _aligned(*tensors) -> bool:
@@ -365,8 +395,12 @@ def grouped_gemm_tgmm(lhs: torch.Tensor, dout: torch.Tensor,
                       group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
     """out[g] = lhs[rows_g]^T @ dout[rows_g]: [M, K], [M, N] -> [G, K, N]
     in ``out_dtype``, fp32 accumulation, zeros for an empty group. One block
-    per (group, K tile, N tile) walks the group's rows, so there are no
-    atomics and the bits are the same on every run."""
+    a tile walks its group's rows in order, so there are no atomics and the
+    bits are the same on every run. A bf16 lhs with an fp32 dout into fp32
+    (the expert adapters) runs on the tensor cores at fp32 accuracy; an
+    fp32 product that rule leaves out runs on the SIMT kernel over operands
+    widened exactly; a bf16 product on the TMA kernel (fp32 operands
+    rounded to bf16 once) or the mma.sync kernel."""
     if lhs.ndim != 2 or dout.ndim != 2 or lhs.shape[0] != dout.shape[0]:
         raise ValueError(f"grouped_gemm_tgmm: lhs {tuple(lhs.shape)}, dout "
                          f"{tuple(dout.shape)}")
@@ -388,16 +422,28 @@ def grouped_gemm_tgmm(lhs: torch.Tensor, dout: torch.Tensor,
     out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
     if out.numel() == 0:
         return out
-    tma = tgmm_takes_tma(M, K, N, (lhs.dtype, dout.dtype, out_dtype))
+    dtypes = (lhs.dtype, dout.dtype, out_dtype)
+    tc = tgmm_takes_tc(M, K, N, G, dtypes, lhs.is_contiguous()
+                       and dout.is_contiguous() and _aligned(lhs, dout, out))
+    tma = not tc and tgmm_takes_tma(M, K, N, dtypes)
     if tma:
         lhs, dout = lhs.to(torch.bfloat16), dout.to(torch.bfloat16)
+    elif not tc and out_dtype == torch.float32 and \
+            torch.float32 in dtypes[:2]:
+        lhs, dout = lhs.to(torch.float32), dout.to(torch.float32)
     lhs, dout = lhs.contiguous(), dout.contiguous()
     tma = tma and _aligned(lhs, dout, out)
 
     from . import _cuda_build
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        if tma:
+        if tc:
+            lib = _lib_tc()
+            err = lib.molly_grouped_gemm_tgmm_f32_tc(
+                lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                group_sizes.data_ptr(), M, K, N, G, tgmm_tc_plan(K, N),
+                stream)
+        elif tma:
             lib = _lib_tma()
             err = lib.molly_grouped_gemm_tgmm_tma(
                 lhs.data_ptr(), dout.data_ptr(), out.data_ptr(),
@@ -412,11 +458,13 @@ def grouped_gemm_tgmm(lhs: torch.Tensor, dout: torch.Tensor,
     _cuda_build.check(lib, err, "grouped_gemm_tgmm")
     grouped_gemm_tgmm.launches += 1
     grouped_gemm_tgmm.launches_tma += int(tma)
+    grouped_gemm_tgmm.launches_tc += int(tc)
     return out
 
 
 grouped_gemm_tgmm.launches = 0
 grouped_gemm_tgmm.launches_tma = 0
+grouped_gemm_tgmm.launches_tc = 0
 
 
 def _lhs_grad(dout, rhs, group_sizes, scale, transpose_rhs, out_dtype):
@@ -435,6 +483,16 @@ def _lhs_grad(dout, rhs, group_sizes, scale, transpose_rhs, out_dtype):
         else:
             dout = dout * s.to(dout.dtype)
     return _forward(dout, rhs, group_sizes, transpose_rhs, out_dtype, None)
+
+
+def _rhs_grad(lhs, dout, group_sizes, transpose_rhs, out_dtype):
+    """The rhs gradient, tgmm in the rhs dtype (``dout`` against ``lhs``
+    for a transposed rhs). A bf16 lhs goes as it is: over fp32 adapters the
+    tgmm wrapper sends it to the tensor cores, or widens it for the SIMT
+    kernel, so no fp32 copy is made on the main path."""
+    if transpose_rhs:
+        return grouped_gemm_tgmm(dout, lhs, group_sizes, out_dtype)
+    return grouped_gemm_tgmm(lhs, dout, group_sizes, out_dtype)
 
 
 class _GroupedGemm(torch.autograd.Function):
@@ -463,11 +521,8 @@ class _GroupedGemm(torch.autograd.Function):
             dlhs = _lhs_grad(dout, rhs, group_sizes, scale,
                              not ctx.transpose_rhs, lhs.dtype)
         if ctx.needs_input_grad[1]:
-            if rhs.dtype == torch.float32:  # an fp32 product: widen the lhs
-                lhs = lhs.to(torch.float32)
-            drhs = (grouped_gemm_tgmm(dout, lhs, group_sizes, rhs.dtype)
-                    if ctx.transpose_rhs else
-                    grouped_gemm_tgmm(lhs, dout, group_sizes, rhs.dtype))
+            drhs = _rhs_grad(lhs, dout, group_sizes, ctx.transpose_rhs,
+                             rhs.dtype)
         return dlhs, drhs, None, None, None, None
 
 
@@ -553,4 +608,7 @@ def _lib_tc():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P] + [I] * 6 + [P]
         fn.restype = I
+        lib.molly_grouped_gemm_tgmm_f32_tc.argtypes = [P, P, P, P] + \
+            [I] * 5 + [P]
+        lib.molly_grouped_gemm_tgmm_f32_tc.restype = I
     return lib

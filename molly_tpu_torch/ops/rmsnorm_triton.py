@@ -29,16 +29,24 @@ and store 16 bytes a thread, and other views still run (narrower accesses).
 The backward, as the Pallas kernel: inv is recomputed from x,
 dx = (w*g - x_hat * mean(w*g*x_hat)) * inv and dw = sum over rows of
 g * x_hat, in fp32 (the rounding of x_hat before the weight is not
-differentiated). It reads x and g and writes dx once — bound by device-memory
-bandwidth again, with no tensor-core work. The Pallas kernel carries its dw
-accumulator from grid step to grid step; blocks on the card run in no order,
-so each program takes a strip of rows (a [rows, H] tile per iteration, many
-rows at once for the narrow per-head norms), keeps its dw partial [H] in
-fp32 registers and writes one row of a [programs, H] buffer that the wrapper
-sums — no atomics, the same result every run. The strips are sized so that
-about 500 programs are in flight whatever the row count; the dw partials are
-skipped when the weight needs no gradient. Only 1-D weights have a backward:
-the stacked per-head form is the fused decode branch.
+differentiated). It reads x and g and writes dx once: bound by
+device-memory bandwidth again, with no tensor-core work, and dw must cost
+next to nothing beside that. The Pallas kernel carries its dw accumulator
+from grid step to grid step; blocks on the card run in no order. So
+``rmsnorm_bwd_plan`` cuts the rows into tiles of about 8,192 elements (the
+forward's) and starts one program an SM, each walking every programs-th
+tile with the next tiles' loads in flight (``tl.range`` with stages); a
+frozen norm's backward, with no partials to bound, starts four programs an
+SM of half the tile. A program keeps its dw partial as a [rows, H] fp32
+tile in registers, adds g * x_hat elementwise, and reduces it across its
+rows once, at the end, into one row of a [programs, H] buffer sized from
+the shapes.
+A second small kernel sums those rows in a fixed order and rounds once to
+the weight's dtype: no atomics, the same bits every run, nothing read on
+the host, so a CUDA graph captures both. Without a weight gradient (a
+frozen norm) neither the partials nor the second kernel exist. Only 1-D
+weights have a backward: the stacked per-head form is the fused decode
+branch.
 
 ``triton`` is imported inside the launching function, so this module
 imports on a machine without it.
@@ -50,9 +58,14 @@ import torch
 
 _KERNEL = None
 _BWD_KERNEL = None
-_BWD_TILE = 4096      # elements of a [rows, H] tile per loop iteration
-_BWD_PROGRAMS = 528   # 4 per SM of a 132-SM card
-_BWD_WARPS = 4
+_DW_KERNEL = None
+# the backward's (programs an SM at most, tiles in flight a program,
+# elements a tile), with and without dw (grouped_gemm_ab.py's
+# rmsnorm_bwd_plans sweep, NVIDIA H100): with dw one program an SM keeps
+# the partials few and its [rows, H] accumulator in registers; without,
+# more and smaller programs hide the loads' latency
+_BWD_PLAN = {True: (1, 3, 8192), False: (4, 3, 4096)}
+_DW_TILE = 8192      # partials a program of the finishing sum adds at once
 
 
 def _rows_and_weight(x: torch.Tensor, weight: torch.Tensor):
@@ -118,6 +131,24 @@ def rmsnorm_plan(R: int, H: int, sm_count: int):
     return rows, -(-R // rows), max(1, min(8, rows * block // 256))
 
 
+def rmsnorm_bwd_plan(R: int, H: int, sm_count: int, need_dw: bool = True):
+    """(rows a tile, tiles, programs, warps, stages) of the backward
+    kernel, from the shapes only: [rows, H] tiles of the plan's size (rows
+    a power of two, one row alone from that size up; several hidden rows,
+    where the forward takes one), halved while there would be fewer than
+    two tiles an SM; at most the plan's programs an SM (``_BWD_PLAN``).
+    Program p takes tiles p, p + programs, ... of the R rows and writes
+    row p of the [programs, H] dw partials."""
+    per_sm, stages, tile = _BWD_PLAN[bool(need_dw)]
+    block = _next_pow2(H)
+    rows = max(1, tile // block)
+    while rows > 1 and -(-R // rows) < 2 * sm_count:
+        rows //= 2
+    tiles = -(-R // rows)
+    return (rows, tiles, min(tiles, per_sm * sm_count),
+            max(1, min(8, rows * block // 256)), stages)
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
@@ -156,18 +187,17 @@ def _build_bwd_kernel():
     import triton.language as tl
 
     @triton.jit
-    def rmsnorm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, dwp_ptr, R, H,
-                    rows_per_prog, stride_x, stride_g, stride_dx, eps,
-                    BLOCK: tl.constexpr, ROWS: tl.constexpr,
-                    NEED_DW: tl.constexpr):
+    def rmsnorm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, dwp_ptr, R, H, tiles,
+                    stride_x, stride_g, stride_dx, eps, BLOCK: tl.constexpr,
+                    ROWS: tl.constexpr, NEED_DW: tl.constexpr,
+                    STAGES: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK)
         inb = cols < H
         w = tl.load(w_ptr + cols, mask=inb, other=0.0).to(tl.float32)
-        dw = tl.zeros([BLOCK], dtype=tl.float32)
-        row0 = pid * rows_per_prog
-        for r in range(0, rows_per_prog, ROWS):
-            rows = (row0 + r + tl.arange(0, ROWS)).to(tl.int64)
+        dw = tl.zeros([ROWS, BLOCK], dtype=tl.float32)
+        for t in tl.range(pid, tiles, tl.num_programs(0), num_stages=STAGES):
+            rows = t.to(tl.int64) * ROWS + tl.arange(0, ROWS)
             m = (rows < R)[:, None] & inb[None, :]
             x = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
                         mask=m, other=0.0).to(tl.float32)
@@ -182,18 +212,32 @@ def _build_bwd_kernel():
             tl.store(dx_ptr + rows[:, None] * stride_dx + cols[None, :],
                      dx.to(dx_ptr.dtype.element_ty), mask=m)
             if NEED_DW:
-                dw += tl.sum(g * xhat, axis=0)  # masked rows hold g = 0
-        if NEED_DW:
-            tl.store(dwp_ptr + pid * H + cols, dw, mask=inb)
+                dw += g * xhat  # masked rows hold g = 0
+        if NEED_DW:  # one reduction across the tile's rows, at the end
+            tl.store(dwp_ptr + pid * H + cols, tl.sum(dw, axis=0), mask=inb)
 
-    return rmsnorm_bwd
+    @triton.jit
+    def rmsnorm_bwd_dw(dwp_ptr, dw_ptr, programs, H, COLS: tl.constexpr,
+                       ROWS: tl.constexpr):
+        # dw[c] = the sum of the partials' column c (ROWS >= programs: all
+        # of them in one load), rounded once
+        cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
+        p = tl.arange(0, ROWS)
+        part = tl.load(dwp_ptr + p[:, None] * H + cols[None, :],
+                       mask=(p < programs)[:, None] & (cols < H)[None, :],
+                       other=0.0)
+        tl.store(dw_ptr + cols, tl.sum(part, axis=0).to(
+            dw_ptr.dtype.element_ty), mask=cols < H)
+
+    return rmsnorm_bwd, rmsnorm_bwd_dw
 
 
 def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
                  eps: float, need_dw: bool = True):
     """(dx, dw or None) of ``rms_norm`` for a 1-D weight. A CPU tensor runs
-    the plain version; a CUDA tensor launches the Triton kernel or raises."""
-    global _BWD_KERNEL
+    the plain version; a CUDA tensor launches the Triton kernels or raises
+    (one launch counted: the dw sum belongs to it)."""
+    global _BWD_KERNEL, _DW_KERNEL
     if weight.ndim != 1 or weight.shape[0] != x.shape[-1]:
         raise NotImplementedError(
             f"rms_norm backward: weight {tuple(weight.shape)}; only a 1-D "
@@ -221,24 +265,24 @@ def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
         return dx.reshape(x.shape), (torch.zeros_like(weight) if need_dw
                                      else None)
     if _BWD_KERNEL is None:
-        _BWD_KERNEL = _build_bwd_kernel()
-    import triton
-    block = triton.next_power_of_2(H)
-    rows = max(1, _BWD_TILE // block)
-    programs = min(triton.cdiv(R, rows), _BWD_PROGRAMS)
-    rows_per_prog = triton.cdiv(triton.cdiv(R, programs), rows) * rows
-    programs = triton.cdiv(R, rows_per_prog)
+        _BWD_KERNEL, _DW_KERNEL = _build_bwd_kernel()
+    from . import _cuda_build
+    rows, tiles, programs, warps, stages = rmsnorm_bwd_plan(
+        R, H, _cuda_build.sm_count(x.device.index), need_dw)
     dwp = (torch.empty((programs, H), dtype=torch.float32, device=x.device)
            if need_dw else dx)  # never touched when NEED_DW is false
+    dw = torch.empty_like(w1) if need_dw else None
     with torch.cuda.device(x.device):
         _BWD_KERNEL[(programs,)](
-            x2, w1, g2, dx, dwp, R, H, rows_per_prog, x2.stride(0),
-            g2.stride(0), dx.stride(0), float(eps), BLOCK=block, ROWS=rows,
-            NEED_DW=bool(need_dw), num_warps=_BWD_WARPS)
+            x2, w1, g2, dx, dwp, R, H, tiles, x2.stride(0), g2.stride(0),
+            dx.stride(0), float(eps), BLOCK=_next_pow2(H), ROWS=rows,
+            NEED_DW=bool(need_dw), STAGES=stages, num_warps=warps)
+        if need_dw:  # every partial of a column in one load
+            prows = _next_pow2(programs)
+            cols = max(16, _DW_TILE // prows)
+            _DW_KERNEL[(-(-H // cols),)](
+                dwp, dw, programs, H, COLS=cols, ROWS=prows, num_warps=4)
     rms_norm_bwd.launches += 1
-    # the partials are summed outside the kernel, as the JAX wrapper sums
-    # the Pallas kernel's
-    dw = dwp.sum(dim=0).to(weight.dtype) if need_dw else None
     return dx.reshape(x.shape), dw
 
 

@@ -578,6 +578,39 @@ def test_rmsnorm_backward_kernel_matches_plain(dev, dtype, shape):
         dw_rel * rw.abs().max().item() + 1e-5
 
 
+@pytest.mark.parametrize("need_dw", [True, False])
+@pytest.mark.parametrize("shape", [(4096, 2048), (4, 1024, 16, 128),
+                                   (4, 1024, 8, 128), (4, 1024, 32, 128),
+                                   (4, 1024, 4, 128)])
+def test_rmsnorm_backward_training_shapes_bit_equal(dev, shape, need_dw):
+    """The backward at every training shape of both decoders (hidden rows;
+    q and k norms of the 1.7B and the MoE decoder), with dw and without (a
+    frozen norm: no partials, no second kernel): one launch counted, bf16
+    dx within one rounding of the plain version, dw within 1e-2 of its max
+    (a sum over up to 131,072 rows, rounded once to bf16), and a second
+    run bit-equal (dw summed in a fixed order, no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    gr = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(shape[-1:], generator=g, device=dev)).to(
+        torch.bfloat16)
+    before = rmsnorm_triton.rms_norm_bwd.launches
+    dx, dw = rmsnorm_triton.rms_norm_bwd(x, w, gr, 1e-6, need_dw)
+    dx2, dw2 = rmsnorm_triton.rms_norm_bwd(x, w, gr, 1e-6, need_dw)
+    assert rmsnorm_triton.rms_norm_bwd.launches == before + 2
+    rx, rw = rmsnorm_triton.rms_norm_bwd_plain(x.float(), w.float(),
+                                               gr.float(), 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2)
+    assert ((dx.float() - rx).abs() <= 2.0 ** -7 * rx.abs() + 1e-5).all()
+    if not need_dw:
+        assert dw is None and dw2 is None
+        return
+    assert dw.dtype == torch.bfloat16 and torch.equal(dw, dw2)
+    assert (dw.float() - rw).abs().max().item() <= \
+        1e-2 * rw.abs().max().item()
+
+
 def test_rmsnorm_autograd_function_matches_plain_backward(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     x = torch.randn((3, 50, 256), generator=g, device=dev)
@@ -1311,6 +1344,86 @@ def test_grouped_gemm_f32_tc_transposed_matches_plain(dev, sizes, K, N,
     assert torch.equal(out, again)
 
 
+# the tensor-core weight gradient's sizes: the TMA kernels' (an empty first
+# and last group, a one-row group, rows past the sum, 300 groups) and one
+# group more than four times the mean of the others
+_TGMM_TC_SIZES = dict(_TMA_SIZES,
+                      skewed=(1100, [700, 0, 50, 64, 100, 1, 130, 40]))
+
+
+def _tgmm_tc_count():
+    c = gg.grouped_gemm_tgmm
+    return c.launches, c.launches_tc, c.launches_tma
+
+
+@pytest.mark.parametrize("sizes", sorted(_TGMM_TC_SIZES))
+@pytest.mark.parametrize("K,N", [(2048, 64), (768, 64), (64, 768),
+                                 (64, 2048), (72, 200), (264, 8)])
+def test_grouped_gemm_tgmm_tc_matches_plain(dev, sizes, K, N):
+    """The adapters' weight gradient (csrc/grouped_gemm_f32_tc.cu): a bf16
+    lhs and an fp32 dout into fp32, held to the fp32 tolerance (dout split
+    into three bf16 parts) at both tile plans (256 lhs columns against a
+    rank-64 dout, 64 against 128 dout columns), tiles past K and
+    N, group ends inside a 64-row stage; NaN in the rows no group owns (of
+    both operands) reaches no output; every empty group exact zeros; two
+    runs bit-equal."""
+    M, counts = _TGMM_TC_SIZES[sizes]
+    G = len(counts)
+    g = torch.Generator(device=dev).manual_seed(27)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+    dout = torch.randn((M, N), generator=g, device=dev)
+    owned = _nan_past_the_sum(lhs, counts)
+    _nan_past_the_sum(dout, counts)
+    assert gg.tgmm_takes_tc(M, K, N, G, (_BF16, _F32, _F32))
+    before = _tgmm_tc_count()
+    out = gg.grouped_gemm_tgmm(lhs, dout, gs, _F32)
+    again = gg.grouped_gemm_tgmm(lhs, dout, gs, _F32)
+    after = _tgmm_tc_count()
+    assert (after[0] - before[0], after[1] - before[1],
+            after[2] - before[2]) == (2, 2, 0)
+    ref = gg.grouped_gemm_tgmm_plain(lhs[:owned], dout[:owned], gs, _F32)
+    torch.cuda.synchronize()
+    assert out.dtype == _F32 and out.shape == (G, K, N)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= _gg_tol(ref, _F32)
+    assert torch.equal(out, again)
+    for e, n in enumerate(counts):
+        if n == 0:
+            assert bool((out[e] == 0).all())
+
+
+@pytest.mark.parametrize("K,N", [(128, 64), (64, 256)])
+def test_grouped_gemm_tgmm_tc_replays_with_new_group_sizes(dev, K, N):
+    """The tensor-core weight gradient reads the group sizes on the device
+    only and allocates nothing: one captured launch, replayed after the
+    sizes change in place (one group empty, every row in one group, no row
+    owned), equals an eager call on the new sizes bit for bit."""
+    M, G = 1024, 8
+    g = torch.Generator(device=dev).manual_seed(28)
+    lhs = torch.randn((M, K), generator=g, device=dev).to(_BF16)
+    dout = torch.randn((M, N), generator=g, device=dev)
+    gs = torch.full((G,), M // G, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gg.grouped_gemm_tgmm(lhs, dout, gs, _F32)
+    side.synchronize()
+    before = _tgmm_tc_count()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = gg.grouped_gemm_tgmm(lhs, dout, gs, _F32)
+    assert _tgmm_tc_count()[1] == before[1] + 1
+    one = [0] * G
+    one[G - 1] = M - 7
+    for sizes in ([0] + [M // (G - 1)] * (G - 1), one, [0] * G):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gg.grouped_gemm_tgmm(lhs, dout, gs, _F32))
+    assert bool((out == 0).all())   # the last sizes own no row
+
+
 @pytest.mark.parametrize("case", ["int8", "int8_transposed", "f32",
                                   "f32_transposed"])
 def test_grouped_gemm_new_kernels_replay_with_new_group_sizes(dev, case):
@@ -1406,7 +1519,8 @@ def test_lora_grouped_runs_the_tc_kernels_forward_and_backward(dev):
     over fp32 adapters, M >= 64 G) on the card against the same call on the
     CPU (the plain versions): its two forward products and two lhs
     gradients run on the fp32 tensor-core kernels, its two weight gradients
-    on the fp32 SIMT tgmm. Every result within 1e-2 of its max: the
+    on the tensor-core tgmm (from the bf16 activations, never widened).
+    Every result within 1e-2 of its max: the
     bypass rounds its rank-64 intermediate to bf16, and an fp32 product of
     the card and of the CPU may round an element to different neighbours
     (each product alone is held to 1e-4 above)."""
@@ -1423,13 +1537,14 @@ def test_lora_grouped_runs_the_tc_kernels_forward_and_backward(dev):
     for where in ("cpu", dev):
         x = xs.to(where).requires_grad_(True)
         w = {k: v.to(where).requires_grad_(True) for k, v in ab.items()}
-        before = _route_counts()
+        before, tg0 = _route_counts(), _tgmm_tc_count()
         y = moe._lora_grouped(x, w, gs.to(where), 2.0)
         grads = torch.autograd.grad((y * c.to(where)).sum(),
                                     (x, w["a"], w["b"]))
         if where != "cpu":
-            after = _route_counts()
+            after, tg1 = _route_counts(), _tgmm_tc_count()
             assert after[0] - before[0] == after[4] - before[4] == 4
+            assert tg1[0] - tg0[0] == tg1[1] - tg0[1] == 2
         got[str(where)] = [t.detach().cpu() for t in (y,) + grads]
     for i, (k, p) in enumerate(zip(got[str(dev)], got["cpu"])):
         assert k.dtype == p.dtype
