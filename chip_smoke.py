@@ -94,6 +94,21 @@ Phases, each printed with its time; any failure exits non-zero:
      backfill, chunk 16, admission groups of 4, 32 new tokens, once with
      paged KV in bf16 pages of 64 (sampled), once with int8 pages of 128
      (greedy); then the dense ring with 4 requests and 16 new tokens.
+  8a. checkpoints, molly-1.7B width, on phase 7's bf16 weights (before
+     training changes them): ``save_hf_checkpoint`` of the text decoder (fp32
+     safetensors by the port's own writer, ~6.9 GB, into a temporary
+     directory whose free space is checked first; GB and seconds written
+     printed); the batch CLI's ``_load_params`` with ``--checkpoint <dir>``
+     (GB and seconds read printed; every text leaf bit-equal to phase 7's,
+     16 greedy tokens through ``run_batches`` equal to the in-memory
+     weights'); a PEFT directory (a rank-64 adapter on all seven targets
+     with nonzero B written by ``peft_lora_to_hf_state`` and the port's
+     writer, ``adapter_config.json``, both projector ``.bin`` files) through
+     ``--peft-adapter``: merged text and projectors bit-equal to the
+     in-memory ``merge_lora`` and graft, greedy tokens equal; the train
+     CLI's ``build_params`` with ``--text-model-path`` (bit-equal) and 3
+     full fine-tune steps of ``train_loop`` at phase 9's settings. Every
+     flash forward and backward of these runs on the TMA kernels.
   9. main path, training, full fine-tune: the same weights, the train CLI's
      defaults (batch 4, max length 1024, k = 128 tokens and 4 slots per
      modality, train-llm and train-mlp, frozen encoders, fused LCE, no
@@ -123,6 +138,12 @@ Phases, each printed with its time; any failure exits non-zero:
  15. main path, MoE generation, int8 experts: ``quantize_for_decode(
      moe_experts=True, donate=True)`` (fused int8 gate-and-up stacks, the
      bf16 stacks released leaf by leaf), greedy, 16 new tokens.
+ 15a. checkpoints, qwen3-30b-a3b width, on phase 16's weights before they
+     train (4 of 48 layers, in memory): ``qwen3_to_hf_state`` writes the
+     per-expert keys (4 x 128 x 3) and ``qwen3_from_hf`` restacks them on
+     the card; leaves bit-equal, the router in fp32; 16 greedy tokens equal
+     to the in-memory model's, with the grouped GEMM on the TMA kernel at
+     prefill and the split stream at decode, none on grouped_gemm.cu.
  16. main path, MoE training, full fine-tune: 3 steps of ``train_loop`` at
      the train CLI's defaults at 4 of the 48 layers (router and expert
      stacks train), with ``moe_load_balance`` printed.
@@ -1861,7 +1882,10 @@ def make_requests(seed: int):
     ]
 
 
-def main_path(params, cfg, samples, text_tok, gen, seed, label):
+def main_path(params, cfg, samples, text_tok, gen, seed, label,
+              records_out=None):
+    """Drive the batch CLI's ``run_batches`` once; returns the run's launch
+    counts (and appends its JSONL records to ``records_out``)."""
     import torch
 
     from molly_tpu_torch.inference.cli import run_batches
@@ -1893,6 +1917,8 @@ def main_path(params, cfg, samples, text_tok, gen, seed, label):
         rec = json.loads(line)
         assert set(rec) == {"decoded_output", "input", "gt_output",
                             "gt_label", "task", "kind"}, rec.keys()
+    if records_out is not None:
+        records_out.extend(records)
     return counts
 
 
@@ -2105,6 +2131,12 @@ def drive_main_paths(seed: int, profile_dir=None):
         GenerationConfig(max_new_tokens=16, do_sample=True, **common),
         ("flash_attention_fwd", "rmsnorm_fwd"), n_slots=4)
 
+    # the checkpoint phases read phase 7's weights, which training changes
+    checkpoint_paths(seed, params, cfg, train_cfg, dict(
+        text_tok=text_tok, samples=samples, train_samples=train_samples,
+        common=common), add)
+    release()
+
     with Phase("main path training, full fine-tune, 3 steps"):
         counts, state = train_main_path(
             params, train_cfg, train_samples, TrainConfig(total_steps=3),
@@ -2161,6 +2193,216 @@ def drive_main_paths(seed: int, profile_dir=None):
         samples=samples, serve_samples=serve_samples,
         train_samples=train_samples, common=common))
     return launches
+
+
+def assert_bit_equal(label, got, ref, path=""):
+    """Same keys, dtypes, shapes and bits, leaf for leaf."""
+    import torch
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or set(got) != set(ref):
+            raise AssertionError(f"{label}: keys differ at {path or '/'}")
+        for k in ref:
+            assert_bit_equal(label, got[k], ref[k], f"{path}/{k}")
+    elif got.dtype != ref.dtype or got.shape != ref.shape or \
+            not torch.equal(got, ref):
+        raise AssertionError(f"{label}: {path} differs ({got.dtype} "
+                             f"{tuple(got.shape)} against {ref.dtype} "
+                             f"{tuple(ref.shape)})")
+
+
+class TokenIds:
+    """The text tokenizer, but ``decode`` spells the token ids: two runs'
+    JSONL records then compare token for token (random weights mostly emit
+    ids past the byte tokenizer's 268, which decode to nothing)."""
+
+    def __init__(self, tok):
+        self.tok = tok
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+
+def greedy_tokens_equal(label, run_a, run_b):
+    """Drive two params through ``main_path`` greedily, each run handed a
+    list for its records; both runs' tokens must be equal."""
+    a, b = [], []
+    run_a(a)
+    run_b(b)
+    ta = [r["decoded_output"] for r in a]
+    if not all(ta) or ta != [r["decoded_output"] for r in b]:
+        raise AssertionError(f"{label}: greedy tokens differ (or are none)")
+    log(f"  {label}: {len(ta)} x {len(ta[0].split())} greedy tokens equal "
+        f"(first row: {ta[0][:80]})")
+
+
+def checkpoint_paths(seed: int, params, cfg, train_cfg, inp, add):
+    """Phase 8a at molly-1.7B width, on phase 7's bf16 weights: export the
+    text decoder as an HF checkpoint (fp32 safetensors, by the port's own
+    writer), load it back through the batch CLI's ``--checkpoint``, load a
+    PEFT directory through ``--peft-adapter``, and load the checkpoint
+    through the train CLI's ``--text-model-path`` and fine-tune 3 steps.
+    ``add`` takes each main-path run's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from molly_tpu_torch.data import default_modality_tokenizers
+    from molly_tpu_torch.inference import cli as icli
+    from molly_tpu_torch.models import GenerationConfig
+    from molly_tpu_torch.models.hf_export import (peft_lora_to_hf_state,
+                                                  save_hf_checkpoint,
+                                                  write_safetensors)
+    from molly_tpu_torch.models.lora import (LORA_TARGETS, LoraConfig,
+                                             init_lora, merge_lora)
+    from molly_tpu_torch.training import cli as tcli
+    from molly_tpu_torch.training.trainer import TrainConfig
+    from molly_tpu_torch.utils.tree import leaves
+
+    text_tok = TokenIds(inp["text_tok"])
+    gen = GenerationConfig(max_new_tokens=16, do_sample=False,
+                           **inp["common"])
+
+    def run(run_params, label):
+        def go(out):
+            counts = main_path(run_params, cfg, inp["samples"], text_tok,
+                               gen, seed, label, out)
+            for name in ("flash_attention_fwd", "rmsnorm_fwd"):
+                if counts[name] <= 0:
+                    raise AssertionError(f"{label} never launched {name}")
+            add(counts)
+        return go
+
+    need = sum(t.numel() * 4 for t in leaves(params["text"]))
+    tmp = tempfile.mkdtemp(prefix="molly_hf_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"  checkpoint directory {tmp}: {need / 1e9:.2f} GB to write, "
+            f"{free / 1e9:.2f} GB free")
+        if need > free:
+            raise AssertionError(f"the checkpoint needs {need / 1e9:.2f} GB "
+                                 f"and {tmp} has {free / 1e9:.2f} GB free")
+        hf_dir, peft_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "peft")
+        with Phase("checkpoint: save_hf_checkpoint, molly-1.7B width, fp32"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            save_hf_checkpoint(hf_dir, params["text"], cfg.text)
+            dt = time.perf_counter() - t0
+            size = os.path.getsize(os.path.join(hf_dir, "model.safetensors"))
+            log(f"  wrote {size / 1e9:.3f} GB in {dt:.2f} s = "
+                f"{size / 1e9 / dt:.2f} GB/s; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        argv = ["--input-file", "unused", "--output-file", "unused",
+                "--preset", "qwen3-1.7b", "--dna-rna-k-tokens", "1024",
+                "--protein-k-tokens", "1024", "--checkpoint", hf_dir]
+        with Phase("checkpoint: batch CLI --checkpoint <HF dir>, 16 greedy "
+                   "tokens against the in-memory weights"):
+            torch.cuda.reset_peak_memory_stats()
+            args = icli.build_argparser().parse_args(argv)
+            run_cfg = icli.build_config(args, text_tok.tok,
+                                        *default_modality_tokenizers())
+            if run_cfg != cfg:
+                raise AssertionError(f"build_config with --checkpoint: "
+                                     f"{run_cfg.text} against {cfg.text}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = icli._load_params(args, run_cfg, "cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"  read {size / 1e9:.3f} GB into bf16 params on the card "
+                f"in {dt:.2f} s = {size / 1e9 / dt:.2f} GB/s (the encoders' "
+                f"random init included)")
+            assert_bit_equal("--checkpoint import", loaded["text"],
+                             params["text"])
+            # the encoders are left as initialised (as in the JAX CLI):
+            # pair the import with phase 7's to compare tokens
+            loaded = {**params, "text": loaded["text"]}
+            greedy_tokens_equal("--checkpoint", run(params, "in memory"),
+                                run(loaded, "--checkpoint import"))
+            log(f"  peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del loaded
+            release()
+
+        with Phase("checkpoint: batch CLI --checkpoint --peft-adapter "
+                   "(rank 64, seven targets), 16 greedy tokens"):
+            torch.cuda.reset_peak_memory_stats()
+            g = torch.Generator("cuda").manual_seed(seed + 3)
+            lora = init_lora(cfg.text, LoraConfig(r=64), g, device="cuda")
+            for ab in lora["layers"].values():
+                ab["b"].normal_(0.0, 0.02, generator=g)
+            if set(lora["layers"]) != set(LORA_TARGETS):
+                raise AssertionError(f"adapter targets {sorted(lora)}")
+            os.makedirs(peft_dir)
+            write_safetensors(
+                os.path.join(peft_dir, "adapter_model.safetensors"),
+                peft_lora_to_hf_state(lora, cfg.text))
+            with open(os.path.join(peft_dir, "adapter_config.json"),
+                      "w") as f:
+                json.dump({"r": 64, "lora_alpha": 128,
+                           "target_modules": list(LORA_TARGETS)}, f)
+            projectors = {}
+            for name in ("dna_rna_projector", "protein_projector"):
+                w = params[name]["kernel"]
+                weight = torch.randn((w.shape[1], w.shape[0]), generator=g,
+                                     device="cuda") * 0.02
+                bias = torch.randn((w.shape[1],), generator=g,
+                                   device="cuda") * 0.02
+                torch.save({f"{name}.weight": weight.cpu(),
+                            f"{name}.bias": bias.cpu()},
+                           os.path.join(peft_dir, f"{name}.bin"))
+                projectors[name] = {"kernel": weight.T.contiguous(),
+                                    "bias": bias}
+            args = icli.build_argparser().parse_args(
+                argv + ["--peft-adapter", peft_dir])
+            t0 = time.perf_counter()
+            loaded = icli._load_params(args, cfg, "cuda")
+            torch.cuda.synchronize()
+            log(f"  HF checkpoint + PEFT adapter loaded and merged in "
+                f"{time.perf_counter() - t0:.2f} s")
+            merged = {**params, **projectors, "text": merge_lora(
+                params["text"], lora, LoraConfig(r=64, alpha=128.0))}
+            del lora
+            assert_bit_equal("--peft-adapter merge", loaded["text"],
+                             merged["text"])
+            for name in projectors:
+                assert_bit_equal("--peft-adapter projectors", loaded[name],
+                                 projectors[name])
+            loaded = {**params, **{k: loaded[k] for k in projectors},
+                      "text": loaded["text"]}
+            greedy_tokens_equal("--peft-adapter",
+                                run(merged, "merged in memory"),
+                                run(loaded, "--peft-adapter import"))
+            log(f"  peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del loaded, merged
+            release()
+
+        with Phase("checkpoint: train CLI --text-model-path, 3 full "
+                   "fine-tune steps"):
+            targs = tcli.build_argparser().parse_args(
+                ["--train-dataset-path", "unused", "--text-model-path",
+                 hf_dir, "--seed", str(seed)])
+            t0 = time.perf_counter()
+            tparams = tcli.build_params(targs, train_cfg, "cuda")
+            torch.cuda.synchronize()
+            log(f"  build_params (import + encoders' init) in "
+                f"{time.perf_counter() - t0:.2f} s")
+            assert_bit_equal("--text-model-path import", tparams["text"],
+                             params["text"])
+            counts, state = train_main_path(
+                tparams, train_cfg, inp["train_samples"],
+                TrainConfig(total_steps=3), "fine-tune from "
+                "--text-model-path", seed, TRAIN_KERNELS)
+            add(counts)
+            del state, tparams
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    release()
 
 
 # depth of the MoE phases (the preset has 48 layers; only depth is ever cut)
@@ -2307,6 +2549,54 @@ def drive_moe_paths(seed: int, launches, inp):
     train_cfg = config(MOE_TRAIN_LAYERS, 128)
     train_kernels = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_tgmm")
     params = init(train_cfg, "training")
+
+    # phase 15a: the HF Qwen3-MoE layout in memory, on phase 16's weights
+    # before they train: per-expert keys out, stacks back in
+    from molly_tpu_torch.models.hf_export import qwen3_to_hf_state
+    from molly_tpu_torch.models.hf_import import qwen3_from_hf
+    label = "MoE HF import"
+    with Phase(f"checkpoint: {label}, qwen3_to_hf_state -> qwen3_from_hf "
+               f"in memory, {MOE_TRAIN_LAYERS} layers, 16 greedy tokens"):
+        t0 = time.perf_counter()
+        state = qwen3_to_hf_state(params["text"], train_cfg.text)
+        n_experts = sum(".mlp.experts." in k for k in state)
+        text = qwen3_from_hf(state, train_cfg.text, device="cuda")
+        torch.cuda.synchronize()
+        del state
+        log(f"  {label}: {n_experts} per-expert keys "
+            f"({MOE_TRAIN_LAYERS} x {preset.num_experts} x 3) restacked in "
+            f"{time.perf_counter() - t0:.2f} s; router "
+            f"{text['layers']['router'].dtype}")
+        if n_experts != MOE_TRAIN_LAYERS * preset.num_experts * 3:
+            raise AssertionError(f"{label}: {n_experts} expert keys")
+        if text["layers"]["router"].dtype != torch.float32:
+            raise AssertionError(f"{label}: the router is not fp32")
+        assert_bit_equal(label, text, params["text"])
+        gen_cfg = config(MOE_TRAIN_LAYERS, 1024)
+        gen = GenerationConfig(max_new_tokens=16, do_sample=False, **common)
+
+        def run(run_params, what):
+            def go(out):
+                counts = main_path(run_params, gen_cfg, inp["samples"],
+                                   TokenIds(text_tok), gen, seed,
+                                   f"{label}, {what}", out)
+                check(f"{label}, {what}", counts, gen_kernels,
+                      MOE_TRAIN_LAYERS)
+                # prefill on the TMA kernel, decode on the split stream
+                if tma_launches()[0] != 3 * MOE_TRAIN_LAYERS or \
+                        grouped_off_route():
+                    raise AssertionError(
+                        f"{label}, {what}: {tma_launches()[0]} grouped "
+                        f"GEMMs on the TMA kernel (expected "
+                        f"{3 * MOE_TRAIN_LAYERS}), {grouped_off_route()} on "
+                        f"grouped_gemm.cu")
+            return go
+
+        greedy_tokens_equal(label, run(params, "in memory"),
+                            run({**params, "text": text}, "imported"))
+        del text
+    release()
+
     label = "MoE full fine-tune"
     with Phase(f"main path training, {label}, 3 steps, {MOE_TRAIN_LAYERS} "
                f"layers"):

@@ -16,18 +16,22 @@ backfill from the queue, and ``--serve-paged`` puts its KV cache in pages
 ``run_serve``, which take already-encoded samples
 (``OmicsSampleEncoder.encode_test`` rows), so a caller without pandas can
 drive them. Weights are random from ``--seed`` unless ``--checkpoint`` names
-a train-state directory of this package's own format
-(``training.checkpoint``); ``--adapter`` grafts an exported ``.npz`` (LoRA +
-projectors) and merges it once at load. HF checkpoint import, the offline
-ring, speculative decoding and the HTTP API are not ported: their flags
-parse and are refused with the ROADMAP.md entry that tracks them.
+an HF checkpoint directory (``*.safetensors`` or ``*.bin``: the text decoder
+is imported by ``models.hf_import``) or a train-state directory of this
+package's own format (``training.checkpoint``); ``--adapter`` grafts an
+exported ``.npz`` (LoRA + projectors) and ``--peft-adapter`` a reference-style
+PEFT directory, each merged once at load. The offline ring, speculative
+decoding and the HTTP API are not ported: their flags parse and are refused
+with the ROADMAP.md entry that tracks them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
+import os
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -45,13 +49,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="local HF dir for the text tokenizer (default: the "
                         "byte-level tokenizer)")
     p.add_argument("--checkpoint", default=None,
-                   help="train-state dir written by "
-                        "molly_tpu_torch.training (params are read from it)")
+                   help="HF checkpoint dir (*.safetensors / *.bin: the text "
+                        "decoder is imported) or a train-state dir written "
+                        "by molly_tpu_torch.training (params are read from "
+                        "it)")
     p.add_argument("--adapter", default=None,
                    help="adapter .npz from training.export_adapter")
     p.add_argument("--peft-adapter", default=None,
-                   help="reference-style PEFT adapter dir (not ported: "
-                        "refused)")
+                   help="reference-style PEFT adapter dir "
+                        "(adapter_model.safetensors or .bin, "
+                        "adapter_config.json, dna_rna_projector.bin, "
+                        "protein_projector.bin), merged once at load")
     p.add_argument("--lora-r", type=int, default=64)
     p.add_argument("--lora-alpha", type=float, default=None,
                    help="merge scale override; default = recorded adapter "
@@ -161,10 +169,11 @@ def build_config(args, text_tok, dna_tok, prot_tok):
             protein_k_tokens=args.protein_k_tokens)
     else:
         text_cfg = QWEN3_PRESETS[args.preset]
-        if text_tok.vocab_size > text_cfg.vocab_size or \
-                args.text_model_path is None:
+        if text_tok.vocab_size > text_cfg.vocab_size or (
+                args.text_model_path is None and args.checkpoint is None):
             # byte-fallback tokenizer / demo mode: size the embedding to the
-            # tokenizer (rounded to a multiple of 128)
+            # tokenizer (rounded to a multiple of 128); a checkpoint keeps
+            # the preset's vocabulary
             text_cfg = dataclasses.replace(
                 text_cfg, vocab_size=-(-text_tok.vocab_size // 128) * 128)
         cfg = FusionConfig(
@@ -180,16 +189,56 @@ def build_config(args, text_tok, dna_tok, prot_tok):
     return cfg
 
 
+def is_hf_dir(path: Optional[str]) -> bool:
+    """A directory that holds ``*.safetensors`` or ``*.bin`` files: an HF
+    checkpoint, not a train state of this package."""
+    return bool(path) and os.path.isdir(path) and any(
+        f.endswith((".safetensors", ".bin")) for f in os.listdir(path))
+
+
+def load_peft_adapter(adir: str, text_cfg, default_r: int = 64,
+                      device="cpu"):
+    """A reference-style PEFT adapter directory, UNMERGED: the LoRA tree from
+    ``adapter_model*.safetensors`` (else ``adapter_model*.bin``) and
+    ``lora_alpha`` from ``adapter_config.json`` (None without one)."""
+    from ..models.hf_import import load_hf_state, peft_lora_from_hf
+    try:
+        state = load_hf_state(adir)
+    except FileNotFoundError:
+        bins = sorted(glob.glob(os.path.join(adir, "adapter_model*.bin")))
+        if not bins:
+            raise FileNotFoundError(f"no adapter_model*.safetensors or "
+                                    f"adapter_model*.bin in {adir}")
+        state = torch.load(bins[0], map_location="cpu", weights_only=True)
+    lora = peft_lora_from_hf(state, text_cfg, default_r, device=device)
+    alpha = None
+    acfg = os.path.join(adir, "adapter_config.json")
+    if os.path.exists(acfg):
+        with open(acfg) as f:
+            alpha = json.load(f).get("lora_alpha")
+    return lora, alpha
+
+
 def _load_params(args, cfg, device):
-    """Random weights from ``--seed``, then ``--checkpoint`` (params of a
-    saved train state) and ``--adapter`` (LoRA + projectors, merged once
-    here so decode never pays the merge again)."""
+    """Random weights from ``--seed``, then ``--checkpoint`` (an HF
+    directory: the text decoder is imported, the encoders keep their random
+    init as in the JAX CLI; any other directory: the params of a saved train
+    state), ``--adapter`` (LoRA + projectors from an ``.npz``) and
+    ``--peft-adapter`` (a PEFT directory and its projector ``.bin`` files).
+    A LoRA is merged once here so decode never pays the merge again."""
     from ..models import fusion
     from ..utils.tree import tree_to
     g = torch.Generator(device=device).manual_seed(args.seed)
-    params = fusion.init_params(cfg, g, device)
     lora = None
-    if args.checkpoint:
+    hf = is_hf_dir(args.checkpoint)
+    if hf:
+        from ..models.hf_import import load_hf_state, qwen3_from_hf
+        text = qwen3_from_hf(load_hf_state(args.checkpoint), cfg.text,
+                             device=device)
+        params = fusion.init_params(cfg, g, device, given={"text": text})
+    else:
+        params = fusion.init_params(cfg, g, device)
+    if args.checkpoint and not hf:
         from ..training.checkpoint import graft_params, load_params
         saved = load_params(args.checkpoint)
         lora = saved.pop("lora", None)
@@ -209,6 +258,18 @@ def _load_params(args, cfg, device):
         meta = adapter_meta(args.adapter)
         if meta is not None and lora_alpha is None:
             lora_alpha = meta["alpha"]
+    if args.peft_adapter:
+        from ..models.hf_import import projector_from_hf
+        lora, peft_alpha = load_peft_adapter(args.peft_adapter, cfg.text,
+                                             args.lora_r, device)
+        if lora_alpha is None:
+            lora_alpha = peft_alpha
+        for name in ("dna_rna_projector", "protein_projector"):
+            bp = os.path.join(args.peft_adapter, f"{name}.bin")
+            if os.path.exists(bp):
+                params[name] = projector_from_hf(
+                    torch.load(bp, map_location="cpu", weights_only=True),
+                    device=device)
     if lora is not None:
         from ..models.lora import LoraConfig, merge_lora
         r = lora["layers"]["q_proj"]["a"].shape[-1]
@@ -220,8 +281,6 @@ def _load_params(args, cfg, device):
 
 
 _UNPORTED = {
-    "peft_adapter": ("--peft-adapter",
-                     "queue 1 item 7 (models/hf_import.py:peft_lora_from_hf)"),
     "offline_ring": ("--offline-ring", "queue 1 item 9 (inference/offline.py)"),
     "ring_spec": ("--ring-spec", "queue 1 item 9 (inference/offline.py)"),
     "ring_spec_adapt": ("--ring-spec-adapt",

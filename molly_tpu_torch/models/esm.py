@@ -100,10 +100,12 @@ def _layer(cfg: EsmConfig, hidden, p, cos, sin, mask):
 
 
 def forward_hidden(params: Params, cfg: EsmConfig, input_ids: torch.Tensor,
-                   attention_mask: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   attention_mask: Optional[torch.Tensor] = None,
+                   output_hidden_states: bool = False) -> torch.Tensor:
     """input_ids [B, S] -> final hidden states [B, S, H] (after the final
-    LayerNorm): what the fusion model projects."""
+    LayerNorm): what the fusion model projects. With
+    ``output_hidden_states``, returns (final, each layer's output
+    [L, B, S, H])."""
     if attention_mask is None:
         attention_mask = (input_ids != cfg.pad_token_id).to(torch.int32)
     dt = torch_dtype(cfg.dtype)
@@ -133,6 +135,12 @@ def forward_hidden(params: Params, cfg: EsmConfig, input_ids: torch.Tensor,
     cos, sin = rope_cos_sin(torch.arange(S, device=input_ids.device),
                             cfg.head_dim, 10000.0, dtype=dt)
     hidden = emb
+    per_layer = []
     for lp in _unstack_layers(params["layers"], cfg.num_hidden_layers):
         hidden = _layer(cfg, hidden, lp, cos, sin, attention_mask)
-    return _layer_norm(hidden, params["final_ln"], cfg.layer_norm_eps)
+        if output_hidden_states:
+            per_layer.append(hidden)
+    hidden = _layer_norm(hidden, params["final_ln"], cfg.layer_norm_eps)
+    if output_hidden_states:
+        return hidden, torch.stack(per_layer)
+    return hidden

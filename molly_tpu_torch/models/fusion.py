@@ -28,8 +28,12 @@ Params = Dict[str, Any]
 
 
 def init_params(cfg: FusionConfig, generator: torch.Generator,
-                device="cpu") -> Params:
+                device="cpu", given: Optional[Params] = None) -> Params:
+    """Random init from ``generator``. ``given`` maps subtree names
+    (``text``, ``dna_rna``, ...) to params loaded already, such as an
+    imported checkpoint: those are taken as they are and not drawn."""
     dt = torch_dtype(cfg.text.dtype)
+    given = given or {}
 
     def projector(d_in, d_out):
         # nn.Linear default init: U(-1/sqrt(in), 1/sqrt(in))
@@ -39,15 +43,16 @@ def init_params(cfg: FusionConfig, generator: torch.Generator,
         return {"kernel": (w * (2 * bound) - bound).to(dt),
                 "bias": torch.zeros((d_out,), dtype=dt, device=device)}
 
-    return {
-        "text": qwen3.init_params(cfg.text, generator, device),
-        "dna_rna": esm.init_params(cfg.dna_rna, generator, device),
-        "protein": esm.init_params(cfg.protein, generator, device),
-        "dna_rna_projector": projector(cfg.dna_rna.hidden_size,
-                                       cfg.text.hidden_size),
-        "protein_projector": projector(cfg.protein.hidden_size,
-                                       cfg.text.hidden_size),
+    draw = {
+        "text": lambda: qwen3.init_params(cfg.text, generator, device),
+        "dna_rna": lambda: esm.init_params(cfg.dna_rna, generator, device),
+        "protein": lambda: esm.init_params(cfg.protein, generator, device),
+        "dna_rna_projector": lambda: projector(cfg.dna_rna.hidden_size,
+                                               cfg.text.hidden_size),
+        "protein_projector": lambda: projector(cfg.protein.hidden_size,
+                                               cfg.text.hidden_size),
     }
+    return {k: given[k] if k in given else make() for k, make in draw.items()}
 
 
 def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
@@ -65,7 +70,10 @@ def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
     with torch.no_grad() if frozen else torch.enable_grad():
         h = esm.forward_hidden(params[enc_name], enc_cfg, flat, mask)
     proj = params[proj_name]
-    out = h @ proj["kernel"] + proj["bias"]
+    # fp32 projectors (a PEFT directory's .bin files) over a bf16 encoder
+    # promote as JAX does: the product in fp32, rounded once at injection
+    dt = torch.promote_types(h.dtype, proj["kernel"].dtype)
+    out = h.to(dt) @ proj["kernel"].to(dt) + proj["bias"]
     return out.reshape(B, G, K, -1)
 
 

@@ -410,8 +410,13 @@ def forward_hidden(
     lora_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,  # LoRA dropout stream
     lora_slots: Optional[torch.Tensor] = None,  # [B] adapter index per row
+    output_hidden_states: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the decoder stack; returns (final hidden states, cache).
+
+    ``output_hidden_states`` (no-cache path only) adds a third element: each
+    layer's output [L, B, S, H] before the final norm, which the parity
+    runner (``tools.parity``) holds against HF's ``hidden_states``.
 
     MoE models (``cfg.num_experts > 0``), no-cache path: the second slot
     (training has no KV cache) carries ``{"moe_aux": {"load_balance",
@@ -435,6 +440,8 @@ def forward_hidden(
     ``full`` checkpoints the whole layer; ``attn`` and ``hot`` checkpoint
     the parts before and after attention and keep the attention call (its
     q, k, v, output and LSE) out of the recompute. ``dots`` is refused."""
+    if output_hidden_states and cache is not None:
+        raise ValueError("output_hidden_states is for the no-cache path")
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     hidden = inputs_embeds
@@ -480,7 +487,7 @@ def forward_hidden(
     # between dispatches) and writes its own rows of the shared pools
     paged = (paged_layer_views(cache, L, cache_index)
              if cache is not None and "k_pages" in cache else None)
-    aux_layers = []
+    aux_layers, per_layer = [], []
     for li in range(L):
         p = layer_params[li]
         ll = lora_params[li] if lora_params is not None else None
@@ -504,10 +511,14 @@ def forward_hidden(
             hidden, aux = _layer(*args)
         if aux is not None:
             aux_layers.append(aux)
+        if output_hidden_states:
+            per_layer.append(hidden)
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     if aux_layers:  # only without a cache
         lb, z = torch.stack(aux_layers).mean(dim=0)
-        return hidden, {"moe_aux": {"load_balance": lb, "router_z": z}}
+        cache = {"moe_aux": {"load_balance": lb, "router_z": z}}
+    if output_hidden_states:
+        return hidden, cache, torch.stack(per_layer)
     return hidden, cache
 
 

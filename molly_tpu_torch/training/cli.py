@@ -11,8 +11,11 @@ Usage:
 
 The flags and defaults are the JAX CLI's. The mesh flags are accepted and
 must be 1 (or -1 for ``--mesh-fsdp``): the multi-device slice is not ported
-(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state`` and
-the HF model paths are refused with the ROADMAP.md item that carries them.
+(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state`` is
+refused with the ROADMAP.md item that carries it. ``--text-model-path``,
+``--dna-rna-model-path`` and ``--protein-model-path`` are HF checkpoint
+directories imported by ``models.hf_import`` (``build_params``) unless
+``--no-load-pretrained`` or ``--tiny`` is given.
 ``--moe-experts`` / ``--moe-topk`` turn the text decoder into a sparse MoE
 (as does an MoE ``--text-preset``); its ``moe_load_balance`` is logged. The loop itself is
 ``train_loop``, which takes datasets or in-memory lists of encoded samples
@@ -176,17 +179,36 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--offload-opt-state (optimizer moments in host "
                          "memory, a one-device option) is not ported: "
                          "ROADMAP.md queue 1 item 8")
-    if not args.tiny and not args.no_load_pretrained and (
-            args.text_model_path or args.dna_rna_model_path
-            or args.protein_model_path):
-        raise SystemExit("HF checkpoint import (models/hf_import.py) is not "
-                         "ported: ROADMAP.md queue 1 item 7; pass "
-                         "--no-load-pretrained for random weights")
 
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     run_training(args)
+
+
+def build_params(args, cfg, device):
+    """The params a run starts from: ``--text-model-path``,
+    ``--dna-rna-model-path`` and ``--protein-model-path`` imported from their
+    HF directories in the model dtype (unless ``--no-load-pretrained`` or
+    ``--tiny``), everything else random from ``--seed``."""
+    import torch
+
+    from ..models import fusion
+    loaded = {}
+    if not args.no_load_pretrained and not args.tiny:
+        from ..models.hf_import import esm_from_hf, load_hf_state, \
+            qwen3_from_hf
+        if args.text_model_path:
+            loaded["text"] = qwen3_from_hf(
+                load_hf_state(args.text_model_path), cfg.text, device=device)
+        for name, path in (("dna_rna", args.dna_rna_model_path),
+                           ("protein", args.protein_model_path)):
+            if path:
+                loaded[name] = esm_from_hf(load_hf_state(path),
+                                           getattr(cfg, name), device=device)
+    return fusion.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device,
+        given=loaded)
 
 
 def train_loop(state, cfg, tc, train_data, *, eval_data=None,
@@ -369,8 +391,8 @@ def run_training(args) -> dict:
 
     from ..data import (DataConfig, OmicsDataset,
                         default_modality_tokenizers, load_text_tokenizer)
-    from ..models import (ESM_PRESETS, QWEN3_PRESETS, FusionConfig, fusion,
-                          qwen3, tiny_esm, tiny_qwen3)
+    from ..models import (ESM_PRESETS, QWEN3_PRESETS, FusionConfig, qwen3,
+                          tiny_esm, tiny_qwen3)
     from ..models.lora import LoraConfig
     from ..utils import MetricLogger, print_rank_0, time_count
     from ..utils.tree import leaves
@@ -416,9 +438,7 @@ def run_training(args) -> dict:
                        protein_k_tokens=args.protein_k_tokens)
 
     with time_count("init params"):
-        params = fusion.init_params(
-            cfg, torch.Generator(device=device).manual_seed(args.seed),
-            device)
+        params = build_params(args, cfg, device)
     n_params = sum(t.numel() for t in leaves(params))
     print_rank_0(f"Total parameters: {n_params:,}")
 

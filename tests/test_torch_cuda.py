@@ -1566,3 +1566,62 @@ def test_grouped_gemm_refuses_what_the_kernel_does_not_take(dev):
         gg.grouped_gemm(lhs.half(), rhs.half(), gs)
     with pytest.raises(ValueError):     # a strided rhs view
         gg.grouped_gemm(lhs, rhs.transpose(1, 2), gs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hf_checkpoint_and_peft_adapter_load_onto_the_card(dev, tmp_path,
+                                                           dtype):
+    """A tiny HF checkpoint written by the port's writer imports onto the
+    card bit-equal to the CPU import (the rounding to bf16 happens on the
+    card), its logits match the CPU's, and a PEFT directory loaded onto the
+    card equals the CPU's load; merged, within fp32 rounding."""
+    from molly_tpu_torch.inference import cli
+    from molly_tpu_torch.models import qwen3
+    from molly_tpu_torch.models.configs import tiny_qwen3
+    from molly_tpu_torch.models.hf_export import (peft_lora_to_hf_state,
+                                                  save_hf_checkpoint,
+                                                  write_safetensors)
+    from molly_tpu_torch.models.hf_import import load_hf_state, qwen3_from_hf
+    from molly_tpu_torch.models.lora import LoraConfig, init_lora, merge_lora
+    from molly_tpu_torch.utils.tree import leaves
+
+    # head_dim 64: the flash kernels take 64 or 128
+    kw = dict(vocab_size=384, head_dim=64, tie_word_embeddings=False)
+    cfg = tiny_qwen3(**kw)
+    g = torch.Generator().manual_seed(0)
+    save_hf_checkpoint(str(tmp_path / "hf"), qwen3.init_params(cfg, g), cfg)
+    state = load_hf_state(str(tmp_path / "hf"))
+    run_cfg = tiny_qwen3(dtype=dtype, **kw)
+    cpu = qwen3_from_hf(state, run_cfg)
+    card = qwen3_from_hf(state, run_cfg, device=dev)
+    for a, b in zip(leaves(card), leaves(cpu)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    if dtype == "float32":
+        ids = torch.randint(0, 384, (2, 24), generator=g)
+        with torch.no_grad():
+            ref = qwen3.forward_logits(cpu, run_cfg, input_ids=ids)
+            got = qwen3.forward_logits(card, run_cfg, input_ids=ids.to(dev))
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+    adapter = init_lora(cfg, LoraConfig(r=4), g)
+    adapter["layers"] = {t: {"a": ab["a"], "b": ab["b"] + 0.01}
+                         for t, ab in adapter["layers"].items()}
+    (tmp_path / "peft").mkdir()
+    write_safetensors(str(tmp_path / "peft" / "adapter_model.safetensors"),
+                      peft_lora_to_hf_state(adapter, cfg))
+    (tmp_path / "peft" / "adapter_config.json").write_text(
+        '{"lora_alpha": 8}')
+    lora_cpu, alpha = cli.load_peft_adapter(str(tmp_path / "peft"), cfg)
+    lora_card, _ = cli.load_peft_adapter(str(tmp_path / "peft"), cfg,
+                                         device=dev)
+    assert alpha == 8
+    for a, b in zip(leaves(lora_card), leaves(lora_cpu)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    lcfg = LoraConfig(r=4, alpha=8.0)
+    ref = merge_lora(cpu, lora_cpu, lcfg)
+    got = merge_lora(card, lora_card, lcfg)
+    for a, b in zip(leaves(got), leaves(ref)):
+        # fp32: the merge's sums in another order; bf16: one rounding more
+        tol = 1e-6 if dtype == "float32" else \
+            b.float().abs().max().item() * 2 ** -8
+        assert (a.cpu().float() - b.float()).abs().max().item() <= tol

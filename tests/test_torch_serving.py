@@ -572,11 +572,19 @@ def test_cli_refuses_unported_flags(flags, entry):
     assert entry in str(exc.value)
 
 
-def test_cli_parses_the_jax_cli_flags_and_refuses_peft_adapter():
+def test_cli_parses_the_jax_cli_flags_and_loads_peft_adapter(tmp_path):
     """The port's batch CLI parses exactly the JAX CLI's flags (plus
     ``--device``), the five that only parse with the JAX CLI's defaults,
-    and refuses ``--peft-adapter`` by its ROADMAP.md item."""
+    and loads a ``--peft-adapter`` directory (merged once at load, alpha
+    from its adapter_config.json)."""
     from molly_tpu.inference.cli import build_argparser as jparser
+    from molly_tpu_torch.data import (default_modality_tokenizers,
+                                      load_text_tokenizer)
+    from molly_tpu_torch.models import fusion
+    from molly_tpu_torch.models.hf_export import (peft_lora_to_hf_state,
+                                                  write_safetensors)
+    from molly_tpu_torch.models.lora import (LoraConfig, init_lora,
+                                             merge_lora)
 
     def flags(p):
         return {a.dest: a.default for a in p._actions if a.dest != "help"}
@@ -586,11 +594,28 @@ def test_cli_parses_the_jax_cli_flags_and_refuses_peft_adapter():
     assert set(jf) <= set(tf)
     for dest in ("peft_adapter", "lookup_k", "lookup_n", "host", "port"):
         assert tf[dest] == jf[dest]
-    with pytest.raises(SystemExit, match="ROADMAP.md.*item 7") as exc:
-        cli.main(["--input-file", "none.parquet", "--output-file",
-                  "none.jsonl", "--tiny", "--device", "cpu",
-                  "--peft-adapter", "x"])
-    assert "--peft-adapter" in str(exc.value)
+    args = cli.build_argparser().parse_args(
+        ["--input-file", "x", "--output-file", "y", "--tiny",
+         "--peft-adapter", str(tmp_path)])
+    cli.refuse_unported(args)  # no longer refused
+    cfg = cli.build_config(args, load_text_tokenizer(None),
+                           *default_modality_tokenizers())
+    g = torch.Generator().manual_seed(0)
+    adapter = init_lora(cfg.text, LoraConfig(r=4), g)
+    adapter["layers"] = {t: {"a": ab["a"], "b": ab["b"] + 0.01}
+                         for t, ab in adapter["layers"].items()}
+    write_safetensors(str(tmp_path / "adapter_model.safetensors"),
+                      peft_lora_to_hf_state(adapter, cfg.text))
+    with open(tmp_path / "adapter_config.json", "w") as f:
+        f.write('{"r": 4, "lora_alpha": 8}')
+    params = cli._load_params(args, cfg, "cpu")
+    base = fusion.init_params(
+        cfg, torch.Generator().manual_seed(args.seed))
+    want = merge_lora(base["text"], adapter, LoraConfig(r=4, alpha=8.0))
+    for name, w in want["layers"].items():
+        assert torch.equal(params["text"]["layers"][name], w), name
+    assert not torch.equal(params["text"]["layers"]["q_proj"],
+                           base["text"]["layers"]["q_proj"])
     args = cli.build_argparser().parse_args(
         ["--input-file", "a", "--output-file", "b", "--lookup-k", "4",
          "--lookup-n", "2", "--host", "0.0.0.0", "--port", "9000"])

@@ -511,10 +511,12 @@ def test_train_cli_flags_match_the_jax_cli_and_refuse_the_unported():
     assert set(tf) - set(jf) == {"device"}
     base = ["--train-dataset-path", "x.parquet"]
     for extra in (["--mesh-data", "2"], ["--mesh-fsdp", "4"],
-                  ["--mesh-expert", "2"], ["--offload-opt-state", "true"],
-                  ["--text-model-path", "/some/hf/dir"]):
+                  ["--mesh-expert", "2"], ["--offload-opt-state", "true"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             _refuse_unported(build_argparser().parse_args(base + extra))
+    # the HF model paths are imported now (training.cli.build_params)
+    _refuse_unported(build_argparser().parse_args(
+        base + ["--text-model-path", "/some/hf/dir"]))
     with pytest.raises(SystemExit, match="one-device.*ROADMAP.*item 8"):
         _refuse_unported(build_argparser().parse_args(
             base + ["--offload-opt-state", "true"]))
