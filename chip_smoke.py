@@ -69,12 +69,31 @@ Phases, each printed with its time; any failure exits non-zero:
   4. small reference, generation: a small fp32 fusion model on the card
      (through the kernels) against the same weights on the CPU (plain
      versions): logits and greedy tokens must agree.
+  4b. small reference, speculative decoding: the small model with unit-
+     scale text weights (so greedy tokens vary), one fusion prompt whose
+     text repeats a pattern: greedy ``generate_speculative`` with the int8
+     self-draft (``quantize_for_decode``) at k = 1, 3, 4 and
+     ``generate_lookup`` at k = 8, n = 3, each equal to the target's own
+     greedy ``generate`` exactly, on the card and on the CPU, with the
+     card's tokens and round counts equal to the CPU's.
   5. small reference, serving: the same model through ``ServingEngine``
      and ``PagedServingEngine`` (fp32 pages and int8 pages, page size 16) on
      the card against the same engines on the CPU: greedy tokens equal
      (int8: first tokens equal, at most 3 flips), with a page pool small
      enough that requests are preempted, and every page back on the free
      list.
+  5b. small reference, offline ring: ``run_offline`` of the 4b model over
+     12 left-padded requests (every third tri-modal) into 4 slots in
+     admission groups of 2, 24 new tokens, greedy: KV in the model dtype,
+     int8 KV, ``spec_lookup`` 4 and the adaptive threshold (0.2, chunks of
+     4); each equals ``ServingEngine``'s dense ring on the same device
+     (int8: first tokens equal, at most 3 flips) and the card equals the
+     CPU.
+  5c. small reference, HTTP API: ``OnlineServer`` on 127.0.0.1 over
+     ``PagedServingEngine`` (int8 pages of 16) of the 4b model with two
+     adapters in one bank over ``quantize_for_decode(fuse=False)``; each
+     adapter's greedy completion equals a single-adapter paged engine with
+     that adapter merged (the int8-pages rule), the base model's differs.
   6. small reference, training: the same model, one full fine-tune step and
      one LoRA step on the card against the CPU (loss and every trainable
      gradient), and five steps on one repeated batch must lower the loss.
@@ -94,6 +113,36 @@ Phases, each printed with its time; any failure exits non-zero:
      backfill, chunk 16, admission groups of 4, 32 new tokens, once with
      paged KV in bf16 pages of 64 (sampled), once with int8 pages of 128
      (greedy); then the dense ring with 4 requests and 16 new tokens.
+  8b. prompt lookup, molly-1.7B width, on phase 7's bf16 weights: the
+     batch CLI's ``run_lookup`` (``--decoding lookup --lookup-k 8
+     --lookup-n 3``) over the phase-7 requests, greedy, 32 new tokens,
+     against ``run_batches`` greedy one request a batch under the near-tie
+     rule (below); rounds, accepted drafts a round and tokens/s beside
+     plain greedy's.
+  8c. self-draft speculation: ``generate_speculative`` with the int8 copy
+     of the same weights as draft, k = 4, the first request; the same rule
+     and prints.
+  8d. the offline ring: ``run_offline_ring`` (``--offline-ring``), 12
+     tri-modal requests into 8 slots, admission groups of 4, 32 new tokens,
+     greedy, with bf16 KV, int8 KV and ``--ring-spec 8``; the bf16 run and
+     ``run_serve``'s dense ring (same slots, groups and requests) under the
+     near-tie rule, the ``--ring-spec`` run against the bf16 ring;
+     requests/s, tokens/s, ticks, admissions and host syncs printed.
+  8e. the HTTP API: ``run_api_server`` (``--api-serve``) on 127.0.0.1 at an
+     ephemeral port over paged bf16 pages of 64, 8 slots, driven from
+     client threads: 8 concurrent tri-modal completions (greedy, 16
+     tokens), a streamed request equal to its non-streamed twin, a chat
+     completion, /v1/embeddings of 4 inputs (2048 + 1280 + 1280 wide,
+     within 1e-2 of the max of ``embed_batch`` called directly), /health and
+     /v1/models, then a clean shutdown; every paged launch on the split
+     kernel.
+     The near-tie rule: two greedy runs of the same requests give equal
+     tokens up to the first position where the reference's gap between its
+     top two repetition-penalized logits is below 2^-7 of its largest
+     |logit| (its own logits, recorded while it runs); the position and
+     gap are printed, and a difference before it fails. The 8d bf16 ring
+     is the reference of ``run_serve``'s dense ring and of the
+     ``--ring-spec`` ring.
   8a. checkpoints, molly-1.7B width, on phase 7's bf16 weights (before
      training changes them): ``save_hf_checkpoint`` of the text decoder (fp32
      safetensors by the port's own writer, ~6.9 GB, into a temporary
@@ -119,6 +168,15 @@ Phases, each printed with its time; any failure exits non-zero:
      load_adapter, merge_lora and 8 greedy tokens through ``run_batches``.
  11. main path, generation, int8: the requests of phase 7 after
      ``quantize_for_decode``, greedy.
+ 11a. int8, after phase 11's ``quantize_for_decode``: ``run_lookup`` and
+     ``run_offline_ring`` with ``ring_spec`` 8 over the int8 decoder (16 new
+     tokens; int8 launches on both the TMA kernel and the weight stream,
+     none on SIMT), then ``esm.quantize_for_decode`` of both encoders: the
+     phase-7 requests' projected embeddings no further from the bf16
+     encoders' than the quantization's own error in fp32 (the int8 weights
+     dequantized against the bf16 ones) plus twice bf16's against fp32 (the
+     design's 5e-2 of the max is printed beside it), every encoder int8
+     launch on the TMA kernel.
  12. checks: every kernel of each main-path run launched at least once in
      that run (counts set to 0 just before it, read just after); each paged
      serving run launched the paged kernel, the flash forward and the
@@ -138,6 +196,11 @@ Phases, each printed with its time; any failure exits non-zero:
  15. main path, MoE generation, int8 experts: ``quantize_for_decode(
      moe_experts=True, donate=True)`` (fused int8 gate-and-up stacks, the
      bf16 stacks released leaf by leaf), greedy, 16 new tokens.
+ 15b. the offline ring over the same int8 experts: ``run_offline_ring``,
+     the phase-7 requests into 8 slots (one admission group of 4), 16 new
+     tokens, greedy, under the near-tie rule against phase 15's tokens; the
+     admission's grouped GEMMs on the int8 TMA kernel (2 a layer), every
+     tick's on the split stream, none on grouped_gemm.cu.
  15a. checkpoints, qwen3-30b-a3b width, on phase 16's weights before they
      train (4 of 48 layers, in memory): ``qwen3_to_hf_state`` writes the
      per-expert keys (4 x 128 x 3) and ``qwen3_from_hf`` restacks them on
@@ -2131,6 +2194,12 @@ def drive_main_paths(seed: int, profile_dir=None):
         GenerationConfig(max_new_tokens=16, do_sample=True, **common),
         ("flash_attention_fwd", "rmsnorm_fwd"), n_slots=4)
 
+    # the rest of serving (8b-8e), on phase 7's weights before training
+    inp = dict(text_tok=text_tok, samples=samples,
+               serve_samples=serve_samples, enc=enc, common=common,
+               modality_toks=(dna_tok, prot_tok))
+    serving_rest_paths(seed, params, cfg, inp, add)
+
     # the checkpoint phases read phase 7's weights, which training changes
     checkpoint_paths(seed, params, cfg, train_cfg, dict(
         text_tok=text_tok, samples=samples, train_samples=train_samples,
@@ -2184,6 +2253,7 @@ def drive_main_paths(seed: int, profile_dir=None):
     run_path("generation, int8 greedy", params, cfg, samples,
              GenerationConfig(max_new_tokens=16, do_sample=False, **common),
              ("flash_attention_fwd", "rmsnorm_fwd", "int8_matmul"))
+    int8_rest_paths(seed, params, cfg, inp, add)
     log(f"  peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params  # the 30B-A3B weights need the room
@@ -2193,6 +2263,845 @@ def drive_main_paths(seed: int, profile_dir=None):
         samples=samples, serve_samples=serve_samples,
         train_samples=train_samples, common=common))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the rest of serving: speculation, the offline ring, the HTTP API
+# ---------------------------------------------------------------------------
+
+
+def varied_config():
+    """The small model with an untied head (phases 4b-5c)."""
+    import dataclasses
+    cfg = small_config()
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, tie_word_embeddings=False))
+
+
+def varied_small(params):
+    """The small model's text weights at unit scale (embedding unit normal,
+    each stacked linear and the untied head N(0, 1/fan_in)), drawn from a
+    fixed generator, so that greedy tokens vary (the 0.02 init, or a tied
+    head, repeats one token)."""
+    import torch
+    g = torch.Generator().manual_seed(17)
+    text = params["text"]
+    text["embed"] = torch.randn(text["embed"].shape, generator=g)
+    for name, w in text["layers"].items():
+        if not isinstance(w, dict) and w.ndim == 3:
+            text["layers"][name] = (torch.randn(w.shape, generator=g)
+                                    * w.shape[1] ** -0.5)
+    text["lm_head"] = (torch.randn(text["lm_head"].shape, generator=g)
+                       * text["lm_head"].shape[0] ** -0.5)
+    return params
+
+
+def spec_prompt(seed: int):
+    """A fusion prompt [1, 48] whose text repeats a 6-token pattern (so the
+    lookup draft finds matches), with a DNA segment at position 2."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    pat = torch.randint(1, 384, (6,), generator=g)
+    ids = torch.cat([torch.randint(1, 384, (20,), generator=g),
+                     pat.repeat(4), pat[:4]])[None]
+    return {"input_ids": ids,
+            "attention_mask": torch.ones_like(ids, dtype=torch.int32),
+            "dna_rna_tokens": torch.randint(6, 4102, (1, 1, 16),
+                                            generator=g),
+            "dna_rna_pos": torch.tensor([[2]])}
+
+
+def small_reference_speculative(seed: int):
+    """Phase 4b. The small fp32 model's greedy ``generate_speculative``
+    with the int8 self-draft at k = 1, 3, 4 and ``generate_lookup`` at
+    k = 8, n = 3: on the card and on the CPU each equals the target's own
+    greedy ``generate`` (what ``run_batches`` calls) exactly, and the card's
+    tokens equal the CPU's."""
+    import torch
+
+    from molly_tpu_torch.inference.engine import generate
+    from molly_tpu_torch.inference.speculative import (generate_lookup,
+                                                       generate_speculative)
+    from molly_tpu_torch.models import GenerationConfig, fusion, qwen3
+    from molly_tpu_torch.utils.tree import tree_to
+
+    cfg = varied_config()
+    cpu = varied_small(fusion.init_params(cfg,
+                                          torch.Generator().manual_seed(seed)))
+    gpu = tree_to(cpu, "cuda")
+    batch = spec_prompt(seed)
+    gen = GenerationConfig(max_new_tokens=24, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=0)
+    runs = {}
+    with torch.inference_mode():
+        for where, p in (("cpu", cpu), ("cuda", gpu)):
+            b = {k: t.to(where) for k, t in batch.items()}
+            ref = generate(p, cfg, b, gen).cpu()
+            emb = fusion.build_inputs_embeds(p, cfg, b)
+            draft = qwen3.quantize_for_decode(p["text"], cfg.text)
+            out = {"target": (ref, None, None)}
+            for k in (1, 3, 4):
+                out[f"self-draft k={k}"] = generate_speculative(
+                    p["text"], cfg.text, draft, cfg.text, b["input_ids"],
+                    gen, k=k, inputs_embeds=emb, return_stats=True)
+            out["lookup k=8 n=3"] = generate_lookup(
+                p["text"], cfg.text, b["input_ids"], gen, k=8, n=3,
+                inputs_embeds=emb, return_stats=True)
+            runs[where] = out
+    ref = runs["cpu"]["target"][0]
+    if len(set(ref[0].tolist())) < 4:
+        raise AssertionError("small speculative reference: the target's "
+                             "tokens do not vary")
+    for name in runs["cpu"]:
+        (ct, cr, ca), (gt, gr, ga) = runs["cpu"][name], runs["cuda"][name]
+        gt = gt.cpu()
+        log(f"  small speculative reference, {name}: rounds {gr}, accepted "
+            f"drafts {ga}; equal to the target's greedy: card "
+            f"{bool(torch.equal(gt, ref))}, CPU {bool(torch.equal(ct, ref))}"
+            f"; card equals CPU {bool(torch.equal(gt, ct))}")
+        if not (torch.equal(gt, ref) and torch.equal(ct, ref)
+                and (gr, ga) == (cr, ca)):
+            raise AssertionError(f"small speculative reference, {name}: "
+                                 f"tokens or rounds differ")
+
+
+def small_ring_queue(seed: int, n: int = 12, bucket: int = 64):
+    """n left-padded prompts in one bucket (every third tri-modal) for the
+    ring and its per-request batches for the engine."""
+    import numpy as np
+
+    from molly_tpu_torch.inference.server import _pad_to_bucket
+    rng = np.random.default_rng(seed)
+    rows, batches = [], []
+    for i in range(n):
+        s = int(rng.integers(24, bucket + 1))
+        b = {"input_ids": rng.integers(1, 384, (1, s)).astype(np.int32),
+             "attention_mask": np.ones((1, s), np.int32),
+             "dna_rna_tokens": rng.integers(6, 4102, (1, 1, 16)).astype(
+                 np.int32),
+             "dna_rna_pos": np.asarray([[2 if i % 3 == 0 else -1]],
+                                       np.int32)}
+        batches.append(b)
+        rows.append(_pad_to_bucket(b, bucket, 0))
+    queue = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    return queue, batches
+
+
+def small_reference_ring(seed: int):
+    """Phase 5b. ``run_offline`` of the small fp32 model over 12 requests
+    into 4 slots in admission groups of 2: KV in the model dtype and int8,
+    greedy, then with ``spec_lookup`` 4 and with the adaptive threshold.
+    Each equals the port's ``ServingEngine`` dense ring on the same device
+    exactly (int8 KV: first tokens equal, at most 3 flips), and the card
+    equals the CPU."""
+    import numpy as np
+    import torch
+
+    from molly_tpu_torch.inference.offline import run_offline
+    from molly_tpu_torch.inference.server import Request, ServingEngine
+    from molly_tpu_torch.models import GenerationConfig, fusion
+    from molly_tpu_torch.utils.tree import tree_to
+
+    cfg = varied_config()
+    cpu = varied_small(fusion.init_params(cfg,
+                                          torch.Generator().manual_seed(seed)))
+    gpu = tree_to(cpu, "cuda")
+    queue, batches = small_ring_queue(seed + 4)
+    T, bucket = 24, 64
+    gen = GenerationConfig(max_new_tokens=T, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=0)
+    omics = {k: queue[k] for k in ("dna_rna_tokens", "dna_rna_pos")}
+    variants = {"model-dtype KV": {}, "int8 KV": {"kv_quant": "int8"},
+                "spec_lookup 4": {"spec_lookup": 4},
+                "adaptive": {"spec_lookup": 4, "spec_threshold": 0.2,
+                             "spec_chunk": 4}}
+    got = {}
+    for where, p in (("cpu", cpu), ("cuda", gpu)):
+        for quant in (None, "int8"):
+            eng = ServingEngine(p, cfg, gen, n_slots=4, max_len=bucket + T,
+                                prefill_buckets=(bucket,), kv_quant=quant)
+            res = eng.run([Request(uid=i, batch=dict(b))
+                           for i, b in enumerate(batches)])
+            got[where, "engine", quant] = [np.asarray(res[i])
+                                           for i in range(len(batches))]
+        for name, kw in variants.items():
+            out = run_offline(p, cfg, gen, queue["input_ids"],
+                              queue["attention_mask"], n_slots=4,
+                              max_len=bucket + T + kw.get("spec_lookup", 0),
+                              admit_group=2, queue_omics=omics, **kw)
+            got[where, name] = [out["tokens"][i, :out["lengths"][i]]
+                                for i in range(len(batches))]
+            if where == "cuda":
+                log(f"  small ring reference, {name}: {out['ticks']} ticks, "
+                    f"{out['decode_ticks']} decode ticks, accepted "
+                    f"{out['accepted']}, {out['host_syncs']} host syncs")
+
+    def flips(a, b):
+        if [len(x) for x in a] != [len(x) for x in b]:
+            return None
+        return sum(int(np.sum(x != y)) for x, y in zip(a, b))
+
+    for name, kw in variants.items():
+        quant = kw.get("kv_quant")
+        allowed = SERVE_INT8_FLIPS if quant else 0
+        for where in ("cpu", "cuda"):
+            ring, ref = got[where, name], got[where, "engine", quant]
+            f = flips(ring, ref)
+            firsts = all(x[0] == y[0] for x, y in zip(ring, ref))
+            log(f"  small ring reference, {name}, {where}: {f} tokens differ "
+                f"from ServingEngine (allowed {allowed}), first tokens "
+                f"equal: {firsts}")
+            if f is None or f > allowed or not firsts:
+                raise AssertionError(f"small ring reference, {name}, "
+                                     f"{where}: the ring disagrees with the "
+                                     f"engine")
+        f = flips(got["cuda", name], got["cpu", name])
+        if f is None or f > allowed:
+            raise AssertionError(f"small ring reference, {name}: the card "
+                                 f"disagrees with the CPU ({f} tokens)")
+    if len({int(t) for r in got["cpu", "model-dtype KV"] for t in r}) < 8:
+        raise AssertionError("small ring reference: tokens do not vary")
+
+
+def small_reference_api(seed: int):
+    """Phase 5c. The HTTP API on 127.0.0.1 over ``PagedServingEngine``
+    (int8 pages of 16) of the small model, with two adapters in one
+    multi-LoRA bank over ``quantize_for_decode(fuse=False)``: each
+    adapter's greedy completion (token ids spelled out by the server's
+    tokenizer) equals a single-adapter paged engine with that adapter merged
+    (first tokens equal, at most 3 flips, the int8-pages rule), and the
+    base model's differs from both."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from molly_tpu_torch.data import (DataConfig, OmicsSampleEncoder,
+                                      default_modality_tokenizers,
+                                      load_text_tokenizer)
+    from molly_tpu_torch.inference import api_server
+    from molly_tpu_torch.inference.paged import PagedServingEngine
+    from molly_tpu_torch.inference.server import REQUEST_KEYS, Request
+    from molly_tpu_torch.models import GenerationConfig, fusion, qwen3
+    from molly_tpu_torch.models.lora import (LoraConfig, init_lora,
+                                             merge_lora, stack_adapters)
+    from molly_tpu_torch.utils.tree import tree_to
+
+    cfg = varied_config()
+    params = tree_to(varied_small(fusion.init_params(
+        cfg, torch.Generator().manual_seed(seed))), "cuda")
+    text_tok = load_text_tokenizer(None)
+    dna_tok, prot_tok = default_modality_tokenizers()
+    enc = OmicsSampleEncoder(text_tok, dna_tok, prot_tok, DataConfig(
+        max_len=192, dna_rna_k_tokens=16, protein_k_tokens=16))
+    lcfg = LoraConfig(r=8, alpha=16.0)
+    adapters = []
+    for i in range(2):
+        g = torch.Generator("cuda").manual_seed(seed + 10 + i)
+        ad = init_lora(cfg.text, lcfg, g, device="cuda")
+        for ab in ad["layers"].values():
+            ab["b"].normal_(0.0, 0.3, generator=g)
+        adapters.append(ad)
+    with torch.no_grad():
+        base = qwen3.quantize_for_decode(params["text"], cfg.text,
+                                         fuse=False)
+    bank = stack_adapters(adapters, scales=[lcfg.scale] * 2)
+    gen = GenerationConfig(max_new_tokens=8, do_sample=False,
+                           repetition_penalty=1.1,
+                           eos_token_id=text_tok.eos_token_id,
+                           pad_token_id=text_tok.pad_token_id)
+    prompt = f"Does <dna>{'ACGT' * 12}</dna> bind <protein>MKTAYIAKQR</protein>?"
+    paged = dict(n_slots=4, decode_chunk=4, kv_quant="int8", paged=True,
+                 page_size=16)
+    online = api_server.OnlineServer({**params, "text": base}, cfg, gen, enc,
+                                     TokenIds(text_tok), lora_bank=bank,
+                                     adapter_names=["a1", "a2"], **paged)
+    httpd = api_server.make_http_server(online, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    answers = {}
+    try:
+        for model in ("a1", "a2", "molly-tpu"):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions",
+                data=json.dumps({"prompt": prompt, "model": model,
+                                 "temperature": 0}).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            answers[model] = [int(t) for t in
+                              body["choices"][0]["text"].split()]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        online.close()
+    sample = enc.encode_test({"input": prompt})
+    batch = {k: np.asarray(sample[k])[None] for k in REQUEST_KEYS
+             if k in sample}
+    s_pre = len(enc.system_prompt_ids)
+    bucket = -(-(192 - (s_pre // 16) * 16) // 16) * 16
+    for i, model in enumerate(("a1", "a2")):
+        with torch.no_grad():
+            merged = merge_lora(base, adapters[i], lcfg)
+        eng = PagedServingEngine(
+            {**params, "text": merged}, cfg, gen, n_slots=4, page_size=16,
+            prefill_buckets=(bucket,), decode_chunk=4, kv_quant="int8",
+            prefix_ids=enc.system_prompt_ids)
+        ref = eng.run([Request(uid=0, batch=dict(batch))])[0].tolist()
+        ref = [t for t in ref if t != gen.pad_token_id]
+        got = answers[model]
+        flips = (sum(a != b for a, b in zip(got, ref))
+                 if len(got) == len(ref) else None)
+        log(f"  small API reference, adapter {model}: {got} against the "
+            f"merged engine's {ref}: {flips} differ (allowed "
+            f"{SERVE_INT8_FLIPS})")
+        if flips is None or flips > SERVE_INT8_FLIPS or got[0] != ref[0]:
+            raise AssertionError(f"small API reference, {model}: the bank "
+                                 f"disagrees with the merged adapter")
+    if answers["a1"] == answers["molly-tpu"] or \
+            answers["a2"] == answers["molly-tpu"]:
+        raise AssertionError("small API reference: an adapter was not "
+                             "routed")
+
+
+NEAR_TIE_REL = 2.0 ** -7  # the near-tie rule: top-two gap / max |logit|
+
+
+def ids_of(records):
+    """Token ids of ``TokenIds``-decoded JSONL records."""
+    return [[int(t) for t in r["decoded_output"].split()] for r in records]
+
+
+def penalized_gap(logits, presence, penalty):
+    """Per row: the gap between the top two repetition-penalized logits (the
+    quantity greedy decoding takes the argmax of), over the largest
+    |logit|. logits [R, V] fp32, presence [R, V] bool."""
+    import torch
+    pen = torch.where(logits > 0, logits / penalty, logits * penalty)
+    logits = torch.where(presence, pen, logits)
+    top = logits.topk(2, dim=-1).values
+    return ((top[:, 0] - top[:, 1]) / logits.abs().amax(dim=-1)).tolist()
+
+
+class LogitTap:
+    """While active, keep every ``qwen3.logits_from_hidden`` result: the
+    reference run's own logits, one [rows, V] tensor a call."""
+
+    def __enter__(self):
+        from molly_tpu_torch.models import qwen3
+        self.mod, self.orig, self.calls = qwen3, qwen3.logits_from_hidden, []
+
+        def tap(params, cfg, hidden):
+            out = self.orig(params, cfg, hidden)
+            self.calls.append(out.float())
+            return out
+
+        qwen3.logits_from_hidden = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.logits_from_hidden = self.orig
+        return False
+
+    def gaps(self, token_rows, penalty):
+        """Greedy generation's calls in lockstep (call i gives every row's
+        token i): each row's gap at each of its positions, the presence set
+        being the row's earlier tokens."""
+        import torch
+        out = [[] for _ in token_rows]
+        for i, lg in enumerate(self.calls):
+            rows = [r for r, t in enumerate(token_rows) if i < len(t)]
+            if not rows:
+                break
+            pres = torch.zeros((len(rows), lg.shape[-1]), dtype=torch.bool,
+                               device=lg.device)
+            for j, r in enumerate(rows):
+                pres[j, token_rows[r][:i]] = True
+            for r, g in zip(rows, penalized_gap(lg[rows], pres, penalty)):
+                out[r].append(g)
+        return out
+
+
+class RingTap:
+    """While active, the offline ring's admissions and plain ticks record
+    each request's gap (``penalized_gap``) at each position, from the
+    ring's own logits and presence sets: the reference gaps of a ring
+    run."""
+
+    def __init__(self, n_req: int, penalty: float):
+        self.n_req, self.penalty = n_req, penalty
+        self.by_pos = [dict() for _ in range(n_req)]
+
+    def __enter__(self):
+        import torch
+
+        from molly_tpu_torch.inference import offline
+        from molly_tpu_torch.models import qwen3
+        self.off, self.q = offline, qwen3
+        self.saved = (offline._decode_tick, offline._admit,
+                      qwen3.logits_from_hidden)
+        o_tick, o_admit, o_logits = self.saved
+        last = {}
+
+        def logits(params, cfg, hidden):
+            last["l"] = o_logits(params, cfg, hidden)
+            return last["l"]
+
+        def tick(params, st, generator, head, **kw):
+            V = kw["tcfg"].vocab_size
+            snap = (st["active"].clone(), st["req_of_slot"].clone(),
+                    st["out_len"].clone(), st["presence"][:, :V].clone())
+            o_tick(params, st, generator, head, **kw)
+            self.record(last["l"].float(), *snap)
+
+        def admit(params, st, generator, qh, **kw):
+            o_admit(params, st, generator, qh, **kw)
+            lg = last["l"].float()
+            k = lg.shape[0]
+            self.record(lg, torch.ones(k, dtype=torch.bool),
+                        qh + torch.arange(k), torch.zeros(k, dtype=torch.long),
+                        torch.zeros_like(lg, dtype=torch.bool))
+
+        offline._decode_tick, offline._admit = tick, admit
+        qwen3.logits_from_hidden = logits
+        return self
+
+    def __exit__(self, *exc):
+        (self.off._decode_tick, self.off._admit,
+         self.q.logits_from_hidden) = self.saved
+        return False
+
+    def record(self, lg, active, req, pos, presence):
+        gaps = penalized_gap(lg, presence.to(lg.device), self.penalty)
+        for g, a, r, p in zip(gaps, active.tolist(), req.tolist(),
+                              pos.tolist()):
+            if a and 0 <= r < self.n_req:
+                self.by_pos[r][p] = g
+
+    def gaps(self, token_rows):
+        return [[self.by_pos[r].get(i, 0.0) for i in range(len(t))]
+                for r, t in enumerate(token_rows)]
+
+
+def near_tie_check(label, ref_rows, got_rows, gaps):
+    """Two greedy runs agree up to the first position where the reference
+    run's own gap is below NEAR_TIE_REL: a difference before it fails.
+    Prints each row's first near tie, its first difference and the gap
+    there."""
+    for r, (a, b, g) in enumerate(zip(ref_rows, got_rows, gaps)):
+        tie = next((t for t, x in enumerate(g) if x < NEAR_TIE_REL), None)
+        diff = next((t for t in range(max(len(a), len(b)))
+                     if t >= len(a) or t >= len(b) or a[t] != b[t]), None)
+        tie_s = (f"first near tie at {tie} (gap {g[tie]:.2e} of max|logit|)"
+                 if tie is not None else f"no near tie in {len(a)} tokens "
+                 f"(smallest gap {min(g):.2e})")
+        diff_s = ("none" if diff is None else f"at {diff}" + (
+            f" (gap there {g[diff]:.2e})" if diff < len(g) else ""))
+        log(f"  {label}: request {r}: {tie_s}; first difference {diff_s}")
+        if diff is not None and (tie is None or diff < tie):
+            raise AssertionError(f"{label}: request {r} differs at {diff} "
+                                 f"before any near tie")
+
+
+def peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def serving_rest_paths(seed: int, params, cfg, inp, add):
+    """Phases 8b-8e at molly-1.7B width on phase 7's bf16 weights: the
+    batch CLI's ``--decoding lookup`` (``run_lookup``), the int8 self-draft
+    (``generate_speculative``), the ``--offline-ring`` (``run_offline_ring``:
+    KV in bf16, in int8, with ``--ring-spec 8``) and ``--api-serve``
+    (``run_api_server``) over paged bf16 pages. ``add`` takes each run's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from molly_tpu_torch.data import collate_test, collate_train
+    from molly_tpu_torch.inference import api_server
+    from molly_tpu_torch.inference import cli as icli
+    from molly_tpu_torch.inference.server import REQUEST_KEYS
+    from molly_tpu_torch.inference.speculative import generate_speculative
+    from molly_tpu_torch.models import GenerationConfig, fusion, qwen3
+    from molly_tpu_torch.tools.embed import embed_batch
+
+    text_tok, samples, enc = TokenIds(inp["text_tok"]), inp["samples"], \
+        inp["enc"]
+    common = inp["common"]
+    gen = GenerationConfig(max_new_tokens=32, do_sample=False, **common)
+    pen = common["repetition_penalty"]
+
+    def counted(label, fn, needed=("flash_attention_fwd", "rmsnorm_fwd")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        check_flash_tma(label)
+        check_paged_tma(label)
+        check_int8_tma(label)
+        for name in needed:
+            if counts[name] <= 0:
+                raise AssertionError(f"{label} never launched {name}")
+        add(counts)
+        log(f"  {label}: {dt:.3f} s, peak device memory {peak_gib():.2f} "
+            f"GiB; launches {counts}")
+        return out, dt
+
+    # the reference: plain greedy through run_batches, one request a batch
+    def plain_greedy():
+        recs, gaps = [], []
+        for s_ in samples:
+            with LogitTap() as tap:
+                rec = icli.run_batches([s_], params, cfg, gen, text_tok,
+                                       io.StringIO(), batch_size=1)
+            recs += rec
+            gaps += tap.gaps(ids_of(rec), pen)
+        return recs, gaps
+
+    with Phase("8b. reference: run_batches greedy, one request a batch, "
+               "32 new tokens"):
+        (recs, gaps), t_plain = counted("plain greedy", plain_greedy)
+        ref = ids_of(recs)
+        n_plain = sum(len(r) for r in ref)
+    with Phase("8b. --decoding lookup --lookup-k 8 --lookup-n 3, greedy, 32 "
+               "new tokens"):
+        stats = {}
+        recs, dt = counted("lookup", lambda: icli.run_lookup(
+            samples, params, cfg, gen, text_tok, io.StringIO(), k=8, n=3,
+            generator=torch.Generator("cuda").manual_seed(seed),
+            stats=stats))
+        near_tie_check("lookup", ref, ids_of(recs), gaps)
+        log(f"  lookup: {stats['rounds']} rounds, "
+            f"{stats['accepted'] / stats['rounds']:.2f} accepted drafts a "
+            f"round, {stats['tokens'] / dt:.1f} tokens/s against plain "
+            f"greedy's {n_plain / t_plain:.1f} (one request at a time)")
+
+    with Phase("8c. generate_speculative, int8 self-draft, k = 4, one "
+               "request, 32 new tokens"):
+        with torch.no_grad():
+            draft = qwen3.quantize_for_decode(params["text"], cfg.text)
+        row = collate_test([samples[0]])
+        b = {k: torch.as_tensor(v, device="cuda") for k, v in
+             icli._strip_left_pad({k: row[k] for k in REQUEST_KEYS
+                                   if k in row}).items()}
+
+        def spec():
+            with torch.inference_mode():
+                emb = fusion.build_inputs_embeds(params, cfg, b)
+            return generate_speculative(
+                params["text"], cfg.text, draft, cfg.text, b["input_ids"],
+                gen, k=4, inputs_embeds=emb, return_stats=True)
+
+        (toks, rounds, acc), dt = counted("self-draft", spec,
+                                          ("flash_attention_fwd",
+                                           "rmsnorm_fwd", "int8_matmul"))
+        toks = [t for t in toks[0].tolist() if t != gen.pad_token_id]
+        near_tie_check("self-draft", ref[:1], [toks], gaps[:1])
+        log(f"  self-draft: {rounds} rounds, {acc / rounds:.2f} accepted "
+            f"drafts a round, {len(toks) / dt:.1f} tokens/s against plain "
+            f"greedy's {n_plain / t_plain:.1f}")
+        del draft
+        release()
+
+    # the offline ring: 12 tri-modal requests into 8 slots, groups of 4
+    serve_samples = inp["serve_samples"]
+    with Phase("8d. run_serve dense ring, 12 requests, 8 slots, 32 new "
+               "tokens, greedy"):
+        recs, _ = counted("dense ring", lambda: icli.run_serve(
+            serve_samples, params, cfg, gen, text_tok, io.StringIO(),
+            n_slots=8, max_length=3072, prefix_ids=enc.system_prompt_ids,
+            decode_chunk=16, admit_batch=4))
+        serve_ids = ids_of(recs)
+    ring_runs = {}
+    # the bf16 ring is the reference: its own logits give the gaps
+    tap = RingTap(len(serve_samples), pen)
+    for name, kw in (("bf16 KV", {}), ("int8 KV", {"kv_int8": True}),
+                     ("--ring-spec 8", {"ring_spec": 8})):
+        with Phase(f"8d. --offline-ring, {name}, 12 requests, 8 slots, "
+                   f"groups of 4, 32 new tokens"):
+            stats = {}
+
+            def ring():
+                return icli.run_offline_ring(
+                    serve_samples, params, cfg, gen, text_tok, io.StringIO(),
+                    n_slots=8, max_length=3072, admit_group=4, stats=stats,
+                    generator=torch.Generator("cuda").manual_seed(seed),
+                    **kw)
+
+            if name == "bf16 KV":
+                with tap:
+                    recs, dt = counted(f"offline ring, {name}", ring)
+            else:
+                recs, dt = counted(f"offline ring, {name}", ring)
+            ring_runs[name] = ids_of(recs)
+            log(f"  offline ring, {name}: {len(recs) / dt:.2f} requests/s, "
+                f"{stats['tokens_out'] / dt:.1f} tokens/s, {stats['ticks']} "
+                f"ticks ({stats['decode_ticks']} decode), "
+                f"{-(-len(recs) // 4)} admissions, {stats['host_syncs']} "
+                f"host syncs, accepted drafts {stats['accepted']}")
+    ring_gaps = tap.gaps(ring_runs["bf16 KV"])
+    near_tie_check("offline ring bf16 KV against run_serve's dense ring",
+                   ring_runs["bf16 KV"], serve_ids, ring_gaps)
+    near_tie_check("offline ring --ring-spec 8 against the bf16 ring",
+                   ring_runs["bf16 KV"], ring_runs["--ring-spec 8"],
+                   ring_gaps)
+    if not all(ring_runs["int8 KV"]):
+        raise AssertionError("offline ring, int8 KV: an empty output")
+
+    with Phase("8e. --api-serve on 127.0.0.1, paged bf16 pages of 64, 8 "
+               "slots: 8 concurrent completions, a stream, a chat, 4 "
+               "embeddings"):
+        import argparse
+        import threading
+        import urllib.request
+
+        args = argparse.Namespace(
+            batch_size=8, serve_chunk=16, serve_admit=4, serve_kv_int8=False,
+            serve_paged=True, page_size=64, kv_pages=None, host="127.0.0.1",
+            port=0)
+        agen = GenerationConfig(max_new_tokens=16, do_sample=True, **common)
+        servers = []
+        make = api_server.make_http_server
+
+        def capture(*a, **kw):
+            servers.append(make(*a, **kw))
+            return servers[-1]
+
+        api_server.make_http_server = capture
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        main = threading.Thread(target=api_server.run_api_server, args=(
+            args, params, cfg, agen, inp["text_tok"], *inp["modality_toks"],
+            enc.cfg), kwargs={"generator": torch.Generator(
+                "cuda").manual_seed(seed)})
+        main.start()
+        try:
+            for _ in range(1200):
+                if servers or not main.is_alive():
+                    break
+                main.join(0.1)
+            if not servers:
+                raise AssertionError("--api-serve did not start")
+            port = servers[0].server_address[1]
+            log(f"  --api-serve listening on 127.0.0.1:{port} after "
+                f"{time.perf_counter() - t0:.2f} s")
+
+            def post(path, body):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}{path}",
+                    data=json.dumps(body).encode())
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    if body.get("stream"):
+                        return r.read().decode()
+                    return json.loads(r.read())
+
+            prompts = [r["input"] for s in (0, 1)
+                       for r in make_requests(seed + s)]
+            results = {}
+
+            def hit(i):
+                results[i] = post("/v1/completions",
+                                  {"prompt": prompts[i], "max_tokens": 16,
+                                   "temperature": 0})
+
+            t1 = time.perf_counter()
+            threads = [threading.Thread(target=hit, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            dt = time.perf_counter() - t1
+            toks = sum(results[i]["usage"]["completion_tokens"]
+                       for i in range(8))
+            log(f"  8 concurrent completions in {dt:.3f} s, {toks} tokens = "
+                f"{toks / dt:.1f} tokens/s; first: "
+                f"{json.dumps(results[0])[:300]}")
+            if len(results) != 8 or any(
+                    not 0 < results[i]["usage"]["completion_tokens"] <= 16
+                    or results[i]["object"] != "text_completion"
+                    for i in range(8)):
+                raise AssertionError("--api-serve: a completion is missing "
+                                     "or malformed")
+            twin = post("/v1/completions", {"prompt": prompts[2],
+                                            "max_tokens": 16,
+                                            "temperature": 0})
+            raw = post("/v1/completions", {"prompt": prompts[2],
+                                           "max_tokens": 16,
+                                           "temperature": 0, "stream": True})
+            deltas = [json.loads(line[6:])["choices"][0]["text"]
+                      for line in raw.splitlines()
+                      if line.startswith("data: {")]
+            if "".join(deltas) != twin["choices"][0]["text"] or \
+                    not raw.rstrip().endswith("data: [DONE]"):
+                raise AssertionError("--api-serve: the stream differs from "
+                                     "its non-streamed twin")
+            chat = post("/v1/chat/completions", {
+                "messages": [{"role": "user", "content": prompts[1]}],
+                "max_tokens": 16, "temperature": 0})
+            if chat["object"] != "chat.completion" or \
+                    chat["choices"][0]["message"]["role"] != "assistant":
+                raise AssertionError("--api-serve: bad chat answer")
+            texts = prompts[:4]
+            emb = post("/v1/embeddings", {"input": texts})
+            vec = np.asarray([d["embedding"] for d in emb["data"]])
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/health", timeout=60) as r:
+                health = json.loads(r.read())
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/v1/models", timeout=60) as r:
+                models = json.loads(r.read())
+        finally:
+            api_server.make_http_server = make
+            if servers:
+                servers[0].shutdown()
+            main.join(600)
+        if main.is_alive():
+            raise AssertionError("--api-serve did not shut down")
+        counts = read_counts()
+        check_flash_tma("--api-serve")
+        check_paged_tma("--api-serve")
+        for name in ("paged_attention", "flash_attention_fwd", "rmsnorm_fwd"):
+            if counts[name] <= 0:
+                raise AssertionError(f"--api-serve never launched {name}")
+        add(counts)
+        direct = embed_batch(params, cfg, collate_train(
+            [enc.encode_train({"input": t, "output": ""}) for t in texts]))
+        err = float(np.abs(vec - direct).max())
+        log(f"  embeddings {vec.shape}, max |served - embed_batch| "
+            f"{err:.3e} (tol {1e-2 * np.abs(direct).max():.3e}); health "
+            f"{health}; models {[m['id'] for m in models['data']]}; peak "
+            f"device memory {peak_gib():.2f} GiB; launches {counts}")
+        width = (cfg.text.hidden_size + cfg.dna_rna.hidden_size
+                 + cfg.protein.hidden_size)  # 2048 + 1280 + 1280
+        if vec.shape != (4, width) or \
+                err > 1e-2 * np.abs(direct).max() or \
+                health != {"status": "ok"}:
+            raise AssertionError("--api-serve: bad embeddings or health")
+    release()
+
+
+def int8_rest_paths(seed: int, params, cfg, inp, add):
+    """Phase 11a, after phase 11's ``quantize_for_decode``: ``--decoding
+    lookup`` and ``--offline-ring --ring-spec 8`` over the int8 decoder
+    (every int8 launch at M <= 16 on the weight stream, at M > 16 on the TMA
+    kernel), then ``esm.quantize_for_decode`` of both encoders: the
+    projected embeddings of the phase-7 requests against the bf16
+    encoders', bounded by the scheme's own error in fp32 plus twice bf16's
+    rounding (triangle inequality), every encoder int8 launch on the TMA
+    kernel."""
+    import dataclasses
+
+    import torch
+
+    from molly_tpu_torch.data import collate_test
+    from molly_tpu_torch.inference import cli as icli
+    from molly_tpu_torch.models import GenerationConfig, esm, fusion
+
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return fn(tree)
+
+    def dequantized(enc):
+        """An int8 encoder's weights back in fp32 (w_q * scale)."""
+        layers = {k: (v["w_q"].float() * v["scale"][:, None, :]
+                      if isinstance(v, dict) and "w_q" in v
+                      else tree_map(lambda t: t.float(), v))
+                  for k, v in enc["layers"].items()}
+        return {**tree_map(lambda t: t.float(), {k: v for k, v in enc.items()
+                                                 if k != "layers"}),
+                "layers": layers}
+
+    text_tok, samples = TokenIds(inp["text_tok"]), inp["samples"]
+    gen = GenerationConfig(max_new_tokens=16, do_sample=False,
+                           **inp["common"])
+    need = ("flash_attention_fwd", "rmsnorm_fwd", "int8_matmul")
+    for label, fn in (
+            ("int8 --decoding lookup", lambda: icli.run_lookup(
+                samples, params, cfg, gen, text_tok, io.StringIO(), k=8,
+                n=3)),
+            ("int8 --offline-ring --ring-spec 8", lambda: icli.run_offline_ring(
+                inp["serve_samples"], params, cfg, gen, text_tok,
+                io.StringIO(), n_slots=8, max_length=3072, admit_group=4,
+                ring_spec=8))):
+        with Phase(f"11a. {label}, 16 new tokens"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            recs = fn()
+            counts = read_counts()
+            check_flash_tma(label)
+            check_int8_tma(label)
+            c = counters()["int8_matmul"]
+            for name in need:
+                if counts[name] <= 0:
+                    raise AssertionError(f"{label} never launched {name}")
+            if not (c.launches_tma and c.launches_gemv):
+                raise AssertionError(f"{label}: expected int8 launches on "
+                                     f"both the TMA kernel and the stream")
+            if not all(ids_of(recs)):
+                raise AssertionError(f"{label}: an empty output")
+            add(counts)
+            log(f"  {label}: {len(recs)} records, peak device memory "
+                f"{peak_gib():.2f} GiB; launches {counts}")
+    with Phase("11a. esm.quantize_for_decode of both encoders, the phase-7 "
+               "requests' projected embeddings"):
+        torch.cuda.reset_peak_memory_stats()
+        batch = collate_test(samples)
+        q = {name: esm.quantize_for_decode(params[name])
+             for name in ("dna_rna", "protein")}
+        for name, enc_cfg, key in (("dna_rna", cfg.dna_rna, "dna_rna_tokens"),
+                                   ("protein", cfg.protein,
+                                    "protein_tokens")):
+            tokens = torch.as_tensor(batch[key], device="cuda")
+            proj = f"{name}_projector"
+            with torch.inference_mode():
+                ref = fusion.encode_and_project(params, enc_cfg, proj, name,
+                                                tokens).float()
+                reset_counts()
+                got = fusion.encode_and_project(
+                    {**params, name: q[name]}, enc_cfg, proj, name,
+                    tokens).float()
+                c = counters()["int8_matmul"]
+                n, n_tma = c.launches, c.launches_tma
+                # the scheme's own error, in fp32: the int8 weights
+                # dequantized against the bf16 weights, and bf16 rounding
+                f32_cfg = dataclasses.replace(enc_cfg, dtype="float32")
+                f32 = {**params, name: tree_map(lambda t: t.float(),
+                                                params[name])}
+                deq = {**f32, name: dequantized(q[name])}
+                exact = fusion.encode_and_project(f32, f32_cfg, proj, name,
+                                                  tokens).float()
+                scheme = fusion.encode_and_project(deq, f32_cfg, proj, name,
+                                                   tokens).float()
+                del f32, deq
+            err = (got - ref).abs().max().item()
+            e_scheme = (scheme - exact).abs().max().item()
+            e_bf16 = (ref - exact).abs().max().item()
+            top = ref.abs().max().item()
+            log(f"  int8 {name} encoder: max |int8 - bf16| of the projected "
+                f"embeddings {err:.3e} = {err / top:.3e} of the max "
+                f"{top:.3e} (the 5e-2 estimate: {err <= 5e-2 * top}); the "
+                f"scheme's own error in fp32 {e_scheme:.3e}, bf16 against "
+                f"fp32 {e_bf16:.3e}; bound {e_scheme + 2 * e_bf16:.3e}; "
+                f"{n} int8 launches, {n_tma} on the TMA kernel; peak device "
+                f"memory {peak_gib():.2f} GiB")
+            if err > e_scheme + 2 * e_bf16 or not n or n_tma != n:
+                raise AssertionError(f"int8 {name} encoder: further from the "
+                                     f"bf16 encoder than the scheme and bf16 "
+                                     f"rounding allow, or off the TMA "
+                                     f"kernel")
+            release()
+        del q
+    release()
 
 
 def assert_bit_equal(label, got, ref, path=""):
@@ -2523,12 +3432,14 @@ def drive_moe_paths(seed: int, launches, inp):
             f"peak while quantizing "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     label = "MoE generation, int8 experts, greedy"
+    int8_gen = GenerationConfig(max_new_tokens=16, do_sample=False, **common)
+    int8_records = []
     with Phase(f"main path {label}, 16 new tokens, {MOE_INT8_LAYERS} layers"):
         torch.cuda.reset_peak_memory_stats()
-        counts = main_path(
-            params, cfg, inp["samples"], text_tok,
-            GenerationConfig(max_new_tokens=16, do_sample=False, **common),
-            seed, label)
+        with LogitTap() as int8_tap:  # the reference of phase 15b
+            counts = main_path(params, cfg, inp["samples"],
+                               TokenIds(text_tok), int8_gen, seed, label,
+                               int8_records)
         check(label, counts, gen_kernels + ("int8_matmul",), MOE_INT8_LAYERS)
         if int8_grouped_launches() != counts["grouped_gemm"]:
             raise AssertionError(f"{label}: a grouped GEMM ran over "
@@ -2542,6 +3453,41 @@ def drive_moe_paths(seed: int, launches, inp):
                                  f"{int8_tma} on the int8 TMA kernel "
                                  f"(expected the prefill's "
                                  f"{2 * MOE_INT8_LAYERS})")
+
+    # phase 15b: the offline ring over the same int8 experts
+    from molly_tpu_torch.inference.cli import run_offline_ring
+    label = "MoE offline ring, int8 experts, greedy"
+    with Phase(f"15b. {label}, {len(inp['samples'])} requests, 8 slots, "
+               f"16 new tokens, {MOE_INT8_LAYERS} layers"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        recs = run_offline_ring(inp["samples"], params, cfg, int8_gen,
+                                TokenIds(text_tok), io.StringIO(), n_slots=8,
+                                max_length=3072, admit_group=4, stats=stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        check_flash_tma(label)
+        check_int8_tma(label)
+        check(label, counts, gen_kernels + ("int8_matmul",), MOE_INT8_LAYERS)
+        c = counters()["grouped_gemm"]
+        log(f"  {label}: {dt:.3f} s, {stats['tokens_out'] / dt:.1f} "
+            f"tokens/s, {stats['ticks']} ticks, {stats['host_syncs']} host "
+            f"syncs; launches {counts}")
+        # one admission: the fused gate-and-up and the down product of every
+        # layer on the int8 TMA kernel; every tick on the split stream
+        if grouped_off_route() or c.launches_int8_tma != 2 * MOE_INT8_LAYERS \
+                or not c.launches_stream:
+            raise AssertionError(f"{label}: {grouped_off_route()} grouped "
+                                 f"GEMMs on grouped_gemm.cu, "
+                                 f"{c.launches_int8_tma} on the int8 TMA "
+                                 f"kernel (expected {2 * MOE_INT8_LAYERS}), "
+                                 f"{c.launches_stream} on the split stream")
+        ref = ids_of(int8_records)
+        near_tie_check(label, ref, ids_of(recs), int8_tap.gaps(
+            ref, common["repetition_penalty"]))
     del params
     release()
 
@@ -2704,8 +3650,17 @@ def run(args) -> int:
         parity_grouped_gemm(g, parity)
     with Phase("small reference, generation"):
         small_reference(args.seed)
+    with Phase("4b. small reference, speculative decoding (int8 self-draft "
+               "k = 1, 3, 4; lookup k = 8, n = 3), card and CPU"):
+        small_reference_speculative(args.seed)
     with Phase("small reference, serving"):
         small_reference_serving(args.seed)
+    with Phase("5b. small reference, offline ring (12 requests, 4 slots, "
+               "groups of 2), card and CPU"):
+        small_reference_ring(args.seed)
+    with Phase("5c. small reference, HTTP API over int8 pages with a "
+               "two-adapter bank"):
+        small_reference_api(args.seed)
     with Phase("small reference, training"):
         small_reference_training(args.seed)
     with Phase("small MoE reference, generation, serving, training"):

@@ -20,9 +20,19 @@ an HF checkpoint directory (``*.safetensors`` or ``*.bin``: the text decoder
 is imported by ``models.hf_import``) or a train-state directory of this
 package's own format (``training.checkpoint``); ``--adapter`` grafts an
 exported ``.npz`` (LoRA + projectors) and ``--peft-adapter`` a reference-style
-PEFT directory, each merged once at load. The offline ring, speculative
-decoding and the HTTP API are not ported: their flags parse and are refused
-with the ROADMAP.md entry that tracks them.
+PEFT directory, each merged once at load.
+
+  ... --decoding lookup [--lookup-k 8] [--lookup-n 3]
+  ... --offline-ring [--ring-spec K [--ring-spec-adapt THRESHOLD]]
+  ... --api-serve [--host 127.0.0.1] [--port 8000] [--serve-paged]
+      [--serve-adapter NAME=PEFT_DIR ...]
+
+``--decoding lookup`` decodes one request at a time by prompt-lookup
+speculation (``inference.speculative``, ``run_lookup``); ``--offline-ring``
+runs the whole file through the admission ring (``inference.offline``,
+``run_offline_ring``); ``--api-serve`` serves the OpenAI-style HTTP API
+(``inference.api_server``) instead of reading ``--input-file``, with
+``--serve-adapter`` adapters stacked into one multi-LoRA bank.
 """
 
 from __future__ import annotations
@@ -41,10 +51,12 @@ import torch
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("molly_tpu_torch batch inference")
-    p.add_argument("--input-file", required=True,
+    p.add_argument("--input-file", default=None,
                    help="parquet of prompts [task, input, output, label, "
-                        "kind] with inline <dna>/<rna>/<protein> tags")
-    p.add_argument("--output-file", required=True, help="JSONL sink")
+                        "kind] with inline <dna>/<rna>/<protein> tags "
+                        "(required unless --api-serve)")
+    p.add_argument("--output-file", default=None,
+                   help="JSONL sink (required unless --api-serve)")
     p.add_argument("--text-model-path", default=None,
                    help="local HF dir for the text tokenizer (default: the "
                         "byte-level tokenizer)")
@@ -127,24 +139,46 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--kv-int8", action="store_true",
                    help="int8 KV cache in the batch engine (halves the "
                         "[L,B,Nkv,S,2Dh] pool)")
-    # flags of the JAX CLI whose paths are not ported: parsed, then refused
-    # (--lookup-k/-n and --host/--port only parse: they act only under
-    # --decoding lookup and --api-serve, which are refused)
     p.add_argument("--decoding", default="engine",
-                   choices=["engine", "lookup"])
+                   choices=["engine", "lookup"],
+                   help="'lookup' = prompt-lookup speculative decoding "
+                        "(n-gram drafts verified in one forward; "
+                        "token-exact, one request at a time)")
     p.add_argument("--lookup-k", type=int, default=8,
-                   help="draft tokens per lookup round (--decoding lookup)")
+                   help="draft tokens per lookup round")
     p.add_argument("--lookup-n", type=int, default=3,
-                   help="n-gram length matched against the history "
-                        "(--decoding lookup)")
-    p.add_argument("--offline-ring", action="store_true")
-    p.add_argument("--ring-spec", type=int, default=0)
-    p.add_argument("--ring-spec-adapt", type=float, default=None)
-    p.add_argument("--serve-adapter", action="append", default=[])
-    p.add_argument("--api-serve", action="store_true")
+                   help="n-gram length matched against the history")
+    p.add_argument("--offline-ring", action="store_true",
+                   help="the admission ring (inference.offline): the whole "
+                        "file is queued on the device at once, admitted in "
+                        "groups of --serve-admit into --batch-size slots "
+                        "and decoded to the end")
+    p.add_argument("--ring-spec", type=int, default=0,
+                   help="with --offline-ring: prompt-lookup speculation, N "
+                        "draft tokens per round (greedy token-exact, "
+                        "sampled distribution-exact)")
+    p.add_argument("--ring-spec-adapt", type=float, default=None,
+                   metavar="THRESHOLD",
+                   help="with --ring-spec: the acceptance-adaptive ring — "
+                        "speculate only while the acceptance-rate EMA "
+                        "stays at or above THRESHOLD (plain ticks keep the "
+                        "EMA live through a shadow draft); outputs are "
+                        "unchanged either way")
+    p.add_argument("--serve-adapter", action="append", default=[],
+                   metavar="NAME=PATH",
+                   help="multi-LoRA serving under --api-serve: a PEFT "
+                        "adapter dir served as OpenAI model NAME "
+                        "(repeatable); a request picks it with its "
+                        "'model' field, the base model serves any other")
+    p.add_argument("--api-serve", action="store_true",
+                   help="serve an OpenAI-compatible HTTP API "
+                        "(/v1/completions, /v1/chat/completions, "
+                        "/v1/embeddings) over the continuous-batching "
+                        "engine instead of reading --input-file; "
+                        "--batch-size sets the slot count")
     p.add_argument("--host", default="127.0.0.1", help="--api-serve's host")
     p.add_argument("--port", type=int, default=8000,
-                   help="--api-serve's port")
+                   help="--api-serve's port (0: any free port)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; the CPU only on "
                         "request)")
@@ -280,25 +314,25 @@ def _load_params(args, cfg, device):
     return params
 
 
-_UNPORTED = {
-    "offline_ring": ("--offline-ring", "queue 1 item 9 (inference/offline.py)"),
-    "ring_spec": ("--ring-spec", "queue 1 item 9 (inference/offline.py)"),
-    "ring_spec_adapt": ("--ring-spec-adapt",
-                        "queue 1 item 9 (inference/offline.py)"),
-    "api_serve": ("--api-serve", "queue 1 item 9 (inference/api_server.py)"),
-    "serve_adapter": ("--serve-adapter",
-                      "queue 1 item 9 (inference/api_server.py)"),
-}
-
-
 def refuse_unported(args) -> None:
-    """Stop on a flag whose path this package does not have yet."""
-    for dest, (flag, entry) in _UNPORTED.items():
-        if getattr(args, dest):
-            raise SystemExit(f"{flag} is not ported yet: ROADMAP.md, {entry}")
-    if args.decoding == "lookup":
-        raise SystemExit("--decoding lookup is not ported yet: ROADMAP.md, "
-                         "queue 1 item 9 (inference/speculative.py)")
+    """Stop on a flag that would act on nothing — a mode's options given
+    without the mode (the JAX CLI ignores them silently) — or a malformed
+    --serve-adapter, before anything loads."""
+    for flag, dest, mode in (("--ring-spec", "ring_spec", "offline_ring"),
+                             ("--ring-spec-adapt", "ring_spec_adapt",
+                              "offline_ring"),
+                             ("--serve-adapter", "serve_adapter",
+                              "api_serve")):
+        if getattr(args, dest) and not getattr(args, mode):
+            raise SystemExit(f"{flag} acts only with --"
+                             f"{mode.replace('_', '-')}")
+    if args.ring_spec_adapt is not None and not args.ring_spec:
+        raise SystemExit("--ring-spec-adapt acts only with --ring-spec")
+    for spec in args.serve_adapter:
+        name, _, path = spec.partition("=")
+        if not (name and path):
+            raise SystemExit(f"--serve-adapter expects NAME=PATH, got "
+                             f"{spec!r}")
 
 
 def _record(text_tok, gen, out_ids: np.ndarray, meta: Dict[str, Any]
@@ -377,7 +411,7 @@ def run_serve(samples: Iterable[Dict[str, Any]], params, cfg, gen,
     synchronizes the device at each phase) and whether every chosen token's
     log-probability was finite (the engine then keeps them)."""
     from ..data import collate_test
-    from .server import Request, ServingEngine
+    from .server import REQUEST_KEYS, Request, ServingEngine
 
     kv_quant = "int8" if kv_int8 else None
     common = dict(n_slots=n_slots, decode_chunk=decode_chunk,
@@ -398,12 +432,10 @@ def run_serve(samples: Iterable[Dict[str, Any]], params, cfg, gen,
                             prefill_buckets=(max_length - len(prefix_ids),),
                             **common)
     meta = {}
-    arr_keys = ("input_ids", "attention_mask", "dna_rna_tokens",
-                "dna_rna_pos", "protein_tokens", "protein_pos")
     for uid, sample in enumerate(samples):
         row = collate_test([sample])
         eng.submit(Request(uid=uid, batch={
-            k: row[k] for k in arr_keys if k in row}))
+            k: row[k] for k in REQUEST_KEYS if k in row}))
         meta[uid] = {k: row[k][0] for k in _META_KEYS}
     results = eng.run([])
     records = []
@@ -425,8 +457,160 @@ def run_serve(samples: Iterable[Dict[str, Any]], params, cfg, gen,
     return records
 
 
+def _strip_left_pad(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A single-sample test batch without its left padding, omics segment
+    starts shifted to match: prompt lookup attends every prompt column, so
+    the prompt must hold real tokens only (the batch engine masks the pad
+    columns instead)."""
+    mask = np.asarray(batch["attention_mask"])[0]
+    start = int(np.argmax(mask)) if mask.any() else mask.size
+    out = dict(batch)
+    out["input_ids"] = np.asarray(batch["input_ids"])[:, start:]
+    out["attention_mask"] = np.asarray(batch["attention_mask"])[:, start:]
+    for key in ("dna_rna_pos", "protein_pos"):
+        if key in batch:
+            pos = np.asarray(batch[key])
+            out[key] = np.where(pos >= 0, pos - start, pos)
+    return out
+
+
+def run_lookup(samples: Iterable[Dict[str, Any]], params, cfg, gen,
+               text_tok, out_fh, *, k: int, n: int,
+               generator: Optional[torch.Generator] = None,
+               total: Optional[int] = None,
+               stats: Optional[Dict[str, Any]] = None
+               ) -> List[Dict[str, Any]]:
+    """``--decoding lookup``: prompt-lookup speculative decoding, one
+    request at a time (``speculative.generate_lookup``) on its unpadded
+    prompt; writes one JSONL record per sample to ``out_fh`` and returns
+    the records. ``stats``, when given, sums ``rounds``, ``accepted`` (draft
+    tokens) and ``tokens`` (emitted before padding)."""
+    from ..data import collate_test
+    from ..models import fusion
+    from .server import REQUEST_KEYS
+    from .speculative import generate_lookup
+
+    dev = params["text"]["embed"].device
+    records: List[Dict[str, Any]] = []
+    for s in samples:
+        row = collate_test([s])
+        batch = _strip_left_pad({key: row[key] for key in REQUEST_KEYS
+                                 if key in row})
+        arrs = {key: torch.as_tensor(v, device=dev)
+                for key, v in batch.items()}
+        with torch.inference_mode():
+            embeds = fusion.build_inputs_embeds(params, cfg, arrs)
+        tokens, rounds, accepted = generate_lookup(
+            params["text"], cfg.text, arrs["input_ids"], gen, k=k, n=n,
+            generator=generator, return_stats=True, inputs_embeds=embeds)
+        tokens = tokens[0].cpu().numpy()
+        rec = _record(text_tok, gen, tokens,
+                      {key: row[key][0] for key in _META_KEYS})
+        out_fh.write(json.dumps(rec) + "\n")
+        records.append(rec)
+        if stats is not None:
+            stats["rounds"] = stats.get("rounds", 0) + rounds
+            stats["accepted"] = stats.get("accepted", 0) + accepted
+            stats["tokens"] = stats.get("tokens", 0) + int(
+                np.sum(tokens != gen.pad_token_id))
+        print(f"[inference] {len(records)}/"
+              f"{total if total is not None else '?'}", flush=True)
+    return records
+
+
+def run_offline_ring(samples: Iterable[Dict[str, Any]], params, cfg, gen,
+                     text_tok, out_fh, *, n_slots: int, max_length: int,
+                     admit_group: int = 8, kv_int8: bool = False,
+                     ring_spec: int = 0,
+                     ring_spec_adapt: Optional[float] = None,
+                     generator: Optional[torch.Generator] = None,
+                     total: Optional[int] = None,
+                     stats: Optional[Dict[str, Any]] = None
+                     ) -> List[Dict[str, Any]]:
+    """``--offline-ring``: every prompt and its omics segments are queued on
+    the device at once, and the admission ring (``offline.run_offline``)
+    admits, prefills (the encoders included), decodes and harvests the
+    whole file; writes one JSONL record per sample in sample order and
+    returns the records. ``stats``, when given, receives ``run_offline``'s
+    counters (ticks, host syncs, accepted drafts)."""
+    from ..data import collate_test
+    from .offline import run_offline
+    from .server import REQUEST_KEYS, _pad_to_bucket
+
+    bucket = max_length
+    rows, meta = [], []
+    for s in samples:
+        row = collate_test([s])
+        rows.append(_pad_to_bucket({key: row[key] for key in REQUEST_KEYS
+                                    if key in row}, bucket,
+                                   gen.pad_token_id))
+        meta.append({key: row[key][0] for key in _META_KEYS})
+    n = len(rows)
+
+    def stack_omics(tok_key, pos_key, fill_tok):
+        gmax = max((r[pos_key].shape[1] for r in rows if pos_key in r),
+                   default=0)
+        if not gmax:
+            return {}
+        kseg = next(r[tok_key].shape[2] for r in rows if tok_key in r)
+        toks = np.full((n, gmax, kseg), fill_tok, np.int32)
+        pos = np.full((n, gmax), -1, np.int32)
+        for i, r in enumerate(rows):
+            if pos_key in r:
+                g = r[pos_key].shape[1]
+                toks[i, :g] = r[tok_key][0]
+                pos[i, :g] = r[pos_key][0]
+        return {tok_key: toks, pos_key: pos}
+
+    omics = {**stack_omics("dna_rna_tokens", "dna_rna_pos", 1),
+             **stack_omics("protein_tokens", "protein_pos", 1)}
+    out = run_offline(
+        params, cfg, gen,
+        np.concatenate([r["input_ids"] for r in rows]),
+        np.concatenate([r["attention_mask"] for r in rows]),
+        n_slots=n_slots,
+        # + ring_spec: tentative KV columns need headroom past the cap
+        max_len=bucket + gen.max_new_tokens + ring_spec,
+        admit_group=admit_group, kv_quant="int8" if kv_int8 else None,
+        spec_lookup=ring_spec, spec_threshold=ring_spec_adapt,
+        queue_omics=omics or None, generator=generator)
+    records = []
+    for i in range(n):
+        rec = _record(text_tok, gen, out["tokens"][i, :out["lengths"][i]],
+                      meta[i])
+        out_fh.write(json.dumps(rec) + "\n")
+        records.append(rec)
+    if stats is not None:
+        stats.update({key: v for key, v in out.items()
+                      if key not in ("tokens", "lengths")})
+        stats["tokens_out"] = int(out["lengths"].sum())
+    print(f"[inference --offline-ring] {n}/"
+          f"{total if total is not None else n} done in {out['ticks']} "
+          f"ticks ({out['host_syncs']} host syncs)", flush=True)
+    return records
+
+
+def _serve_bank(args, cfg, device):
+    """--serve-adapter NAME=PATH ... stacked into one multi-LoRA bank:
+    (bank, names), each adapter's alpha / r folded into its B."""
+    from ..models.lora import stack_adapters
+    adapters, scales, names = [], [], []
+    for spec in args.serve_adapter:
+        name, _, path = spec.partition("=")
+        lora, alpha = load_peft_adapter(path, cfg.text, args.lora_r, device)
+        r = lora["layers"]["q_proj"]["a"].shape[-1]
+        adapters.append(lora)
+        scales.append(float(alpha if alpha is not None else 64.0) / r)
+        names.append(name)
+    return stack_adapters(adapters, scales=scales), names
+
+
 def main(argv=None) -> None:
-    args = build_argparser().parse_args(argv)
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if not args.api_serve and not (args.input_file and args.output_file):
+        parser.error("--input-file and --output-file are required "
+                     "(unless --api-serve)")
     refuse_unported(args)
 
     from ..data import (DataConfig, OmicsDataset,
@@ -446,16 +630,20 @@ def main(argv=None) -> None:
                       max_protein_segments=args.max_protein_segments,
                       strict_segments=args.strict_segments)
     dna_tok, prot_tok = default_modality_tokenizers()
-    ds = OmicsDataset(args.input_file, text_tok, dna_tok, prot_tok, dcfg,
-                      mode="test", read_nums=args.read_nums)
+    ds = None
+    if args.input_file:
+        ds = OmicsDataset(args.input_file, text_tok, dna_tok, prot_tok, dcfg,
+                          mode="test", read_nums=args.read_nums)
     cfg = build_config(args, text_tok, dna_tok, prot_tok)
 
     params = _load_params(args, cfg, device)
     if args.int8:
         # the expert stacks of an MoE decoder are quantized too, and the
-        # bf16 ones released as their int8 replacements are built
+        # bf16 ones released as their int8 replacements are built;
+        # multi-LoRA serving keeps one int8 leaf a target (fuse=False)
         params["text"] = qwen3.quantize_for_decode(
             params["text"], cfg.text,
+            fuse=not (args.api_serve and args.serve_adapter),
             moe_experts=bool(cfg.text.num_experts), donate=True)
     from ..models.configs import GenerationConfig
     gen = GenerationConfig(
@@ -466,10 +654,26 @@ def main(argv=None) -> None:
         eos_token_id=text_tok.eos_token_id,
         pad_token_id=text_tok.pad_token_id or 0)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    if args.api_serve:
+        from .api_server import run_api_server
+        bank, names = (_serve_bank(args, cfg, device) if args.serve_adapter
+                       else (None, None))
+        return run_api_server(args, params, cfg, gen, text_tok, dna_tok,
+                              prot_tok, dcfg, lora_bank=bank,
+                              adapter_names=names, generator=generator)
     t0 = time.perf_counter()
     samples = (ds[i] for i in range(len(ds)))
     with open(args.output_file, "a") as fh:
-        if args.serve:
+        if args.offline_ring:
+            run_offline_ring(samples, params, cfg, gen, text_tok, fh,
+                             n_slots=args.batch_size,
+                             max_length=args.max_length,
+                             admit_group=args.serve_admit,
+                             kv_int8=args.serve_kv_int8,
+                             ring_spec=args.ring_spec,
+                             ring_spec_adapt=args.ring_spec_adapt,
+                             generator=generator, total=len(ds))
+        elif args.serve:
             run_serve(samples, params, cfg, gen, text_tok, fh,
                       n_slots=args.batch_size, max_length=args.max_length,
                       prefix_ids=ds.encoder.system_prompt_ids,
@@ -477,6 +681,10 @@ def main(argv=None) -> None:
                       kv_pages=args.kv_pages, kv_int8=args.serve_kv_int8,
                       decode_chunk=args.serve_chunk,
                       admit_batch=args.serve_admit, generator=generator)
+        elif args.decoding == "lookup":
+            run_lookup(samples, params, cfg, gen, text_tok, fh,
+                       k=args.lookup_k, n=args.lookup_n,
+                       generator=generator, total=len(ds))
         else:
             run_batches(samples, params, cfg, gen, text_tok, fh,
                         batch_size=args.batch_size, generator=generator,

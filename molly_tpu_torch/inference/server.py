@@ -53,6 +53,11 @@ from .engine import EMBED_KEYS, _Clock
 from .sampling import sample_tokens_rowwise
 
 
+# the arrays of a Request's single-sample batch (encode_test's layout)
+REQUEST_KEYS = ("input_ids", "attention_mask", "dna_rna_tokens",
+                "dna_rna_pos", "protein_tokens", "protein_pos")
+
+
 @dataclass
 class Request:
     uid: Any

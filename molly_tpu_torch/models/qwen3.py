@@ -338,13 +338,51 @@ def _paged_write_and_attend(cfg: Qwen3Config, q, kk, v, pc: PagedCache):
                            v_scales=pc.v_scales)[:, None]
 
 
+def _dense_write(ckv, csc, li, kk, v, cache_index) -> None:
+    """Write the new K‖V rows of one layer into the dense cache in place
+    (quantized first, their scales beside them, on an int8 cache).
+
+    ``cache_index``: an int (every row writes columns [index, index + S),
+    JAX's dynamic_update_slice); a [B] tensor (row b writes its one new
+    token at its own column: S == 1, continuous-batching decode); or a
+    [B, S] tensor (row b writes token s at column [b, s]: the offline
+    ring's speculative verify). The tensor forms are one advanced-index
+    store over (row, column) pairs. A row never names one column twice
+    (the callers' columns are distinct modulo the ring), and rows are
+    distinct, so no two pairs coincide and the store is deterministic."""
+    B, S = kk.shape[:2]
+    kv_new = torch.cat([kk.transpose(1, 2), v.transpose(1, 2)], dim=-1)
+    sc_new = None
+    if csc is not None:  # int8 cache: quantize the fresh rows
+        kv_new, sc_new = quantize_kv(kv_new)
+    kv_new = kv_new.to(ckv.dtype)                      # [B, Nkv, S, 2*Dh]
+    if isinstance(cache_index, int):
+        ckv[li, :, :, cache_index:cache_index + S] = kv_new
+        if csc is not None:
+            csc[li, :, :, cache_index:cache_index + S] = sc_new
+        return
+    idx = cache_index.long()
+    rows = torch.arange(B, device=idx.device)
+    if idx.ndim == 1:
+        assert S == 1, "per-row cache_index [B] requires S == 1"
+        ckv[li][rows, :, idx] = kv_new[:, :, 0]
+        if csc is not None:
+            csc[li][rows, :, idx] = sc_new[:, :, 0]
+        return
+    # [B, S]: rows [B, 1] broadcast against the columns; the indexed view
+    # is [B, S, Nkv, *]
+    ckv[li][rows[:, None], :, idx] = kv_new.transpose(1, 2)
+    if csc is not None:
+        csc[li][rows[:, None], :, idx] = sc_new.transpose(1, 2)
+
+
 def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
            cache_kv, cache_index, lora_layer=None, lora_scale=1.0,
            lora_dropout=0.0, seeds=None, lora_slots=None,
            split_remat: bool = False):
     """One decoder layer. cache_kv: None; or (kv [L, B, Nkv, Smax, 2*Dh],
     kv_scale or None, layer index), the dense cache, whose new rows are
-    written in place at the scalar ``cache_index``; or a ``PagedCache``
+    written in place at ``cache_index`` (``_dense_write``); or a ``PagedCache``
     (which carries its own write positions).
     seeds: LoRA target name -> dropout seed, or None for no dropout.
     split_remat: checkpoint the part before attention and the part after
@@ -366,20 +404,8 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     elif isinstance(cache_kv, PagedCache):
         attn = _paged_write_and_attend(cfg, q, kk, v, cache_kv)
     else:
-        # write ONLY the new token rows (k ‖ v) at cache_index, in place of
-        # JAX's dynamic_update_slice, then read this layer's window
-        if not isinstance(cache_index, int):
-            raise NotImplementedError(
-                "a per-row cache_index on the dense cache is not ported "
-                "(ROADMAP.md, queue 1 item 9: speculative decoding and the "
-                "offline ring); the serving ring writes one shared column")
-        S = hidden.shape[1]
         ckv, csc, li = cache_kv
-        kv_new = torch.cat([kk.transpose(1, 2), v.transpose(1, 2)], dim=-1)
-        if csc is not None:  # int8 cache: quantize the fresh rows
-            kv_new, sc_new = quantize_kv(kv_new)
-            csc[li, :, :, cache_index:cache_index + S] = sc_new
-        ckv[li, :, :, cache_index:cache_index + S] = kv_new.to(ckv.dtype)
+        _dense_write(ckv, csc, li, kk, v, cache_index)
         kv_l = ckv[li]
         attn = dot_product_attention(
             q, kv_l[..., :Dh], kv_l[..., Dh:], mask=mask, causal=causal,
@@ -425,9 +451,11 @@ def forward_hidden(
     computed at all.
 
     Without a cache this is a plain causal forward (training). With the
-    dense cache ``{kv[, kv_scale]}``, the S new tokens are written at the
-    scalar ``cache_index`` (in place) and attention runs over the whole
-    cache (prefill: S = prompt length, index 0; decode: S = 1). With the
+    dense cache ``{kv[, kv_scale]}``, the S new tokens are written in place
+    at ``cache_index`` and attention runs over the whole cache (prefill: S
+    = prompt length, index 0; decode: S = 1): an int for every row, or per
+    row a [B] tensor (S = 1) or a [B, S] tensor (``_dense_write``; these
+    need explicit ``positions`` and take the plain attention). With the
     paged cache ``{k_pages, v_pages, page_table, lengths[, k_scales,
     v_scales]}`` (decode only, S = 1), ``cache_index`` is a [B] tensor of
     write positions, < 0 for an inactive slot, and ``positions`` must be
@@ -526,7 +554,7 @@ def logits_from_hidden(params: Params, cfg: Qwen3Config,
                        hidden: torch.Tensor) -> torch.Tensor:
     if "lm_head_q" in params:  # int8 decode path (quantize_for_decode)
         return quant.int8_matmul(hidden, params["lm_head_q"])
-    if "lm_head" in params:  # untied
+    if "lm_head" in params:  # untied, or [H, V] from fuse_for_decode
         return hidden @ params["lm_head"]
     return hidden @ params["embed"].T  # tied embeddings
 
@@ -580,16 +608,48 @@ def _stacked_qk_norm(cfg: Qwen3Config, lp: Params) -> torch.Tensor:
     return torch.cat([qn, kn], dim=1)
 
 
-def quantize_for_decode(params: Params, cfg: Qwen3Config,
+def fuse_for_decode(params: Params, cfg: Qwen3Config) -> Params:
+    """Serving prep in the model dtype: q/k/v and gate/up merge into single
+    products (the fusion ``quantize_for_decode`` does for int8), an MoE
+    decoder's gate and up stacks into ``expert_gateup`` [L, E, H, 2I], the
+    q/k norms into the stacked ``qk_norm``, and a tied head is materialized
+    as ``lm_head`` [H, V] so the logits product reads it straight. Merge a
+    single LoRA first; a multi-LoRA bank applies on top of the fused
+    weights (``lora.apply_lora_fused``)."""
+    lp = params["layers"]
+    new_layers = dict(lp)
+    new_layers["qkv_proj"] = torch.cat(
+        [lp["q_proj"], lp["k_proj"], lp["v_proj"]], dim=-1)
+    if "gate_proj" in lp:  # dense MLP
+        new_layers["gateup_proj"] = torch.cat(
+            [lp["gate_proj"], lp["up_proj"]], dim=-1)
+        del new_layers["gate_proj"], new_layers["up_proj"]
+    if "expert_gate" in lp:  # MoE: one grouped GEMM a layer fewer
+        new_layers["expert_gateup"] = torch.cat(
+            [lp["expert_gate"], lp["expert_up"]], dim=-1)
+        del new_layers["expert_gate"], new_layers["expert_up"]
+    new_layers["qk_norm"] = _stacked_qk_norm(cfg, lp)
+    for name in ("q_proj", "k_proj", "v_proj", "q_norm", "k_norm"):
+        del new_layers[name]
+    out = {**params, "layers": new_layers}
+    if "lm_head" not in out:
+        out["lm_head"] = out["embed"].T.contiguous()
+    return out
+
+
+def quantize_for_decode(params: Params, cfg: Qwen3Config, fuse: bool = True,
                         moe_experts: bool = False,
                         donate: bool = False) -> Params:
     """Int8-quantize the layer linears + lm head for decode (weight-only,
-    per-output-channel scales), merging q/k/v and gate/up into single
-    products (the JAX function with fuse=True, the batch CLI's --int8). The
-    embedding stays in the model dtype.
+    per-output-channel scales). The embedding stays in the model dtype.
 
-    An MoE decoder's gate and up stacks fuse into ``expert_gateup``
-    [L, E, H, 2I]; ``moe_experts=True`` also quantizes the expert stacks
+    fuse=True (the batch CLI's --int8) also merges q/k/v and gate/up into
+    single products with the stacked ``qk_norm``; an MoE decoder's gate and
+    up stacks fuse into ``expert_gateup`` [L, E, H, 2I]. fuse=False keeps
+    one int8 leaf a target (and the q/k norms) for multi-LoRA serving, as
+    the JAX CLI does under --api-serve --serve-adapter.
+
+    ``moe_experts=True`` also quantizes the expert stacks
     (``moe.quantize_experts``; quantized BEFORE fusing: per-column scales
     make quantize(concat) == concat(quantize) exactly). The router stays
     fp32. The new stacks are built layer by layer into preallocated leaves.
@@ -606,7 +666,14 @@ def quantize_for_decode(params: Params, cfg: Qwen3Config,
             del new_layers[name]
             lp.pop(name, None)
 
-    if "router" in lp:
+    if "router" in lp and not fuse:
+        if moe_experts:
+            for name in EXPERT_STACKS:
+                w = lp[name]
+                drop(name)
+                new_layers[name] = _quantize_stack(w)
+                del w
+    elif "router" in lp:
         down, gate, up = (lp[n] for n in ("expert_down", "expert_gate",
                                           "expert_up"))
         L, E, H, I = gate.shape
@@ -629,22 +696,28 @@ def quantize_for_decode(params: Params, cfg: Qwen3Config,
         drop("expert_gate", "expert_up")
         del gate, up
         new_layers["expert_gateup"] = gu
-    else:
+    elif fuse:
         new_layers["gateup_proj"] = quant.quantize_int8(
             torch.cat([lp["gate_proj"], lp["up_proj"]], dim=-1))
         new_layers["down_proj"] = quant.quantize_int8(lp["down_proj"])
         del new_layers["gate_proj"], new_layers["up_proj"]
-    new_layers["qkv_proj"] = quant.quantize_int8(
-        torch.cat([lp["q_proj"], lp["k_proj"], lp["v_proj"]], dim=-1))
-    new_layers["o_proj"] = quant.quantize_int8(lp["o_proj"])
-    new_layers["qk_norm"] = _stacked_qk_norm(cfg, lp)
-    for name in ("q_proj", "k_proj", "v_proj", "q_norm", "k_norm"):
-        del new_layers[name]
+    if fuse:
+        new_layers["qkv_proj"] = quant.quantize_int8(
+            torch.cat([lp["q_proj"], lp["k_proj"], lp["v_proj"]], dim=-1))
+        new_layers["o_proj"] = quant.quantize_int8(lp["o_proj"])
+        new_layers["qk_norm"] = _stacked_qk_norm(cfg, lp)
+        for name in ("q_proj", "k_proj", "v_proj", "q_norm", "k_norm"):
+            del new_layers[name]
+    else:
+        for name in QUANT_TARGETS:
+            if name in lp:
+                new_layers[name] = quant.quantize_int8(lp[name])
     out = {**params, "layers": new_layers}
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
     out["lm_head_q"] = quant.quantize_int8(head)
-    out.pop("lm_head", None)
+    if not cfg.tie_word_embeddings:
+        out.pop("lm_head", None)
     return out
 
 

@@ -1,8 +1,11 @@
-"""Data tools and the checkpoint parity runner.
+"""Data tools, the checkpoint parity runner, and the embedding, judge and
+CoT tools.
 
-``data_tools`` and ``cli`` are copies of ``molly_tpu.tools.data_tools`` and
-``molly_tpu.tools.cli`` (pandas, sklearn; no JAX); ``parity`` holds the port
-against HF transformers (``python -m molly_tpu_torch.tools.parity``).
+``data_tools``, ``cli`` and ``cot_gen`` are copies of the JAX package's
+modules of those names (pandas, sklearn, stdlib; no JAX); ``parity`` holds
+the port against HF transformers (``python -m
+molly_tpu_torch.tools.parity``); ``embed`` and ``llm_judge`` run on this
+package's models and engine.
 """
 
 from . import data_tools
@@ -19,3 +22,4 @@ from .data_tools import (
     split_by_task,
     validate_tagged_sequences,
 )
+from .llm_judge import judge_records, parse_verdict, strip_think

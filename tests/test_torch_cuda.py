@@ -1625,3 +1625,262 @@ def test_hf_checkpoint_and_peft_adapter_load_onto_the_card(dev, tmp_path,
         tol = 1e-6 if dtype == "float32" else \
             b.float().abs().max().item() * 2 ** -8
         assert (a.cpu().float() - b.float()).abs().max().item() <= tol
+
+
+# ------------------------------------------------ the rest of serving
+
+
+def _serving_model(dev, dtype="float32", seed=0):
+    """A small fusion model (head_dim 64, which the flash kernels take) with
+    unit-scale text weights and an untied head, so greedy tokens vary:
+    (cfg, cpu params, card params)."""
+    from molly_tpu_torch.models import fusion
+    from molly_tpu_torch.models.configs import (FusionConfig, tiny_esm,
+                                                tiny_qwen3)
+    from molly_tpu_torch.utils.tree import tree_to
+    cfg = FusionConfig(
+        text=tiny_qwen3(vocab_size=128, hidden_size=128,
+                        intermediate_size=256, num_attention_heads=4,
+                        num_key_value_heads=2, head_dim=64, dtype=dtype,
+                        tie_word_embeddings=False),
+        dna_rna=tiny_esm(vocab_size=16, hidden_size=128,
+                         intermediate_size=256, num_attention_heads=2,
+                         dtype=dtype),
+        protein=tiny_esm(vocab_size=20, hidden_size=128,
+                         intermediate_size=256, num_attention_heads=2,
+                         dtype=dtype),
+        dna_rna_k_tokens=4, protein_k_tokens=4)
+    g = torch.Generator().manual_seed(seed)
+    cpu = fusion.init_params(cfg, g)
+    text = cpu["text"]
+    text["embed"] = torch.randn(text["embed"].shape, generator=g).to(
+        text["embed"].dtype)
+    for name, w in text["layers"].items():
+        if not isinstance(w, dict) and w.ndim == 3:
+            text["layers"][name] = (torch.randn(w.shape, generator=g)
+                                    * w.shape[1] ** -0.5).to(w.dtype)
+    head = text["lm_head"]  # untied: a tied head repeats the input token
+    text["lm_head"] = (torch.randn(head.shape, generator=g)
+                       * head.shape[0] ** -0.5).to(head.dtype)
+    return cfg, cpu, tree_to(cpu, dev)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_row_dense_writes_card_equal_cpu(dev, quant, dtype):
+    """A [B] and a [B, S] ``cache_index`` write on the dense cache: the card
+    matches the CPU (fp32: hidden 1e-4 and the cache 1e-4; int8 KV: values
+    within one rounding step, scales 1e-5, hidden 1e-2 of its max), and two
+    card runs give the same bits."""
+    from molly_tpu_torch.models import qwen3
+    cfg, cpu, card = _serving_model(dev, dtype)
+    tcfg = cfg.text
+    B, P, T, S = 3, 8, 24, 4
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, 128, (B, P + S), generator=g)
+    valid = torch.zeros((B, T), dtype=torch.int32)
+    valid[:, :P] = 1
+    start = torch.tensor([P, P + 6, T - 2])
+    idx = P + (start[:, None] - P + torch.arange(S)) % (T - P)   # [B, S]
+    onehot = idx[:, :, None] == torch.arange(T)[None, None]
+    m4 = ((valid[:, None] != 0) | (onehot.cumsum(1) > 0))[:, None]
+    col = torch.tensor([P + 1, P + 3, T - 1])                    # [B]
+
+    def run(params, where):
+        on = dict(device=where)
+        cache = qwen3.init_cache(tcfg, B, T, quant=quant, **on)
+        with torch.inference_mode():
+            qwen3.forward_hidden(params["text"], tcfg,
+                                 input_ids=ids[:, :P].to(where),
+                                 attention_mask=valid.to(where),
+                                 cache=cache, cache_index=0)
+            h1, _ = qwen3.forward_hidden(
+                params["text"], tcfg, input_ids=ids[:, P:].to(where),
+                attention_mask=m4.to(where),
+                positions=(P + torch.arange(S))[None].expand(B, S).to(where),
+                cache=cache, cache_index=idx.to(where), causal=False)
+            v2 = valid.clone()
+            v2[torch.arange(B), col] = 1
+            h2, _ = qwen3.forward_hidden(
+                params["text"], tcfg, input_ids=ids[:, P:P + 1].to(where),
+                attention_mask=v2.to(where),
+                positions=torch.full((B, 1), P + S).to(where), cache=cache,
+                cache_index=col.to(where), causal=False)
+        return h1, h2, cache
+
+    a, b = run(card, dev), run(card, dev)
+    for x, y in zip(a[:2], b[:2]):
+        assert torch.equal(x, y)
+    for k in a[2]:
+        assert torch.equal(a[2][k], b[2][k])
+    if dtype != "float32":
+        return
+    ref = run(cpu, "cpu")
+    for x, y in zip(a[:2], ref[:2]):
+        # int8 KV: the card's and the CPU's fp32 sums round a few fresh K/V
+        # values to the other int8 neighbour (one step of a row's scale),
+        # which moves the attention output at the int8 KV's ~1e-2 level
+        tol = 1e-4 if quant is None else 1e-2 * y.abs().max().item()
+        assert (x.cpu() - y).abs().max().item() <= tol
+    if quant is None:
+        assert (a[2]["kv"].cpu() - ref[2]["kv"]).abs().max().item() <= 1e-4
+    else:
+        d = (a[2]["kv"].cpu().int() - ref[2]["kv"].int()).abs()
+        assert d.max().item() <= 1
+        assert (a[2]["kv_scale"].cpu() - ref[2]["kv_scale"]).abs().max() \
+            .item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["lookup", "self_draft"])
+def test_greedy_speculation_card_equal_cpu(dev, mode):
+    """Greedy prompt lookup, and speculation with the int8 self-draft, give
+    the CPU's tokens and round counts on the card (fp32)."""
+    from molly_tpu_torch.inference import speculative
+    from molly_tpu_torch.models import qwen3
+    from molly_tpu_torch.models.configs import GenerationConfig
+    cfg, cpu, card = _serving_model(dev)
+    pat = torch.randint(2, 128, (5,), generator=torch.Generator()
+                        .manual_seed(3))
+    ids = torch.cat([pat, pat, pat, pat[:2]])[None]
+    gen = GenerationConfig(max_new_tokens=16, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=0)
+    outs = []
+    for params, where in ((cpu, "cpu"), (card, dev)):
+        t = params["text"]
+        if mode == "lookup":
+            outs.append(speculative.generate_lookup(
+                t, cfg.text, ids.to(where), gen, k=4, n=2,
+                return_stats=True))
+        else:
+            with torch.no_grad():
+                d = qwen3.quantize_for_decode(t, cfg.text)
+            outs.append(speculative.generate_speculative(
+                t, cfg.text, d, cfg.text, ids.to(where), gen, k=3,
+                return_stats=True))
+    (rt, rr, ra), (gt, gr, ga) = outs
+    assert torch.equal(gt.cpu(), rt) and (gr, ga) == (rr, ra)
+    assert len(set(rt[0].tolist())) > 1
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("spec", [0, 3])
+def test_offline_ring_card_equal_cpu(dev, kv_quant, spec):
+    """A tiny offline ring (10 requests, 4 slots, groups of 2) on the card
+    gives the CPU's tokens (int8 KV: first tokens equal, at most 3
+    flips)."""
+    from molly_tpu_torch.inference import offline
+    from molly_tpu_torch.models.configs import GenerationConfig
+    cfg, cpu, card = _serving_model(dev)
+    g = torch.Generator().manual_seed(5)
+    n, bucket = 10, 32
+    ids = torch.randint(1, 128, (n, bucket), generator=g).int().numpy()
+    mask = (torch.arange(bucket)[None] >= torch.randint(
+        0, 20, (n, 1), generator=g)).int().numpy()
+    gen = GenerationConfig(max_new_tokens=12, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=0)
+    kw = dict(n_slots=4, max_len=bucket + 12 + spec, admit_group=2,
+              kv_quant=kv_quant, spec_lookup=spec)
+    ref = offline.run_offline(cpu, cfg, gen, ids, mask, **kw)
+    got = offline.run_offline(card, cfg, gen, ids, mask, **kw)
+    again = offline.run_offline(card, cfg, gen, ids, mask, **kw)
+    assert (got["tokens"] == again["tokens"]).all()
+    assert (got["lengths"] == ref["lengths"]).all()
+    flips = int((got["tokens"] != ref["tokens"]).sum())
+    if kv_quant is None:
+        assert flips == 0
+    else:
+        assert (got["tokens"][:, 0] == ref["tokens"][:, 0]).all()
+        assert flips <= 3
+
+
+def test_http_round_trip_on_the_card(dev):
+    """One greedy completion and one embedding through the HTTP API over
+    the card's engine (fp32): the CPU server's answer."""
+    import json
+    import threading
+    import urllib.request
+
+    from molly_tpu_torch.data import (DataConfig, OmicsSampleEncoder,
+                                      default_modality_tokenizers,
+                                      load_text_tokenizer)
+    from molly_tpu_torch.inference import api_server
+    from molly_tpu_torch.models import fusion
+    from molly_tpu_torch.models.configs import (FusionConfig,
+                                                GenerationConfig, tiny_esm,
+                                                tiny_qwen3)
+    from molly_tpu_torch.utils.tree import tree_to
+    text_tok, dna_tok, prot_tok = (load_text_tokenizer(None),
+                                   *default_modality_tokenizers())
+    cfg = FusionConfig(
+        text=tiny_qwen3(vocab_size=-(-text_tok.vocab_size // 128) * 128,
+                        head_dim=64),
+        dna_rna=tiny_esm(vocab_size=dna_tok.vocab_size, mask_token_id=2,
+                         hidden_size=128, num_attention_heads=2),
+        protein=tiny_esm(vocab_size=prot_tok.vocab_size,
+                         mask_token_id=prot_tok.mask_id, hidden_size=128,
+                         num_attention_heads=2),
+        dna_rna_k_tokens=4, protein_k_tokens=4)
+    cpu = fusion.init_params(cfg, torch.Generator().manual_seed(0))
+    enc = OmicsSampleEncoder(text_tok, dna_tok, prot_tok, DataConfig(
+        max_len=192, dna_rna_k_tokens=4, protein_k_tokens=4))
+    gen = GenerationConfig(max_new_tokens=6, do_sample=False,
+                           eos_token_id=text_tok.eos_token_id,
+                           pad_token_id=text_tok.pad_token_id)
+    answers = []
+    for params in (cpu, tree_to(cpu, dev)):
+        online = api_server.OnlineServer(params, cfg, gen, enc, text_tok,
+                                         n_slots=2, decode_chunk=2)
+        httpd = api_server.make_http_server(online, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        got = []
+        for path, body in (("/v1/completions",
+                            {"prompt": "Is <dna>ACGTACGT</dna> a promoter?",
+                             "temperature": 0, "logprobs": 1}),
+                           ("/v1/embeddings", {"input": ["hi <dna>ACGT</dna>"]})):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                got.append(json.loads(r.read()))
+        httpd.shutdown()
+        httpd.server_close()
+        online.close()
+        answers.append(got)
+    (c_cpu, e_cpu), (c_card, e_card) = answers
+    assert c_card["choices"][0]["text"] == c_cpu["choices"][0]["text"]
+    assert c_card["usage"] == c_cpu["usage"]
+    lp = [c["choices"][0]["logprobs"]["token_logprobs"]
+          for c in (c_card, c_cpu)]
+    assert max(abs(a - b) for a, b in zip(*lp)) <= 1e-3
+    va = torch.tensor(e_card["data"][0]["embedding"])
+    vb = torch.tensor(e_cpu["data"][0]["embedding"])
+    assert (va - vb).abs().max().item() <= 1e-3
+
+
+def test_int8_encoders_card_close_to_cpu(dev):
+    """``esm.quantize_for_decode`` of a bf16 encoder: every product runs
+    the int8 TMA kernel on the card, within one bf16 rounding (2e-2 of the
+    output's max) of the same int8 encoder on the CPU."""
+    from molly_tpu_torch.models import esm
+    from molly_tpu_torch.models.configs import tiny_esm
+    from molly_tpu_torch.utils.tree import tree_to
+    cfg = tiny_esm(vocab_size=33, hidden_size=128, intermediate_size=256,
+                   num_attention_heads=2, dtype="bfloat16")
+    cpu = esm.quantize_for_decode(
+        esm.init_params(cfg, torch.Generator().manual_seed(0)))
+    card = tree_to(cpu, dev)
+    ids = torch.randint(4, 30, (4, 40), generator=torch.Generator()
+                        .manual_seed(1))
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    before = (quant.int8_matmul.launches, quant.int8_matmul.launches_tma)
+    with torch.inference_mode():
+        got = esm.forward_hidden(card, cfg, ids.to(dev), mask.to(dev))
+        ref = esm.forward_hidden(cpu, cfg, ids, mask)
+    n = quant.int8_matmul.launches - before[0]
+    assert n == 6 * cfg.num_hidden_layers
+    assert quant.int8_matmul.launches_tma - before[1] == n
+    err = (got.float().cpu() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()

@@ -291,6 +291,32 @@ out = tcli.train_loop(init_train_state(mparams, tc), mcfg, tc,
 assert out["steps"] == 1 and out["history"][0]["moe_load_balance"] > 0
 assert grouped_gemm.grouped_gemm.launches == 0   # the CPU ran the plain path
 
+# the offline ring, prompt lookup and one HTTP round trip
+g2 = GenerationConfig(max_new_tokens=3, do_sample=False,
+                      eos_token_id=text_tok.eos_token_id,
+                      pad_token_id=text_tok.pad_token_id or 0)
+recs = icli.run_offline_ring([enc.encode_test(r) for r in rows], params,
+                             cfg, g2, text_tok, io.StringIO(), n_slots=2,
+                             max_length=192, admit_group=1, ring_spec=2)
+assert len(recs) == 2
+recs = icli.run_lookup([enc.encode_test(r) for r in rows], params, cfg, g2,
+                       text_tok, io.StringIO(), k=3, n=2)
+assert len(recs) == 2
+import json, threading, urllib.request
+from molly_tpu_torch.inference import api_server
+online = api_server.OnlineServer(params, cfg, g2, enc, text_tok, n_slots=2,
+                                 decode_chunk=2)
+httpd = api_server.make_http_server(online, "127.0.0.1", 0)
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{httpd.server_address[1]}/v1/completions",
+    data=json.dumps({"prompt": "hi", "temperature": 0}).encode())
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert json.loads(r.read())["usage"]["completion_tokens"] == 3
+httpd.shutdown()
+httpd.server_close()
+online.close()
+
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("imported", len(names) + 1, "modules")
@@ -299,11 +325,13 @@ print("imported", len(names) + 1, "modules")
 
 def test_port_imports_no_jax():
     """Every molly_tpu_torch module (the serving engines, the paged
-    attention op, ``ops.moe`` and ``ops.grouped_gemm`` among them) and
+    attention op, ``ops.moe`` and ``ops.grouped_gemm``, the offline ring,
+    speculative decoding, the HTTP API and the tools among them) and
     chip_smoke.py import, and the --tiny batch
     loop, the --tiny serving loops (dense ring and paged), one --tiny
-    train step, and one MoE batch and MoE train step (--moe-experts 4
-    --moe-topk 2) run, with jax, optax, orbax
+    train step, one MoE batch and MoE train step (--moe-experts 4
+    --moe-topk 2), a --tiny offline ring with lookup speculation, a
+    --tiny prompt-lookup run and one HTTP completion run, with jax, optax, orbax
     and the whole molly_tpu package blocked; none of them ends up in
     sys.modules. chip_smoke.py names no molly_tpu import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -218,7 +218,8 @@ def test_plain_attention_kv_scales_matches_jax(sq, causal):
 
 
 def test_dense_int8_decode_step_matches_jax(setup):
-    """One prefill and one decode step of ``forward_hidden`` over the int8
+    """One prefill, one decode step at a shared column and one at per-row
+    columns (a [B] ``cache_index``) of ``forward_hidden`` over the int8
     dense cache: hidden states to 1e-5, the cache and its scales compared
     after the writes."""
     cfg, jp, tcfg, tp = setup
@@ -254,11 +255,23 @@ def test_dense_int8_decode_step_matches_jax(setup):
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3  # rounding ties
     np.testing.assert_allclose(tc["kv_scale"].numpy(),
                                np.asarray(jc["kv_scale"]), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qwen3.forward_hidden(
-            tp["text"], tcfg.text, input_ids=_t(ids[:, S:]).long(),
-            attention_mask=_t(mask), positions=_t(pos), cache=tc,
-            cache_index=torch.full((B,), S), causal=False)
+    # a per-row [B] write: each row's token at its own column
+    col = np.array([S + 1, S + 3, T - 1], np.int32)
+    mask[np.arange(B), col] = 1
+    jh, jc = jqwen3.forward_hidden(
+        jp["text"], cfg.text, input_ids=jnp.asarray(ids[:, S:]),
+        attention_mask=jnp.asarray(mask), positions=jnp.asarray(pos + 1),
+        cache=jc, cache_index=jnp.asarray(col), causal=False)
+    th, tc = qwen3.forward_hidden(
+        tp["text"], tcfg.text, input_ids=_t(ids[:, S:]).long(),
+        attention_mask=_t(mask), positions=_t(pos + 1), cache=tc,
+        cache_index=_t(col), causal=False)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
+    diff = np.abs(tc["kv"].numpy().astype(np.int32)
+                  - np.asarray(jc["kv"]).astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3  # rounding ties
+    np.testing.assert_allclose(tc["kv_scale"].numpy(),
+                               np.asarray(jc["kv_scale"]), atol=1e-6)
 
 
 # ---------------------------------------------------------------- lora bank
@@ -557,19 +570,118 @@ def test_cli_serving_jsonl_matches_jax_cli(tmp_path, monkeypatch, flags):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    (["--offline-ring"], "offline.py"),
-    (["--offline-ring", "--ring-spec", "4"], "offline.py"),
-    (["--decoding", "lookup"], "speculative.py"),
-    (["--api-serve"], "api_server.py"),
-    (["--serve-adapter", "a=b"], "api_server.py"),
+    (["--ring-spec", "4"], "--ring-spec acts only with --offline-ring"),
+    (["--ring-spec-adapt", "0.2"], "--ring-spec-adapt acts only with "
+                                   "--offline-ring"),
+    (["--offline-ring", "--ring-spec-adapt", "0.2"],
+     "--ring-spec-adapt acts only with --ring-spec"),
+    (["--serve-adapter", "a=b"], "--serve-adapter acts only with "
+                                 "--api-serve"),
+    (["--api-serve", "--serve-adapter", "a"], "NAME=PATH"),
 ])
 def test_cli_refuses_unported_flags(flags, entry):
-    """The JAX CLI's flags whose paths are not ported parse, and stop with
-    the ROADMAP.md entry that tracks them."""
-    with pytest.raises(SystemExit, match="ROADMAP.md") as exc:
+    """A mode's option without its mode (which the JAX CLI would ignore) and
+    a malformed --serve-adapter stop with an error naming the flag."""
+    with pytest.raises(SystemExit) as exc:
         cli.main(["--input-file", "none.parquet", "--output-file",
-                  "none.jsonl", "--tiny", "--device", "cpu"] + flags)
+                  "none.jsonl", "--tiny", "--device", "cpu",
+                  "--dna-rna-k-tokens", "4", "--protein-k-tokens", "4"]
+                 + flags)
     assert entry in str(exc.value)
+
+
+def _peft_dir(path, cfg):
+    """A PEFT adapter directory (rank 4, nonzero B) for the tiny config."""
+    from molly_tpu_torch.models.hf_export import (peft_lora_to_hf_state,
+                                                  write_safetensors)
+    from molly_tpu_torch.models.lora import LoraConfig, init_lora
+    adapter = init_lora(cfg.text, LoraConfig(r=4),
+                        torch.Generator().manual_seed(0))
+    adapter["layers"] = {t: {"a": ab["a"], "b": ab["b"] + 0.01}
+                         for t, ab in adapter["layers"].items()}
+    path.mkdir()
+    write_safetensors(str(path / "adapter_model.safetensors"),
+                      peft_lora_to_hf_state(adapter, cfg.text))
+    with open(path / "adapter_config.json", "w") as f:
+        f.write('{"r": 4, "lora_alpha": 8}')
+
+
+@pytest.mark.parametrize("flags", [
+    ["--offline-ring"],
+    ["--offline-ring", "--ring-spec", "4", "--ring-spec-adapt", "0.2"],
+    ["--decoding", "lookup"],
+    ["--api-serve"],
+    ["--api-serve", "--serve-adapter", "bio=ADAPTER", "--int8"],
+], ids=["offline-ring", "ring-spec", "lookup", "api-serve", "serve-adapter"])
+def test_cli_runs_the_formerly_refused_flags(tmp_path, monkeypatch, flags):
+    """The five flags that were refused until their paths were ported run on
+    --tiny --device cpu: each JSONL record, or the HTTP answer of the API
+    (the server is shut down from here), is non-empty and well formed."""
+    import threading
+    import urllib.request
+
+    from test_train_cli import _toy_parquet
+
+    from molly_tpu_torch.data import (default_modality_tokenizers,
+                                      load_text_tokenizer)
+    from molly_tpu_torch.inference import api_server
+
+    data, out = str(tmp_path / "d.parquet"), str(tmp_path / "o.jsonl")
+    _toy_parquet(data, 3)
+    argv = ["--input-file", data, "--output-file", out, "--tiny",
+            "--device", "cpu", "--greedy", "--max-length", "192",
+            "--max-new-tokens", "3", "--dna-rna-k-tokens", "4",
+            "--protein-k-tokens", "4", "--batch-size", "2",
+            "--serve-admit", "1", "--port", "0"]
+    if "--serve-adapter" in flags:
+        args = cli.build_argparser().parse_args(argv)
+        cfg = cli.build_config(args, load_text_tokenizer(None),
+                               *default_modality_tokenizers())
+        _peft_dir(tmp_path / "adapter", cfg)
+        flags = [f.replace("ADAPTER", str(tmp_path / "adapter"))
+                 for f in flags]
+    if "--api-serve" not in flags:
+        cli.main(argv + flags)
+        recs = [json.loads(line) for line in open(out)]
+        assert len(recs) == 3
+        for rec in recs:
+            assert set(rec) == {"decoded_output", "input", "gt_output",
+                                "gt_label", "task", "kind"}
+            assert rec["input"]
+        return
+    servers = []
+    make = api_server.make_http_server
+
+    def capture(*a, **kw):
+        servers.append(make(*a, **kw))
+        return servers[-1]
+
+    monkeypatch.setattr(api_server, "make_http_server", capture)
+    main = threading.Thread(target=cli.main, args=(argv + flags,))
+    main.start()
+    try:
+        for _ in range(600):
+            if servers or not main.is_alive():
+                break
+            main.join(0.1)
+        assert servers, "the API server did not start"
+        port = servers[0].server_address[1]
+        model = "bio" if "--serve-adapter" in flags else "molly-tpu"
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/completions",
+            data=json.dumps({"prompt": "hello", "model": model,
+                             "temperature": 0}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = json.loads(r.read())
+        assert body["object"] == "text_completion"
+        assert body["model"] == model
+        assert body["usage"]["completion_tokens"] == 3
+        assert body["choices"][0]["finish_reason"] in ("stop", "length")
+    finally:
+        if servers:
+            servers[0].shutdown()
+        main.join(300)
+    assert not main.is_alive()
 
 
 def test_cli_parses_the_jax_cli_flags_and_loads_peft_adapter(tmp_path):
