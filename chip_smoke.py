@@ -166,6 +166,17 @@ Phases, each printed with its time; any failure exits non-zero:
  10. main path, training, QLoRA: the same with --use-lora --qlora (r 64,
      dropout 0.05) over an int8 base, 3 steps, then export_adapter,
      load_adapter, merge_lora and 8 greedy tokens through ``run_batches``.
+  9a. main path, training, remat ``dots``: one batch's loss and every
+     trainable gradient under ``--gradient-checkpointing true
+     --remat-policy dots`` against ``full`` and no remat (bit-equal, or
+     within 1e-2 of each leaf's max; the largest difference printed), then
+     3 steps each under ``full`` and ``dots``: peak memory and s a step
+     beside phase 9's.
+  9b. main path, training, ``--offload-opt-state true``: 3 steps of
+     ``train_loop`` with the Adam moments in pinned host memory (the copies'
+     seconds and bytes printed, every moment pinned on the host), then 3
+     steps on the card's moments and 3 offloaded from the same weights and
+     batches, every trainable leaf bit-equal after every step.
  11. main path, generation, int8: the requests of phase 7 after
      ``quantize_for_decode``, greedy.
  11a. int8, after phase 11's ``quantize_for_decode``: ``run_lookup`` and
@@ -210,8 +221,22 @@ Phases, each printed with its time; any failure exits non-zero:
  16. main path, MoE training, full fine-tune: 3 steps of ``train_loop`` at
      the train CLI's defaults at 4 of the 48 layers (router and expert
      stacks train), with ``moe_load_balance`` printed.
+ 16a. main path, MoE training under remat ``dots`` at 4 layers: one
+     batch's gradients against ``full`` and no remat (the router's products
+     saved, the grouped GEMMs recomputed), then 3 steps.
  17. main path, MoE training, QLoRA with expert adapters (r 64) over int8
      experts, 4 layers, 3 steps.
+ 16b. main path, MoE training with the moments offloaded at 18 of 48
+     layers (host MemTotal and the moments' bytes printed), 3 steps, then
+     the same depth with the moments on the card, which must run out of
+     device memory.
+ 18. main path, the encoder + head baseline: ``baselines.train.main``
+     with --model-type NT+ESM at full width (nt-500m and esm2-650m in bf16,
+     k = 1024 each, batch 16, 5 steps) on rows made from the seed: every
+     flash launch on the TMA kernel (57 a step), ``head_delta`` > 0, one
+     batch's logits within 2e-2 of their max of the same weights through
+     the plain attention; a small fp32 NT+ESM model on the card within
+     1e-4 of the CPU.
      Each MoE phase prints its depth and peak device memory and must launch
      the grouped GEMM (the training phases tgmm too), and prints how many of
      those launches ran on the TMA and wgmma kernels (every prefill product
@@ -229,7 +254,7 @@ instead of 32, chunk 16 instead of 64, admission groups of 4 instead of 8
 and 32 new tokens instead of 3072; training runs 3 steps. The MoE phases
 keep every width of qwen3-30b-a3b; generation and serving run all 48
 layers, training 4 of the 48 (full fine-tune of 30.5 B parameters does not
-fit one card).
+fit one card), with the moments offloaded 18.
 The last two lines of standard output are the kernels JSON line and the
 device JSON line.
 """
@@ -2037,10 +2062,15 @@ def serve_main_path(params, cfg, samples, text_tok, gen, seed, label,
     return counts
 
 
+# label -> {"peak_gib", "step_s"} of each train_main_path run (steps 2-3)
+TRAIN_RUNS = {}
+
+
 def train_main_path(params, cfg, samples, tc, label, seed, needed,
                     profile_dir=None):
     """Drive ``train_loop`` for 3 steps on the four samples; returns (the
-    launch counts of the run, the trained state)."""
+    launch counts of the run, the trained state). The run's peak device
+    memory and step seconds go to ``TRAIN_RUNS[label]``."""
     import torch
 
     from molly_tpu_torch.training.cli import train_loop
@@ -2064,10 +2094,16 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
         ph = h["phases"]
         lb = (f"moe_load_balance {h['moe_load_balance']:.4f}, "
               if "moe_load_balance" in h else "")
+        off = (f"; the offloaded update's copies: H2D "
+               f"{ph['offload_h2d_s']:.3f} s, D2H {ph['offload_d2h_s']:.3f} "
+               f"s, first in to last out {ph['offload_span_s']:.3f} s, "
+               f"{ph['offload_bytes'] / 1e9:.2f} GB"
+               if "offload_h2d_s" in ph else "")
         log(f"  {label}: step {h['step']}: loss {h['loss']:.4f}, {lb}grad norm "
             f"{h['grad_norm']:.4f}, {h['seconds']:.3f} s (device: forward "
             f"{ph['forward_s']:.3f}, backward {ph['backward_s']:.3f}, "
-            f"optimizer {ph['optimizer_s']:.3f}), skipped {h['skipped']}")
+            f"optimizer {ph['optimizer_s']:.3f}{off}), skipped "
+            f"{h['skipped']}")
     rows = len(samples) * samples[0]["input_ids"].shape[0]
     # step 1 warms up (Triton compiles, allocator); a traced step 3 carries
     # the profiler's overhead
@@ -2078,6 +2114,9 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
         f"device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{counts}")
+    TRAIN_RUNS[label] = {
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "step_s": [h["seconds"] for h in steady]}
     import math
     if len(hist) != 3 or any(
             not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
@@ -2091,25 +2130,17 @@ def train_main_path(params, cfg, samples, tc, label, seed, needed,
     return counts, result["state"]
 
 
-def drive_main_paths(seed: int, profile_dir=None):
-    """Phases 7-12: generation (bf16, int8), serving (paged bf16, paged
-    int8, dense ring) and training (full fine-tune, QLoRA) at molly-1.7B
-    width; returns each kernel's launches summed over the runs."""
+def inputs(seed: int):
+    """The tokenizers, encoders, requests and configs of the molly-1.7B
+    phases: generation at k = 1024 and max length 3072, training at the
+    train CLI's defaults (max length 1024, k = 128, 4 slots)."""
     import dataclasses
-    import tempfile
-
-    import torch
 
     from molly_tpu_torch.data import (DataConfig, OmicsSampleEncoder,
                                       default_modality_tokenizers,
                                       load_text_tokenizer)
     from molly_tpu_torch.models import (ESM_PRESETS, QWEN3_PRESETS,
-                                        FusionConfig, GenerationConfig,
-                                        fusion, qwen3)
-    from molly_tpu_torch.models.lora import LoraConfig, merge_lora
-    from molly_tpu_torch.training import checkpoint as ckpt
-    from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
-    from molly_tpu_torch.utils.tree import leaves
+                                        FusionConfig)
 
     text_tok = load_text_tokenizer(None)
     dna_tok, prot_tok = default_modality_tokenizers()
@@ -2117,18 +2148,44 @@ def drive_main_paths(seed: int, profile_dir=None):
         max_len=3072, dna_rna_k_tokens=1024, protein_k_tokens=1024,
         max_dna_rna_segments=4, max_protein_segments=4))
     requests = make_requests(seed)
-    samples = [enc.encode_test(r) for r in requests]
     cfg = FusionConfig(text=QWEN3_PRESETS["qwen3-1.7b"],
                        dna_rna=ESM_PRESETS["nt-500m"],
                        protein=ESM_PRESETS["esm2-650m"],
                        dna_rna_k_tokens=1024, protein_k_tokens=1024)
-    # the train CLI's defaults: max length 1024, k = 128, 4 slots
     train_enc = OmicsSampleEncoder(text_tok, dna_tok, prot_tok, DataConfig(
         max_len=1024, dna_rna_k_tokens=128, protein_k_tokens=128,
         max_dna_rna_segments=4, max_protein_segments=4))
-    train_samples = [train_enc.encode_train(r) for r in requests]
-    train_cfg = dataclasses.replace(cfg, dna_rna_k_tokens=128,
-                                    protein_k_tokens=128)
+    return dict(
+        text_tok=text_tok, dna_tok=dna_tok, prot_tok=prot_tok, enc=enc,
+        train_enc=train_enc, requests=requests,
+        samples=[enc.encode_test(r) for r in requests],
+        train_samples=[train_enc.encode_train(r) for r in requests], cfg=cfg,
+        train_cfg=dataclasses.replace(cfg, dna_rna_k_tokens=128,
+                                      protein_k_tokens=128))
+
+
+def drive_main_paths(seed: int, profile_dir=None):
+    """Phases 7-12 (with 9a-9b): generation (bf16, int8), serving (paged
+    bf16, paged int8, dense ring) and training (full fine-tune, QLoRA,
+    the ``dots`` policy, offloaded moments) at molly-1.7B width; returns
+    each kernel's launches summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from molly_tpu_torch.models import GenerationConfig, fusion, qwen3
+    from molly_tpu_torch.models.lora import LoraConfig, merge_lora
+    from molly_tpu_torch.training import checkpoint as ckpt
+    from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
+    from molly_tpu_torch.utils.tree import leaves
+
+    base = inputs(seed)
+    text_tok, dna_tok, prot_tok = (base["text_tok"], base["dna_tok"],
+                                   base["prot_tok"])
+    enc, train_enc, requests = (base["enc"], base["train_enc"],
+                                base["requests"])
+    samples, train_samples = base["samples"], base["train_samples"]
+    cfg, train_cfg = base["cfg"], base["train_cfg"]
     with Phase("init molly-1.7B-width params"):
         params = fusion.init_params(
             cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
@@ -2247,6 +2304,11 @@ def drive_main_paths(seed: int, profile_dir=None):
                                    **common), seed, "merged adapter, greedy")
         del fresh
         torch.cuda.empty_cache()
+
+    # 9a-9b: the remat policy dots and the offloaded moments, on the full
+    # fine-tune's weights
+    train_leftover_paths(seed, params, train_cfg, train_samples, add)
+    release()
 
     with Phase("quantize_for_decode"), torch.no_grad():
         params["text"] = qwen3.quantize_for_decode(params["text"], cfg.text)
@@ -3320,65 +3382,89 @@ MOE_INT8_LAYERS = 48   # generation over int8 experts
 MOE_TRAIN_LAYERS = 4   # full fine-tune and QLoRA
 
 
-def drive_moe_paths(seed: int, launches, inp):
-    """Phases 13-17: the Qwen3-MoE decoder at qwen3-30b-a3b width (hidden
-    2048, 128 experts of width 768, top-8, 32 q heads over 4 kv heads, vocab
-    151,936, untied head) fused with nt-500m and esm2-650m, through the
-    same entry points and requests as the molly-1.7B phases. ``launches``
-    gains each run's counts."""
+def moe_config(layers: int, k_tokens: int):
+    """qwen3-30b-a3b cut to ``layers`` of its 48, fused with nt-500m and
+    esm2-650m at ``k_tokens`` a modality slot."""
     import dataclasses
 
+    from molly_tpu_torch.models import ESM_PRESETS, QWEN3_PRESETS, \
+        FusionConfig
+    preset = QWEN3_PRESETS["qwen3-30b-a3b"]
+    return FusionConfig(
+        text=dataclasses.replace(preset, num_hidden_layers=layers),
+        dna_rna=ESM_PRESETS["nt-500m"], protein=ESM_PRESETS["esm2-650m"],
+        dna_rna_k_tokens=k_tokens, protein_k_tokens=k_tokens)
+
+
+def moe_init(cfg, what: str, seed: int):
+    """Random params of ``cfg`` from ``seed`` on the card."""
     import torch
 
-    from molly_tpu_torch.models import (ESM_PRESETS, QWEN3_PRESETS,
-                                        FusionConfig, GenerationConfig,
-                                        fusion, qwen3)
+    from molly_tpu_torch.models import QWEN3_PRESETS, fusion
+    from molly_tpu_torch.utils.tree import leaves
+    release()
+    full = QWEN3_PRESETS["qwen3-30b-a3b"].num_hidden_layers
+    with Phase(f"init qwen3-30b-a3b-width params, "
+               f"{cfg.text.num_hidden_layers} of {full} layers ({what})"):
+        params = fusion.init_params(
+            cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  {n / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return params
+
+
+def moe_check(label, counts, needed, depth, launches):
+    """Every kernel of ``needed`` launched; ``launches`` gains ``counts``;
+    the grouped GEMMs' routes printed."""
+    import torch
+
+    from molly_tpu_torch.models import QWEN3_PRESETS
+    for name in needed:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label} never launched {name}")
+    for name, n in counts.items():
+        launches[name] += n
+    log(f"  {label}: depth {depth} of "
+        f"{QWEN3_PRESETS['qwen3-30b-a3b'].num_hidden_layers} layers, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"grouped_gemm launches {counts['grouped_gemm']} "
+        f"({int8_grouped_launches()} over int8 experts, "
+        f"{tma_launches()[0]} on the TMA and wgmma kernel, "
+        f"{counters()['grouped_gemm'].launches_stream} on the split "
+        f"stream, {counters()['grouped_gemm'].launches_int8_tma} on the "
+        f"int8 TMA kernel, {counters()['grouped_gemm'].launches_tc} on "
+        f"the fp32 tensor-core kernels, {grouped_off_route()} on "
+        f"grouped_gemm.cu), tgmm "
+        f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
+        f"and wgmma kernel, "
+        f"{counters()['grouped_gemm_tgmm'].launches_tc} on the fp32 "
+        f"tensor-core kernel)")
+
+
+def drive_moe_paths(seed: int, launches, inp):
+    """Phases 13-17 (with 16a-16b): the Qwen3-MoE decoder at qwen3-30b-a3b
+    width (hidden 2048, 128 experts of width 768, top-8, 32 q heads over 4
+    kv heads, vocab 151,936, untied head) fused with nt-500m and esm2-650m,
+    through the same entry points and requests as the molly-1.7B phases.
+    ``launches`` gains each run's counts."""
+    import torch
+
+    from molly_tpu_torch.models import (QWEN3_PRESETS, GenerationConfig,
+                                        qwen3)
     from molly_tpu_torch.models.lora import LoraConfig
     from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
-    from molly_tpu_torch.utils.tree import leaves
 
     text_tok, enc, common = inp["text_tok"], inp["enc"], inp["common"]
     preset = QWEN3_PRESETS["qwen3-30b-a3b"]
-
-    def config(layers, k_tokens):
-        return FusionConfig(
-            text=dataclasses.replace(preset, num_hidden_layers=layers),
-            dna_rna=ESM_PRESETS["nt-500m"], protein=ESM_PRESETS["esm2-650m"],
-            dna_rna_k_tokens=k_tokens, protein_k_tokens=k_tokens)
+    config = moe_config
 
     def init(cfg, what):
-        release()
-        with Phase(f"init qwen3-30b-a3b-width params, "
-                   f"{cfg.text.num_hidden_layers} of {preset.num_hidden_layers}"
-                   f" layers ({what})"):
-            params = fusion.init_params(
-                cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
-        n = sum(t.numel() for t in leaves(params))
-        log(f"  {n / 1e9:.3f} B params, "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        return params
+        return moe_init(cfg, what, seed)
 
     def check(label, counts, needed, depth):
-        for name in needed:
-            if counts[name] <= 0:
-                raise AssertionError(f"{label} never launched {name}")
-        for name, n in counts.items():
-            launches[name] += n
-        log(f"  {label}: depth {depth} of {preset.num_hidden_layers} layers, "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"grouped_gemm launches {counts['grouped_gemm']} "
-            f"({int8_grouped_launches()} over int8 experts, "
-            f"{tma_launches()[0]} on the TMA and wgmma kernel, "
-            f"{counters()['grouped_gemm'].launches_stream} on the split "
-            f"stream, {counters()['grouped_gemm'].launches_int8_tma} on the "
-            f"int8 TMA kernel, {counters()['grouped_gemm'].launches_tc} on "
-            f"the fp32 tensor-core kernels, {grouped_off_route()} on "
-            f"grouped_gemm.cu), tgmm "
-            f"{counts['grouped_gemm_tgmm']} ({tma_launches()[1]} on the TMA "
-            f"and wgmma kernel, "
-            f"{counters()['grouped_gemm_tgmm'].launches_tc} on the fp32 "
-            f"tensor-core kernel)")
+        moe_check(label, counts, needed, depth, launches)
 
     gen_kernels = ("grouped_gemm", "flash_attention_fwd", "rmsnorm_fwd")
     cfg = config(MOE_LAYERS, 1024)
@@ -3557,6 +3643,9 @@ def drive_moe_paths(seed: int, launches, inp):
                                  f"and wgmma kernels: {tma_launches()}")
     del state
     release()
+    # 16a: the remat policy dots on the same weights
+    moe_dots_path(seed, params, train_cfg, inp, launches)
+    release()
 
     lora_cfg = LoraConfig(r=64, alpha=64.0, dropout=0.05)
     label = "MoE QLoRA, expert adapters"
@@ -3609,6 +3698,454 @@ def drive_moe_paths(seed: int, launches, inp):
                                  f"{t.launches})")
     del state, qparams
     release()
+    # 16b: deeper than 4 layers, the moments offloaded to the host
+    moe_offload_path(seed, inp, launches)
+    release()
+
+
+# ---------------------------------------------------------------------------
+# the last one-device training options and the baselines
+# ---------------------------------------------------------------------------
+
+# depth of the MoE full fine-tune with the moments offloaded: the on-card
+# moments' run does not fit there (phase 16b tries it); at 20 layers the
+# offloaded run itself ran out of memory in its first step (51 GiB
+# allocated, 20 GiB reserved by the caching allocator but unallocated)
+MOE_OFFLOAD_LAYERS = 18
+DOTS_GRAD_REL = 1e-2   # dots against full, of each gradient's max-abs (in
+#                        practice 0: the recompute reruns the same kernels)
+BASELINE_LOGIT_REL = 2e-2  # bf16 encoders, flash against plain attention,
+#                            of the logits' max-abs (flash O's tolerance)
+BASELINE_F32_ATOL = 1e-4   # small fp32 baseline, card against the CPU
+
+
+def with_remat(cfg, policy):
+    import dataclasses
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, remat=policy is not None, remat_policy=policy or "full"))
+
+
+def first_batch(samples, seed):
+    """The first batch ``train_loop`` hands its step (epoch 0), on the
+    card."""
+    from molly_tpu_torch.data import iterate_batches
+    from molly_tpu_torch.data.pipeline import to_device
+    return to_device("cuda")(next(iter(iterate_batches(
+        samples, len(samples), shuffle=True, seed=seed, epoch=0))))
+
+
+def dots_against_full(label, params, cfg, tc, batch):
+    """Loss and every trainable gradient of one step on ``batch`` under
+    ``dots``, ``full`` and no remat; ``dots`` must equal ``full`` bit for
+    bit or within ``DOTS_GRAD_REL`` of each leaf's max (the largest
+    difference is printed either way)."""
+    import torch
+
+    from molly_tpu_torch.training.trainer import (init_train_state,
+                                                  make_grad_fn)
+    init_train_state(params, tc)
+    out = {}
+    for policy in (None, "full", "dots"):
+        g, m = make_grad_fn(with_remat(cfg, policy), tc)(params, batch)
+        out[policy] = (g, float(m["loss"]))
+    (gd, ld), (gf, lf), (gn, ln) = out["dots"], out["full"], out[None]
+    for other, (go, lo) in (("full", (gf, lf)), ("no remat", (gn, ln))):
+        worst, equal = 0.0, ld == lo
+        for a, b in zip(gd, go):
+            ref = b.float().abs().max().item()
+            worst = max(worst, (a.float() - b.float()).abs().max().item()
+                        / max(ref, 1e-12))
+            equal = equal and torch.equal(a, b)
+        log(f"  {label}: dots against {other}: loss {ld:.6f} / {lo:.6f}, "
+            f"{'bit-equal' if equal else 'not bit-equal'}; largest gradient"
+            f" difference {worst:.3e} of its leaf's max over {len(gd)} "
+            f"leaves (tol {DOTS_GRAD_REL})")
+        if other == "full" and not (worst <= DOTS_GRAD_REL and abs(
+                ld - lo) <= DOTS_GRAD_REL * abs(lo)):
+            raise AssertionError(f"{label}: dots disagrees with full")
+    del out, gd, gf, gn
+
+
+def offload_bit_equal(label, params, cfg, samples, seed):
+    """3 full fine-tune steps on the card's moments and 3 with the moments
+    offloaded (``make_offloaded_step``), from the same weights and batches
+    in ``train_loop``'s order: every trainable leaf bit-equal after every
+    step, the offloaded moments pinned on the host; s per step of both."""
+    import torch
+
+    from molly_tpu_torch.data import iterate_batches
+    from molly_tpu_torch.data.pipeline import to_device
+    from molly_tpu_torch.training.trainer import (TrainConfig,
+                                                  _trainable_leaves,
+                                                  init_train_state,
+                                                  make_offloaded_step,
+                                                  make_train_step,
+                                                  offload_opt_state,
+                                                  trainable_mask)
+    dev_tc = TrainConfig(total_steps=3)
+    off_tc = TrainConfig(total_steps=3, offload_opt_state=True)
+    mask = trainable_mask(params, dev_tc)
+    trains = {k for k in params if any(
+        leaf for leaf in _leaves(mask[k]))}
+    with torch.no_grad():   # the frozen encoders are shared
+        ref = {k: (_clone(v) if k in trains else v)
+               for k, v in params.items()}
+    a = init_train_state(ref, dev_tc)
+    b = offload_opt_state(init_train_state(params, off_tc))
+    step_a = make_train_step(cfg, dev_tc)
+    step_b = make_offloaded_step(make_train_step(cfg, off_tc), b)
+    gen_a = torch.Generator("cuda").manual_seed(seed + 7)
+    gen_b = torch.Generator("cuda").manual_seed(seed + 7)
+    put = to_device("cuda")
+    secs = {"on the card": [], "offloaded": []}
+    for epoch in range(3):
+        batch = put(next(iter(iterate_batches(samples, len(samples),
+                                              shuffle=True, seed=seed,
+                                              epoch=epoch))))
+        for key, (st, step, gen) in (("on the card", (a, step_a, gen_a)),
+                                     ("offloaded", (b, step_b, gen_b))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, batch, gen)
+            torch.cuda.synchronize()
+            secs[key].append(time.perf_counter() - t0)
+            if m["skipped"]:
+                raise AssertionError(f"{label}: step {epoch + 1} skipped")
+        equal = all(torch.equal(x, y) for x, y in zip(
+            _trainable_leaves(ref, dev_tc), _trainable_leaves(params,
+                                                              off_tc)))
+        log(f"  {label}: step {epoch + 1}: params "
+            f"{'bit-equal' if equal else 'DIFFER'}")
+        if not equal:
+            raise AssertionError(f"{label}: the offloaded step differs from "
+                                 f"the on-card step at step {epoch + 1}")
+    moments = b.opt_state["mu"] + b.opt_state["nu"]
+    if not all(t.device.type == "cpu" and t.is_pinned() for t in moments):
+        raise AssertionError(f"{label}: a moment is not pinned on the host")
+    n = sum(t.numel() for t in b.opt_state["mu"])
+    log(f"  {label}: {len(moments)} moments ({n / 1e9:.3f} B trainable "
+        f"parameters, {2 * sum(t.numel() * t.element_size() for t in b.opt_state['mu']) / 1e9:.2f} GB) pinned on the "
+        f"host; s a step on the card "
+        f"{' '.join(f'{x:.3f}' for x in secs['on the card'])}, offloaded "
+        f"{' '.join(f'{x:.3f}' for x in secs['offloaded'])}")
+    del a, b, ref, moments
+
+
+def _leaves(tree):
+    from molly_tpu_torch.utils.tree import leaves
+    return list(leaves(tree))
+
+
+def _clone(tree):
+    from molly_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def remat_comparison(label, runs):
+    """One line: peak memory and s a step of ``train_main_path`` runs."""
+    parts = []
+    for name in runs:
+        r = TRAIN_RUNS.get(name)
+        if r:
+            parts.append(f"{name}: peak {r['peak_gib']:.2f} GiB, "
+                         f"{' '.join(f'{x:.3f}' for x in r['step_s'])} s a "
+                         f"step")
+    log(f"  {label}: " + "; ".join(parts))
+
+
+def train_leftover_paths(seed, params, train_cfg, train_samples, add):
+    """Phases 9a-9b at molly-1.7B width, the train CLI's defaults (batch 4,
+    max length 1024, k = 128, bf16): the full fine-tune under
+    ``--gradient-checkpointing true --remat-policy dots`` (and ``full``),
+    and with ``--offload-opt-state true``."""
+    import torch
+
+    from molly_tpu_torch.training.trainer import TrainConfig
+    label = "full fine-tune, remat dots"
+    with Phase(f"9a. main path training, {label}: one batch's gradients "
+               f"against full and no remat, then 3 steps each under full "
+               f"and dots"):
+        dots_against_full(label, params, train_cfg, TrainConfig(),
+                          first_batch(train_samples, seed))
+        release()
+        counts, state = train_main_path(
+            params, with_remat(train_cfg, "full"), train_samples,
+            TrainConfig(total_steps=3), "full fine-tune, remat full", seed,
+            TRAIN_KERNELS)
+        del state
+        add(counts)
+        release()
+        counts, state = train_main_path(
+            params, with_remat(train_cfg, "dots"), train_samples,
+            TrainConfig(total_steps=3), label, seed, TRAIN_KERNELS)
+        del state
+        add(counts)
+        remat_comparison("remat at molly-1.7B width", (
+            "full fine-tune", "full fine-tune, remat full", label))
+    release()
+    label = "full fine-tune, offloaded moments"
+    with Phase(f"9b. main path training, {label}, 3 steps; then 3 steps "
+               f"on the card and offloaded, params compared after each"):
+        counts, state = train_main_path(
+            params, train_cfg, train_samples,
+            TrainConfig(total_steps=3, offload_opt_state=True), label, seed,
+            TRAIN_KERNELS)
+        moments = state.opt_state["mu"] + state.opt_state["nu"]
+        if not all(t.device.type == "cpu" and t.is_pinned()
+                   for t in moments):
+            raise AssertionError(f"{label}: a moment is not pinned")
+        n = sum(t.numel() for t in state.opt_state["mu"])
+        log(f"  {label}: {n / 1e9:.3f} B trainable parameters, moments "
+            f"{2 * 2 * n / 1e9:.2f} GB off the card")
+        del state, moments
+        add(counts)
+        remat_comparison("offload at molly-1.7B width",
+                         ("full fine-tune", label))
+        release()
+        offload_bit_equal(label, params, train_cfg, train_samples, seed)
+    release()
+
+
+def moe_dots_path(seed, params, train_cfg, inp, launches):
+    """Phase 16a: the MoE full fine-tune (4 layers) under ``dots``: one
+    batch's gradients against full (the router's products saved beside
+    the recomputed grouped GEMMs), then 3 steps."""
+    from molly_tpu_torch.training.trainer import TrainConfig
+    train_kernels = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_tgmm")
+    depth = train_cfg.text.num_hidden_layers
+    label = "MoE full fine-tune, remat dots"
+    with Phase(f"16a. main path training, {label}, {depth} layers: one "
+               f"batch's gradients against full and no remat, then 3 "
+               f"steps"):
+        dots_against_full(label, params, train_cfg, TrainConfig(),
+                          first_batch(inp["train_samples"], seed))
+        release()
+        counts, state = train_main_path(
+            params, with_remat(train_cfg, "dots"), inp["train_samples"],
+            TrainConfig(total_steps=3), label, seed, train_kernels)
+        del state
+        moe_check(label, counts, train_kernels, depth, launches)
+        if tma_launches() != (counts["grouped_gemm"],
+                              counts["grouped_gemm_tgmm"]):
+            raise AssertionError(f"{label}: a grouped GEMM missed the TMA "
+                                 f"and wgmma kernels: {tma_launches()}")
+        remat_comparison("MoE remat", ("MoE full fine-tune", label))
+
+
+def _mem_total_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def moe_offload_path(seed, inp, launches):
+    """Phase 16b: the MoE full fine-tune at ``MOE_OFFLOAD_LAYERS`` of 48
+    layers with the moments in pinned host memory (3 steps), then the same
+    depth with the moments on the card, which must run out of memory."""
+    import gc
+
+    import torch
+
+    from molly_tpu_torch.training.trainer import TrainConfig
+    train_kernels = TRAIN_KERNELS + ("grouped_gemm", "grouped_gemm_tgmm")
+    depth = MOE_OFFLOAD_LAYERS
+    cfg = moe_config(depth, 128)
+    params = moe_init(cfg, "training, moments offloaded", seed)
+    label = "MoE full fine-tune, offloaded moments"
+    with Phase(f"16b. main path training, {label}, 3 steps, {depth} "
+               f"layers"):
+        tc = TrainConfig(total_steps=3, offload_opt_state=True)
+        n = sum(t.numel() for t in _leaves({k: v for k, v in params.items()
+                                            if k not in ("dna_rna",
+                                                         "protein")}))
+        log(f"  {label}: host MemTotal {_mem_total_gib():.1f} GiB; "
+            f"{n / 1e9:.3f} B trainable parameters, moments "
+            f"{2 * 2 * n / 2**30:.2f} GiB to pin")
+        counts, state = train_main_path(params, cfg, inp["train_samples"],
+                                        tc, label, seed, train_kernels)
+        moments = state.opt_state["mu"] + state.opt_state["nu"]
+        if not all(t.device.type == "cpu" and t.is_pinned()
+                   for t in moments):
+            raise AssertionError(f"{label}: a moment is not pinned")
+        host_stats = getattr(torch.cuda, "host_memory_stats", None)
+        if host_stats is not None:
+            log(f"  {label}: pinned host memory "
+                f"{ {k: v for k, v in host_stats().items() if 'bytes' in k} }")
+        del state, moments
+        moe_check(label, counts, train_kernels, depth, launches)
+        if tma_launches() != (counts["grouped_gemm"],
+                              counts["grouped_gemm_tgmm"]):
+            raise AssertionError(f"{label}: a grouped GEMM missed the TMA "
+                                 f"and wgmma kernels: {tma_launches()}")
+    gc.collect()
+    release()
+    with Phase(f"16b. the same depth ({depth} layers) with the moments on "
+               f"the card: one step must run out of device memory"):
+        fits = _try_on_card_step(params, cfg, inp["train_samples"], seed)
+        gc.collect()
+        release()
+        log(f"  {label}: with the moments on the card, depth {depth}: "
+            f"{'fits' if fits else 'out of device memory'}")
+        if fits:
+            raise AssertionError(f"{label}: depth {depth} fits with the "
+                                 f"moments on the card; offload is not "
+                                 f"what made it run")
+    del params
+    release()
+
+
+def _try_on_card_step(params, cfg, samples, seed) -> bool:
+    """One full fine-tune step with the moments on the card; False when the
+    card runs out of memory (everything it made is freed on return)."""
+    import torch
+
+    from molly_tpu_torch.training.trainer import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step)
+    tc = TrainConfig(total_steps=1)
+    try:
+        state = init_train_state(params, tc)
+        make_train_step(cfg, tc)(state, first_batch(samples, seed), None)
+        torch.cuda.synchronize()
+        return True
+    except torch.cuda.OutOfMemoryError:
+        return False
+
+
+def baseline_rows(seed: int, n: int, dna_len: int, prot_len: int):
+    """``n`` NT+ESM classification rows made from ``seed``: a random DNA
+    sequence of ``dna_len`` bases and a random protein of ``prot_len``
+    residues each, binary labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    amino = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    rows = []
+    for i in range(n):
+        dna = "".join(rng.choice(np.array(list("ACGT")), dna_len))
+        prot = "".join(rng.choice(amino, prot_len))
+        rows.append({"input": f"Does <dna>{dna}</dna> encode "
+                              f"<protein>{prot}</protein>?",
+                     "label": "positive" if rng.random() < 0.5
+                     else "negative"})
+    return rows
+
+
+def baseline_path(seed: int, add):
+    """Phase 18: the encoder + head baseline at full width, through
+    ``molly_tpu_torch.baselines.train.main``: NT+ESM (nt-500m, 24 layers,
+    and esm2-650m, 33 layers, bf16), k = 1024 tokens each, batch 16 (the
+    CLI's default), 5 steps on rows made from the seed (DNA for 1,023
+    6-mer tokens, proteins of 1,024 residues), no eval metric (the card has
+    no sklearn). Every flash launch on the TMA kernel (57 a step); one
+    batch's logits against the same weights through the plain attention;
+    a small fp32 NT+ESM model on the card against the CPU."""
+    import tempfile
+
+    import torch
+
+    from molly_tpu_torch.baselines import dataset as bdata
+    from molly_tpu_torch.baselines import model as bmodel
+    from molly_tpu_torch.baselines import train as btrain
+    from molly_tpu_torch.data import default_modality_tokenizers
+    from molly_tpu_torch.data.pipeline import to_device
+    from molly_tpu_torch.models import ESM_PRESETS, tiny_esm
+    from molly_tpu_torch.utils.tree import tree_to
+
+    steps, batch = 5, 16
+    rows = baseline_rows(seed, steps * batch, 6 * 1023, 1024)
+    label = "baseline NT+ESM"
+    with Phase(f"18. main path, {label}, full width, batch {batch}, "
+               f"{steps} steps"):
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        reset_counts()
+        with tempfile.TemporaryDirectory() as out:
+            res = btrain.main(
+                ["--model-type", "NT+ESM", "--train-file", "in-memory",
+                 "--output-dir", out, "--train-iters", str(steps),
+                 "--batch-size", str(batch), "--seed", str(seed)],
+                train_rows=rows, stats=stats)
+        counts = read_counts()
+        check_flash_tma(label)
+        add(counts)
+        fwd = counts["flash_attention_fwd"]
+        log(f"  {label}: {res['steps']} steps, final loss "
+            f"{res['final_loss']:.4f}, head_delta {res['head_delta']:.4e}; "
+            f"s a step {' '.join(f'{x:.3f}' for x in stats['step_s'])}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"flash launches {fwd} ({fwd // max(res['steps'], 1)} a step); "
+            f"launches {counts}")
+        import math
+        if not (res["steps"] == steps and math.isfinite(res["final_loss"])
+                and res["head_delta"] > 0):
+            raise AssertionError(f"{label}: bad run {res}")
+        if fwd != steps * (24 + 33) or counts["flash_attention_dq"]:
+            raise AssertionError(f"{label}: {fwd} flash launches, "
+                                 f"{counts['flash_attention_dq']} backward "
+                                 f"(expected {steps * 57} and none)")
+        params = res["params"]
+        cfg = bmodel.BaselineConfig(model_type="NT+ESM",
+                                    nt=ESM_PRESETS["nt-500m"],
+                                    protein=ESM_PRESETS["esm2-650m"])
+        dna_tok, prot_tok = default_modality_tokenizers()
+        ds = bdata.ClassificationDataset(rows[:batch], "NT+ESM", dna_tok,
+                                         prot_tok, 1024, 1024)
+        one = to_device("cuda")(bdata.collate([ds[i] for i in
+                                               range(batch)]))
+        with torch.no_grad():
+            got = bmodel.forward_logits(params, cfg, one)
+            ref = plain_logits(bmodel, params, cfg, one)
+        err = (got - ref).abs().max().item()
+        tol = BASELINE_LOGIT_REL * ref.abs().max().item()
+        log(f"  {label}: logits [{batch}, 2] through the flash kernel "
+            f"against the plain attention: max|diff| {err:.3e} (tol "
+            f"{tol:.3e}, {BASELINE_LOGIT_REL} of the max)")
+        if not err <= tol:
+            raise AssertionError(f"{label}: flash and plain logits differ")
+        del params, res, got, ref, one
+    release()
+    with Phase(f"18. small reference, fp32 {label}, card against the CPU"):
+        nt = tiny_esm(vocab_size=dna_tok.vocab_size, hidden_size=128,
+                      intermediate_size=256, num_attention_heads=2,
+                      mask_token_id=2, mlp_type="swiglu", mlp_bias=False)
+        prot = tiny_esm(vocab_size=prot_tok.vocab_size, hidden_size=128,
+                        intermediate_size=256, num_hidden_layers=3,
+                        num_attention_heads=2)
+        cfg = bmodel.BaselineConfig(model_type="NT+ESM", nt=nt,
+                                    protein=prot)
+        cpu = bmodel.init_params(cfg, torch.Generator().manual_seed(seed))
+        small = baseline_rows(seed + 1, 8, 6 * 40, 50)
+        small[3]["input"] = small[3]["input"].replace("A", "", 30)
+        ds = bdata.ClassificationDataset(small, "NT+ESM", dna_tok, prot_tok,
+                                         64, 48)
+        b = bdata.collate([ds[i] for i in range(8)])
+        with torch.no_grad():
+            ref = bmodel.forward_logits(cpu, cfg, to_device("cpu")(b))
+            got = bmodel.forward_logits(tree_to(cpu, "cuda"), cfg,
+                                        to_device("cuda")(b)).cpu()
+        err = (got - ref).abs().max().item()
+        log(f"  small fp32 {label}: logits card against CPU max|diff| "
+            f"{err:.3e} (tol {BASELINE_F32_ATOL})")
+        if not err <= BASELINE_F32_ATOL:
+            raise AssertionError(f"small fp32 {label}: the card disagrees "
+                                 f"with the CPU")
+
+
+def plain_logits(bmodel, params, cfg, batch):
+    """``forward_logits`` with the encoders' attention on the plain
+    PyTorch version instead of the flash kernel."""
+    from molly_tpu_torch.models import esm
+    from molly_tpu_torch.ops.attention import plain_attention
+    flash = esm.dot_product_attention
+    esm.dot_product_attention = lambda q, k, v, **kw: plain_attention(
+        q, k, v, mask=kw["mask"], causal=kw["causal"], scale=kw["scale"])
+    try:
+        return bmodel.forward_logits(params, cfg, batch)
+    finally:
+        esm.dot_product_attention = flash
 
 
 def run(args) -> int:
@@ -3669,6 +4206,12 @@ def run(args) -> int:
         small_reference_training(args.seed, moe=True)
 
     launches = drive_main_paths(args.seed, args.profile_dir)
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    baseline_path(args.seed, add)
 
     kernels = []
     for name in REPLACES:

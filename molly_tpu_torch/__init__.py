@@ -8,11 +8,15 @@ module layout and names so each function has an obvious counterpart:
   - ``molly_tpu_torch.ops``       attention / norms / int8 dispatch plus the
                                   hand-written Hopper kernels (CUDA C++ under
                                   ``csrc/``, Triton for RMSNorm)
-  - ``molly_tpu_torch.inference`` sampling, the KV-cache generate loop and the
-                                  batch inference CLI
+  - ``molly_tpu_torch.inference`` sampling, the KV-cache generate loop, the
+                                  serving engines and the inference CLI
+  - ``molly_tpu_torch.training``  the SFT trainer, checkpoints and train CLI
+  - ``molly_tpu_torch.baselines`` the encoder + classification-head
+                                  baselines and their training CLI
 
-It imports ``torch`` and never ``jax``; the jax-free parts of ``molly_tpu``
-(``molly_tpu.data``) are reused as they are. Every kernel wrapper launches its
+It imports ``torch`` and never ``jax`` or anything of ``molly_tpu``: it keeps
+its own copies of what it needs (``data``, ``native``, ``evalsuite``, the
+configs). Every kernel wrapper launches its
 kernel for a CUDA tensor (or raises) and runs the kernel's plain PyTorch
 version only for a CPU tensor.
 """

@@ -45,6 +45,11 @@ def quantize_for_decode(params: Params) -> Params:
     return {**params, "layers": layers}
 
 
+def erf_gelu(x: torch.Tensor) -> torch.Tensor:
+    """The original-ESM GELU, exact erf (not the tanh approximation)."""
+    return F.gelu(x, approximate="none")
+
+
 def init_params(cfg: EsmConfig, generator: torch.Generator,
                 device="cpu") -> Params:
     dt = torch_dtype(cfg.dtype)
@@ -109,7 +114,7 @@ def _layer(cfg: EsmConfig, hidden, p, cos, sin, mask):
         x = F.silu(quant.linear(x, p["ffn_gate"])) * quant.linear(
             x, p["ffn_in"])
     else:
-        x = F.gelu(quant.linear(x, p["ffn_in"]) + p["ffn_in_b"])  # exact erf
+        x = erf_gelu(quant.linear(x, p["ffn_in"]) + p["ffn_in_b"])
     x = quant.linear(x, p["ffn_out"])
     if cfg.mlp_bias:
         x = x + p["ffn_out_b"]

@@ -126,6 +126,11 @@ def forward_logits(params: Params, cfg: FusionConfig,
     return qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
 
 
+def shift_for_next_token(logits: torch.Tensor, labels: torch.Tensor):
+    """HF CausalLM convention: logits[:, :-1] predict labels[:, 1:]."""
+    return logits[:, :-1], labels[:, 1:]
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,  # [B, S, V]
     labels: torch.Tensor,  # [B, S] with LABEL_IGNORE masking
@@ -138,7 +143,7 @@ def cross_entropy_loss(
     domain-loss sums). pre_shifted=True: labels[t] already targets position
     t; skip the shift."""
     if not pre_shifted:
-        logits, labels = logits[:, :-1], labels[:, 1:]
+        logits, labels = shift_for_next_token(logits, labels)
     valid = labels != LABEL_IGNORE
     labels_safe = torch.where(valid, labels, 0).to(torch.long)
     lf = logits.to(torch.float32)

@@ -23,7 +23,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import moe, quant
 from ..ops.attention import dot_product_attention
@@ -417,7 +418,28 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None)
 
 
-REMAT_POLICIES = ("full", "attn", "hot")
+REMAT_POLICIES = ("full", "dots", "attn", "hot")
+
+# The ``dots`` policy: JAX's ``dots_with_no_batch_dims_saveable`` keeps every
+# dot_general output without a batch dimension. Its counterpart here is every
+# 2-D product: ``F.linear`` and ``@`` on [B, S, H] activations reach
+# ``aten.mm`` / ``aten.addmm`` after their views (the LoRA bypasses and the
+# MoE router too; ``.dtype`` is the fp32-result form). ``aten.bmm`` has a
+# batch dimension and is recomputed, as are the hand-written kernels (called
+# through ctypes and Triton, invisible to the dispatcher, like ``pallas_call``
+# to JAX's policy) and every elementwise op.
+_SAVED_DOTS = frozenset(
+    getattr(op, name) for op in (torch.ops.aten.mm, torch.ops.aten.addmm)
+    for name in ("default", "dtype") if hasattr(op, name))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def forward_hidden(
@@ -467,7 +489,10 @@ def forward_hidden(
     the first ``cfg.remat_skip_layers`` layers stay unchecked. Policy
     ``full`` checkpoints the whole layer; ``attn`` and ``hot`` checkpoint
     the parts before and after attention and keep the attention call (its
-    q, k, v, output and LSE) out of the recompute. ``dots`` is refused."""
+    q, k, v, output and LSE) out of the recompute. ``dots`` checkpoints the
+    whole layer under a selective-checkpoint policy that saves every 2-D
+    matrix product's output (``_SAVED_DOTS``) and recomputes the rest: the
+    norms, RoPE, activations and every hand-written kernel."""
     if output_hidden_states and cache is not None:
         raise ValueError("output_hidden_states is for the no-cache path")
     if inputs_embeds is None:
@@ -493,10 +518,8 @@ def forward_hidden(
 
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     if remat and cfg.remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP.md, "
-            f"queue 1 item 8, left open: the 'dots' policy); use one of "
-            f"{REMAT_POLICIES}")
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: one of "
+                         f"{REMAT_POLICIES}")
     n_skip = min(cfg.remat_skip_layers, L)
 
     lora_layers = lora["layers"] if lora is not None else None
@@ -533,6 +556,9 @@ def forward_hidden(
         if remat and li >= n_skip:
             if cfg.remat_policy == "full":
                 hidden, aux = checkpoint(_layer, *args, use_reentrant=False)
+            elif cfg.remat_policy == "dots":
+                hidden, aux = checkpoint(_layer, *args, use_reentrant=False,
+                                         context_fn=_dots_context)
             else:
                 hidden, aux = _layer(*args, split_remat=True)
         else:

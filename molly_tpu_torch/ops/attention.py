@@ -17,6 +17,15 @@ import torch
 from .flash_attention import flash_attention
 
 
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, Nkv, Dh] -> [B, S, Nkv*n_rep, Dh] (GQA head expansion)."""
+    if n_rep == 1:
+        return x
+    b, s, nkv, dh = x.shape
+    return x[:, :, :, None, :].expand(b, s, nkv, n_rep, dh).reshape(
+        b, s, nkv * n_rep, dh)
+
+
 def dot_product_attention(
     q: torch.Tensor,  # [B, Sq, Nq, Dh]
     k: torch.Tensor,  # [B, Skv, Nkv, Dh] ("bsnd") or [B, Nkv, Skv, Dh]

@@ -11,8 +11,10 @@ Usage:
 
 The flags and defaults are the JAX CLI's. The mesh flags are accepted and
 must be 1 (or -1 for ``--mesh-fsdp``): the multi-device slice is not ported
-(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state`` is
-refused with the ROADMAP.md item that carries it. ``--text-model-path``,
+(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state
+true`` keeps the Adam moments in pinned host memory and streams them
+through the card during each update (``trainer.make_offloaded_step``).
+``--text-model-path``,
 ``--dna-rna-model-path`` and ``--protein-model-path`` are HF checkpoint
 directories imported by ``models.hf_import`` (``build_params``) unless
 ``--no-load-pretrained`` or ``--tiny`` is given.
@@ -72,14 +74,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--remat-policy", default="full",
                    choices=["full", "dots", "attn", "hot"],
                    help="with --gradient-checkpointing: 'full' recomputes "
-                        "each layer; 'attn' / 'hot' recompute the parts "
-                        "before and after attention and never re-run flash "
-                        "attention; 'dots' is not ported")
+                        "each layer; 'dots' saves every matrix product's "
+                        "output and recomputes the rest; 'attn' / 'hot' "
+                        "recompute the parts before and after attention and "
+                        "never re-run flash attention")
     p.add_argument("--remat-skip-layers", type=int, default=0,
                    help="segmented remat: first N layers skip "
                         "checkpointing entirely")
     p.add_argument("--offload-opt-state", type=str2bool, default=False,
-                   help="not ported: must be false")
+                   help="keep the Adam moments in pinned host memory "
+                        "between steps and stream them through the card "
+                        "during the update (DeepSpeed's optimizer offload)")
     # data
     p.add_argument("--train-dataset-path", required=True)
     p.add_argument("--eval-dataset-path", default=None)
@@ -175,10 +180,6 @@ def _refuse_unported(args) -> None:
     if bad:
         raise SystemExit(f"{', '.join(bad)}: one device only; the mesh "
                          f"paths are ROADMAP.md queue 1 item 11")
-    if args.offload_opt_state:
-        raise SystemExit("--offload-opt-state (optimizer moments in host "
-                         "memory, a one-device option) is not ported: "
-                         "ROADMAP.md queue 1 item 8")
 
 
 def main(argv=None) -> None:
@@ -230,7 +231,11 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
     is the per-step row count BEFORE accumulation (the step sees
     ``batch_size * tc.accum_steps`` rows). ``output_dir`` None disables
     checkpoints. ``stats`` collects seconds per phase (see
-    ``make_train_step``). Returns the summary dict of the JAX CLI plus ``state`` and
+    ``make_train_step``; with ``tc.offload_opt_state`` also the offloaded
+    update's copy seconds and bytes, ``make_offloaded_step``). With
+    ``tc.offload_opt_state`` the state's moments are moved to host memory
+    first (``offload_opt_state``: a restored state is re-placed too).
+    Returns the summary dict of the JAX CLI plus ``state`` and
     ``history`` (per step: loss, grad_norm, skipped, tokens, seconds, an MoE
     decoder's moe_load_balance, and with ``stats`` the step's phase
     seconds)."""
@@ -245,11 +250,15 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
     from ..utils import domain_loss_metrics, print_rank_0
     from ..utils.profiling import StepTimer, trace
     from . import checkpoint as ckpt_lib
-    from .trainer import make_train_step
+    from .trainer import (make_offloaded_step, make_train_step,
+                          offload_opt_state)
 
     device = torch.device(device or state.params["text"]["embed"].device)
     put_batch = to_device(device)
     step_fn = make_train_step(cfg, tc, stats)
+    if tc.offload_opt_state:
+        state = offload_opt_state(state)  # also re-places restores
+        step_fn = make_offloaded_step(step_fn, state, stats)
     micro = batch_size * tc.accum_steps
     if total_steps is None:
         total_steps = max((len(train_data) // max(1, micro)) * epochs, 1)
@@ -488,7 +497,8 @@ def run_training(args) -> dict:
         weight_decay=args.weight_decay, grad_clip=args.clip_grad_max_norm,
         accum_steps=args.gradient_accumulation_steps,
         train_bio=args.train_bio, train_mlp=args.train_mlp,
-        train_llm=args.train_llm, lora=lora_cfg, z_loss=args.z_loss)
+        train_llm=args.train_llm, lora=lora_cfg, z_loss=args.z_loss,
+        offload_opt_state=args.offload_opt_state)
 
     if args.init_from:
         # params-only warm start: graft saved base weights onto the fresh

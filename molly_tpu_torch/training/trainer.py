@@ -23,9 +23,14 @@ Feature map:
 Parameters and moments are updated IN PLACE (JAX returns a new state): the
 state a step returns shares its tensors with the one it was given. The
 mesh branches and pipeline microbatching (``pp_micro``) belong to the
-multi-device slice and are refused; ``offload_opt_state`` (a one-device
-option: the moments live in host memory between steps) is not ported yet
-and is refused too.
+multi-device slice and are refused.
+
+Optimizer offload (``offload_opt_state``, DeepSpeed's optimizer CPU
+offload): the Adam moments live in pinned host memory between steps
+(``host_opt_shardings`` / ``offload_opt_state``) and ``make_offloaded_step``
+streams them through the card in chunks during the update
+(``_MomentStream``): the same kernels on the same data, so the update is
+bit-equal to the on-device one.
 """
 
 from __future__ import annotations
@@ -67,9 +72,10 @@ class TrainConfig:
     # chunked linear+CE (ops.lce) instead of [B,S,V] logits
     fused_lce: bool = True
     lce_chunk: int = 256  # tokens per LCE chunk ([C, V] logit peak)
-    # options of the JAX package that are refused here: pipeline
-    # microbatching (multi-device) and the host-resident optimizer state
+    # pipeline microbatching (multi-device): refused here
     pp_micro: int = 0
+    # Adam moments in (pinned) host memory between steps: see
+    # offload_opt_state / make_offloaded_step
     offload_opt_state: bool = False
 
 
@@ -156,15 +162,14 @@ def _refuse_multi_device(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "pp_micro (pipeline parallelism) is not ported: ROADMAP.md "
             "queue 1 item 11")
-    if cfg.offload_opt_state:
-        raise NotImplementedError(
-            "offload_opt_state (optimizer moments in host memory, a "
-            "one-device option) is not ported: ROADMAP.md queue 1 item 8")
 
 
 def init_train_state(params: Dict[str, Any], cfg: TrainConfig) -> TrainState:
     """Zero moments in each trainable leaf's dtype; marks the trainable
-    leaves as requiring grad (and no other)."""
+    leaves as requiring grad (and no other). With ``cfg.offload_opt_state``
+    the moments are made where ``host_opt_shardings`` places them (pinned
+    host memory for params on a card), never on the card: at depths where
+    offload matters they would not fit there."""
     _refuse_multi_device(cfg)
     train = _trainable_leaves(params, cfg)
     train_ids = {id(t) for t in train}
@@ -172,12 +177,221 @@ def init_train_state(params: Dict[str, Any], cfg: TrainConfig) -> TrainState:
         for t in leaves(params[k]):
             if t.is_floating_point():
                 t.requires_grad_(id(t) in train_ids)
+
+    def zeros(t):
+        if not cfg.offload_opt_state:
+            return torch.zeros_like(t)
+        return torch.zeros(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=t.device.type == "cuda")
+
     return TrainState(
         params=params,
-        opt_state={"mu": [torch.zeros_like(t) for t in train],
-                   "nu": [torch.zeros_like(t) for t in train],
+        opt_state={"mu": [zeros(t) for t in train],
+                   "nu": [zeros(t) for t in train],
                    "count": 0},
         step=0)
+
+
+@dataclass(frozen=True)
+class HostPlacement:
+    """Where an offloaded moment lives: host memory, pinned when the params
+    are on a card (the copy engines then move it without a staging copy).
+    The port's counterpart of a ``pinned_host`` sharding."""
+    device: torch.device
+    pinned: bool
+
+
+def host_opt_shardings(state: TrainState) -> Dict[str, List[HostPlacement]]:
+    """Per-moment placements pinning the optimizer state to host memory:
+    ``{"mu": [...], "nu": [...]}`` in the moments' order. Params on the CPU
+    already live in host memory; their moments stay ordinary CPU tensors
+    (pinning needs a CUDA runtime)."""
+    on_card = state.params["text"]["embed"].device.type == "cuda"
+    place = HostPlacement(torch.device("cpu"), on_card)
+    return {name: [place] * len(state.opt_state[name])
+            for name in ("mu", "nu")}
+
+
+def offload_opt_state(state: TrainState) -> TrainState:
+    """Move the Adam moments to pinned host memory (``host_opt_shardings``):
+    they stop occupying the card, at the cost of a host <-> card transfer
+    a step (``make_offloaded_step``). Call once after ``init_train_state`` or
+    a checkpoint restore; a moment already placed stays as it is (a restore
+    copies into the existing pinned tensors). The moment lists are updated
+    IN PLACE, so every holder of the state lets go of the card's copies,
+    one leaf at a time."""
+    place = host_opt_shardings(state)
+    for name in ("mu", "nu"):
+        moments = state.opt_state[name]
+        for i, (t, where) in enumerate(zip(moments, place[name])):
+            if t.device.type == "cpu" and (not where.pinned or t.is_pinned()):
+                continue
+            host = torch.empty(t.shape, dtype=t.dtype, device=where.device,
+                               pin_memory=where.pinned)
+            host.copy_(t)
+            moments[i] = host
+    return TrainState(params=state.params, opt_state=state.opt_state,
+                      step=state.step)
+
+
+# elements of a leaf the offloaded update moves and updates at a time, and
+# the device staging slots (mu and nu each) they rotate through
+_OFFLOAD_CHUNK = 1 << 25
+_OFFLOAD_SLOTS = 3
+
+
+class _MomentStream:
+    """Runs the optimizer's per-leaf update over moments held in host
+    memory, in chunks of at most ``_OFFLOAD_CHUNK`` elements (the update is
+    elementwise, so a chunk computes exactly what the whole leaf would).
+
+    On a card: a ring of ``_OFFLOAD_SLOTS`` device staging slots (mu and
+    nu), sized by the largest chunk, two copy streams, and events ordering them
+    against the compute stream. Chunk k's moments come in on the H2D stream
+    while chunk k - 1 updates, and chunk k - 2's go back on the D2H stream;
+    a slot is refilled only after its write-back has read it. No host wait
+    inside the loop; one at the end (the last write-back), so the next
+    step and a checkpoint save see finished host moments. On the CPU the
+    same ring is filled and drained by plain copies."""
+
+    def __init__(self, stats: Optional[Dict[str, float]] = None):
+        self.stats = stats
+        self.slots: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.streams = None
+
+    def _units(self, train):
+        return [(i, a, min(a + _OFFLOAD_CHUNK, t.numel()))
+                for i, t in enumerate(train)
+                for a in range(0, t.numel(), _OFFLOAD_CHUNK)]
+
+    def _stage(self, units, train, device):
+        need = max((b - a) * train[i].element_size() for i, a, b in units)
+        if not self.slots or self.slots[0][0].numel() < need \
+                or self.slots[0][0].device != device:
+            self.slots = [tuple(torch.empty(need, dtype=torch.uint8,
+                                            device=device) for _ in range(2))
+                          for _ in range(_OFFLOAD_SLOTS)]
+        if device.type == "cuda" and self.streams is None:
+            self.streams = (torch.cuda.Stream(device),
+                            torch.cuda.Stream(device))
+
+    def run(self, train, grads, mu, nu, update) -> None:
+        for t in (*mu, *nu):
+            if t.device.type != "cpu":
+                raise RuntimeError("make_offloaded_step: a moment is on "
+                                   f"{t.device}, not in host memory; call "
+                                   "offload_opt_state first")
+        if not all(p.is_contiguous() for p in train):
+            raise RuntimeError("make_offloaded_step: a trainable leaf is "
+                               "not contiguous")
+        device = train[0].device
+        cuda = device.type == "cuda"
+        if cuda and not all(t.is_pinned() for t in (*mu, *nu)):
+            raise RuntimeError("make_offloaded_step: a moment on the host is "
+                               "not pinned; call offload_opt_state")
+        units = self._units(train)
+        self._stage(units, train, device)
+        R = _OFFLOAD_SLOTS
+        timed: List[Tuple[str, Any, Any]] = []  # (direction, start, end)
+        if cuda:
+            compute = torch.cuda.current_stream(device)
+            streams = dict(zip(("h2d", "d2h"), self.streams))
+            ev = {k: [torch.cuda.Event() for _ in range(R)]
+                  for k in ("in", "upd", "out")}
+
+        def host(m, k):   # chunk k of a host moment
+            i, a, b = units[k]
+            return m[i].view(-1)[a:b]
+
+        def staged(k):    # slot k % R viewed as chunk k's mu and nu
+            i, a, b = units[k]
+            n = (b - a) * train[i].element_size()
+            return [buf[:n].view(train[i].dtype)
+                    for buf in self.slots[k % R]]
+
+        def copy(direction, k, pairs):
+            """H2D into slot k % R once its last write-back has read it;
+            D2H once chunk k's update has written it."""
+            if not cuda:
+                for dst, src in pairs:
+                    dst.copy_(src)
+                return
+            s = k % R
+            wait, done = ((ev["out"][s], ev["in"][s]) if direction == "h2d"
+                          else (ev["upd"][s], ev["out"][s]))
+            stream = streams[direction]
+            with torch.cuda.stream(stream):
+                stream.wait_event(wait)
+                if self.stats is not None:
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t0.record()
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
+                if self.stats is not None:
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    t1.record()
+                    timed.append((direction, t0, t1))
+                done.record()
+
+        def fetch(k):
+            smu, snu = staged(k)
+            copy("h2d", k, ((smu, host(mu, k)), (snu, host(nu, k))))
+
+        fetch(0)
+        for k, (i, a, b) in enumerate(units):
+            if k + 1 < len(units):
+                fetch(k + 1)
+            smu, snu = staged(k)
+            if cuda:
+                compute.wait_event(ev["in"][k % R])
+            update(train[i].view(-1)[a:b], grads[i].reshape(-1)[a:b], smu,
+                   snu)
+            if cuda:
+                ev["upd"][k % R].record(compute)
+            copy("d2h", k, ((host(mu, k), smu), (host(nu, k), snu)))
+        if cuda:
+            ev["out"][(len(units) - 1) % R].synchronize()  # the one wait
+        if self.stats is not None:
+            st = self.stats
+            moved = 4 * sum(m.numel() * m.element_size() for m in mu)
+            st["offload_bytes"] = st.get("offload_bytes", 0.0) + moved
+            for direction in ("h2d", "d2h") if timed else ():
+                key = f"offload_{direction}_s"
+                st[key] = st.get(key, 0.0) + sum(
+                    t0.elapsed_time(t1) / 1e3
+                    for d, t0, t1 in timed if d == direction)
+            if timed:
+                st["offload_span_s"] = st.get("offload_span_s", 0.0) + \
+                    timed[0][1].elapsed_time(timed[-1][2]) / 1e3
+
+
+def make_offloaded_step(step_fn, state0: TrainState,
+                        stats: Optional[Dict[str, float]] = None):
+    """Wrap a train step (``make_train_step``) so the optimizer state lives
+    in host memory between steps: the update streams each leaf's moments
+    through the card and back (``_MomentStream``), and the step returns
+    with the host moments final. ``state0`` must already be offloaded
+    (``offload_opt_state``). ``stats`` gains ``offload_h2d_s`` /
+    ``offload_d2h_s`` (device seconds of the copies), ``offload_span_s``
+    (first copy in to last copy out) and ``offload_bytes``."""
+    if any(t.device.type != "cpu" for name in ("mu", "nu")
+           for t in state0.opt_state[name]):
+        raise ValueError("make_offloaded_step: the moments are on the card; "
+                         "call offload_opt_state first")
+    stream = _MomentStream(stats)
+
+    def wrapped(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        opt = state.opt_state
+        new_state, metrics = step_fn(
+            TrainState(params=state.params,
+                       opt_state={**opt, "stream": stream}, step=state.step),
+            batch, generator)
+        opt["count"] = new_state.opt_state["count"]
+        return TrainState(params=new_state.params, opt_state=opt,
+                          step=new_state.step), metrics
+
+    return wrapped
 
 
 def _split_accum(batch: Dict[str, torch.Tensor], accum: int):
@@ -188,12 +402,21 @@ def _split_accum(batch: Dict[str, torch.Tensor], accum: int):
     return [{k: v[i] for k, v in split.items()} for i in range(accum)]
 
 
+_NORM_CHUNK = 1 << 25
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the summed squares over all leaves, accumulated in fp32."""
+    """sqrt of the summed squares over all leaves, accumulated in fp32, a
+    chunk of at most 2^25 elements at a time: the fp32 copy of a whole
+    expert stack's gradient (13.5 GiB at 18 MoE layers) is never made."""
     if not grads:
         return torch.zeros(())
-    total = sum(g.to(torch.float32).square().sum() for g in grads)
-    return torch.sqrt(total)
+
+    def squares(g):
+        return sum(c.to(torch.float32).square().sum()
+                   for c in g.reshape(-1).split(_NORM_CHUNK))
+
+    return torch.sqrt(sum(squares(g) for g in grads))
 
 
 @torch.no_grad()
@@ -203,13 +426,15 @@ def apply_optimizer(train: List[torch.Tensor], grads: List[torch.Tensor],
     """One update of the optax chain ``clip_by_global_norm ->
     scale_by_adam -> add_decayed_weights -> scale_by_learning_rate``, in
     place on ``train`` and the moments, each operation in the leaf's dtype
-    and in optax's order of operations."""
+    and in optax's order of operations. An ``opt_state["stream"]``
+    (``make_offloaded_step``) runs the same update over host moments."""
     count_inc = opt_state["count"] + 1
     lr = make_schedule(cfg)(opt_state["count"])
     clip = bool(cfg.grad_clip) and not bool(gnorm < cfg.grad_clip)
     bc1 = 1 - cfg.b1 ** count_inc
     bc2 = 1 - cfg.b2 ** count_inc
-    for p, g, mu, nu in zip(train, grads, opt_state["mu"], opt_state["nu"]):
+
+    def update(p, g, mu, nu):
         g = g.to(p.dtype)
         if clip:
             g = (g / gnorm.to(g.dtype)) * cfg.grad_clip
@@ -222,6 +447,14 @@ def apply_optimizer(train: List[torch.Tensor], grads: List[torch.Tensor],
             u = u + cfg.weight_decay * p
         u = torch.tensor(-lr, dtype=p.dtype) * u
         p.add_(u)
+
+    stream = opt_state.get("stream")  # make_offloaded_step's
+    if stream is not None:
+        stream.run(train, grads, opt_state["mu"], opt_state["nu"], update)
+    else:
+        for p, g, mu, nu in zip(train, grads, opt_state["mu"],
+                                opt_state["nu"]):
+            update(p, g, mu, nu)
     opt_state["count"] = count_inc
 
 

@@ -1884,3 +1884,184 @@ def test_int8_encoders_card_close_to_cpu(dev):
     assert quant.int8_matmul.launches_tma - before[1] == n
     err = (got.float().cpu() - ref.float()).abs().max().item()
     assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+def _train_model(dev, moe=False, seed=0):
+    """A small bf16 fusion model whose flash calls take the TMA kernels
+    (head_dim 64), on the card, and a right-padded tri-modal batch."""
+    from molly_tpu_torch.models import fusion
+    from molly_tpu_torch.models.configs import (FusionConfig, tiny_esm,
+                                                tiny_moe, tiny_qwen3)
+    cfg = FusionConfig(
+        text=(tiny_moe if moe else tiny_qwen3)(
+            vocab_size=384, hidden_size=256, intermediate_size=512,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+            dtype="bfloat16"),
+        dna_rna=tiny_esm(vocab_size=4107, hidden_size=128,
+                         intermediate_size=256, num_attention_heads=2,
+                         mask_token_id=2, mlp_type="swiglu", mlp_bias=False,
+                         dtype="bfloat16"),
+        protein=tiny_esm(vocab_size=33, hidden_size=128,
+                         intermediate_size=256, num_attention_heads=2,
+                         dtype="bfloat16"),
+        dna_rna_k_tokens=16, protein_k_tokens=16)
+    g = torch.Generator().manual_seed(seed)
+    B, S = 4, 128
+    mask = torch.ones((B, S), dtype=torch.int32)
+    mask[1, 100:] = 0
+    mask[3, 70:] = 0
+    ids = torch.randint(0, 384, (B, S), generator=g)
+    labels = torch.where(mask.bool(), ids, -100)
+    labels[:, :30] = -100
+    batch = {
+        "input_ids": ids, "labels": labels, "attention_mask": mask,
+        "dna_rna_tokens": torch.randint(6, 4102, (B, 2, 16), generator=g),
+        "dna_rna_pos": torch.tensor([[2, 40], [30, -1], [-1, -1], [5, -1]]),
+        "protein_tokens": torch.randint(4, 24, (B, 1, 16), generator=g),
+        "protein_pos": torch.tensor([[60], [-1], [75], [25]]),
+        "task_label": torch.tensor([0, 3, 100, 7]),
+    }
+
+    def params():
+        return fusion.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    return cfg, params, {k: t.to(dev) for k, t in batch.items()}
+
+
+def test_offloaded_step_is_pinned_and_bit_equal_on_the_card(dev, tmp_path,
+                                                            monkeypatch):
+    """Three full fine-tune steps with the moments offloaded (streamed in
+    chunks of 4,096 elements through the ring) against the on-device step:
+    params and moments bit-equal after every step; the moments stay pinned
+    on the host, also through a checkpoint save and restore."""
+    from molly_tpu_torch.training import checkpoint as ckpt
+    from molly_tpu_torch.training import trainer
+    cfg, make, batch = _train_model(dev)
+    monkeypatch.setattr(trainer, "_OFFLOAD_CHUNK", 4096)
+    runs = []
+    for off in (False, True):
+        tc = trainer.TrainConfig(learning_rate=1e-3, warmup_ratio=0.0,
+                                 weight_decay=0.1, offload_opt_state=off)
+        params = make()
+        state = trainer.init_train_state(params, tc)
+        step = trainer.make_train_step(cfg, tc)
+        stats = {}
+        if off:
+            state = trainer.offload_opt_state(state)
+            step = trainer.make_offloaded_step(step, state, stats)
+        snaps = []
+        for _ in range(3):
+            state, m = step(state, batch, None)
+            assert not m["skipped"]
+            snaps.append([t.detach().cpu().clone() for t in
+                          trainer._trainable_leaves(params, tc)]
+                         + [t.cpu().clone() for t in
+                            state.opt_state["mu"] + state.opt_state["nu"]])
+        runs.append((snaps, state, tc, stats))
+    (ref, _, _, _), (got, state, tc, stats) = runs
+    for a, b in zip(ref, got):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    moments = state.opt_state["mu"] + state.opt_state["nu"]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in moments)
+    assert stats["offload_h2d_s"] > 0 and stats["offload_d2h_s"] > 0
+    path = str(tmp_path / "ckpt")
+    ckpt.save_train_state(path, state)
+    fresh = trainer.offload_opt_state(trainer.init_train_state(make(), tc))
+    restored = ckpt.restore_train_state(path, fresh)
+    for name in ("mu", "nu"):
+        for a, b in zip(restored.opt_state[name], state.opt_state[name]):
+            assert a.is_pinned() and torch.equal(a, b)
+
+
+def test_offloaded_step_refuses_moments_not_pinned(dev):
+    from molly_tpu_torch.training import trainer
+    cfg, make, batch = _train_model(dev)
+    tc = trainer.TrainConfig(offload_opt_state=True)
+    state = trainer.init_train_state(make(), tc)
+    step = trainer.make_offloaded_step(trainer.make_train_step(cfg, tc),
+                                       state)
+    state.opt_state["mu"][0] = state.opt_state["mu"][0].clone()  # pageable
+    with pytest.raises(RuntimeError, match="not pinned"):
+        step(state, batch, None)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_dots_gradients_equal_full_on_the_card(dev, moe):
+    """Loss and every trainable gradient of one bf16 step under ``dots``
+    against ``full`` and no remat on the card: within 1e-2 of each leaf's
+    max (in practice bit-equal: the kernels rerun deterministically), with
+    every flash launch on the TMA kernels."""
+    import dataclasses
+
+    from molly_tpu_torch.training import trainer
+    cfg, make, batch = _train_model(dev, moe=moe)
+    params = make()
+    tc = trainer.TrainConfig()
+    trainer.init_train_state(params, tc)
+    out = {}
+    for policy in (None, "full", "dots"):
+        run_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, remat=policy is not None,
+            remat_policy=policy or "full"))
+        before = (fa.flash_attention_fwd.launches,
+                  fa.flash_attention_fwd.launches_tma,
+                  fa.flash_attention_dq.launches,
+                  fa.flash_attention_dq.launches_tma)
+        out[policy] = trainer.make_grad_fn(run_cfg, tc)(params, batch)
+        n_fwd = fa.flash_attention_fwd.launches - before[0]
+        assert n_fwd == fa.flash_attention_fwd.launches_tma - before[1] > 0
+        assert fa.flash_attention_dq.launches - before[2] == \
+            fa.flash_attention_dq.launches_tma - before[3] > 0
+    base_g, base_m = out[None]
+    for policy in ("full", "dots"):
+        g, m = out[policy]
+        assert abs(float(m["loss"]) - float(base_m["loss"])) <= 1e-2 * abs(
+            float(base_m["loss"]))
+        for a, b in zip(g, base_g):
+            ref = b.float().abs().max().item()
+            assert (a.float() - b.float()).abs().max().item() <= \
+                1e-2 * max(ref, 1e-12)
+
+
+def test_baseline_forward_runs_the_flash_tma_kernel(dev):
+    """The NT+ESM baseline's bf16 forward on the card: one flash launch a
+    layer of each encoder, all on the TMA kernel, and logits within 2e-2
+    of their max of the same weights through the plain attention."""
+    from molly_tpu_torch.baselines import model as bmodel
+    from molly_tpu_torch.models import esm
+    from molly_tpu_torch.models.configs import tiny_esm
+    from molly_tpu_torch.ops import attention
+    nt = tiny_esm(vocab_size=4107, hidden_size=128, intermediate_size=256,
+                  num_attention_heads=2, mask_token_id=2, mlp_type="swiglu",
+                  mlp_bias=False, dtype="bfloat16")
+    prot = tiny_esm(vocab_size=33, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=3, num_attention_heads=2,
+                    dtype="bfloat16")
+    cfg = bmodel.BaselineConfig(model_type="NT+ESM", nt=nt, protein=prot)
+    params = bmodel.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S = 4, 96
+    batch = {"x1": torch.randint(6, 4102, (B, S), generator=g, device=dev),
+             "x2": torch.randint(4, 24, (B, S), generator=g, device=dev)}
+    batch["x1"][1, 60:] = 1
+    batch["x2"][2, 40:] = 1
+    batch["mask1"] = (batch["x1"] != 1).int()
+    batch["mask2"] = (batch["x2"] != 1).int()
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.launches_tma)
+    with torch.no_grad():
+        got = bmodel.forward_logits(params, cfg, batch)
+    n = fa.flash_attention_fwd.launches - before[0]
+    assert n == fa.flash_attention_fwd.launches_tma - before[1] == 2 + 3
+    plain = attention.plain_attention
+    orig = esm.dot_product_attention
+    esm.dot_product_attention = lambda q, k, v, **kw: plain(
+        q, k, v, mask=kw["mask"], causal=kw["causal"], scale=kw["scale"])
+    try:
+        with torch.no_grad():
+            ref = bmodel.forward_logits(params, cfg, batch)
+    finally:
+        esm.dot_product_attention = orig
+    assert (got - ref).abs().max().item() <= \
+        2e-2 * ref.abs().max().item()

@@ -317,6 +317,26 @@ httpd.shutdown()
 httpd.server_close()
 online.close()
 
+# the encoder + head baselines on rows in memory (no pandas), and a train
+# step under the dots policy with the moments offloaded
+from molly_tpu_torch.baselines import train as btrain
+res = btrain.main(["--model-type", "NT+ESM", "--train-file", "unused",
+                   "--tiny", "--dna-rna-k-tokens", "4",
+                   "--protein-k-tokens", "4", "--batch-size", "2",
+                   "--train-iters", "1", "--device", "cpu", "--output-dir",
+                   tempfile.mkdtemp()],
+                  train_rows=[{"input": "<dna>ACGTAC</dna> <protein>MKT"
+                               "</protein>", "label": "positive"}] * 2)
+assert res["steps"] == 1 and res["final_loss"] > 0
+import dataclasses
+dcfg = dataclasses.replace(cfg, text=dataclasses.replace(
+    cfg.text, remat=True, remat_policy="dots"))
+otc = TrainConfig(total_steps=1, offload_opt_state=True)
+out = tcli.train_loop(init_train_state(params, otc), dcfg, otc,
+                      [enc.encode_train(r) for r in rows], batch_size=2,
+                      total_steps=1, device="cpu", output_dir=None)
+assert out["steps"] == 1 and out["final_loss"] > 0
+
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("imported", len(names) + 1, "modules")
@@ -331,7 +351,9 @@ def test_port_imports_no_jax():
     loop, the --tiny serving loops (dense ring and paged), one --tiny
     train step, one MoE batch and MoE train step (--moe-experts 4
     --moe-topk 2), a --tiny offline ring with lookup speculation, a
-    --tiny prompt-lookup run and one HTTP completion run, with jax, optax, orbax
+    --tiny prompt-lookup run, one HTTP completion run, one step of the
+    --tiny NT+ESM baseline (``molly_tpu_torch.baselines``) and one train
+    step under the ``dots`` policy with offloaded moments, with jax, optax, orbax
     and the whole molly_tpu package blocked; none of them ends up in
     sys.modules. chip_smoke.py names no molly_tpu import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -314,19 +314,6 @@ def test_remat_gradients_bit_equal_to_no_remat(kw):
     assert any(bool(g.any()) for g in got)
 
 
-def test_remat_policy_dots_is_refused():
-    cfg = _tcfg_of(_fusion_setup())
-    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, remat=True, remat_policy="dots"))
-    tp = params_from_jax(_np_tree(jfusion.init_params(
-        _fusion_setup(), jax.random.key(14))))
-    ttc = trainer.TrainConfig()
-    trainer.init_train_state(tp, ttc)
-    batch = _tbatch(_fusion_batch(_fusion_setup(), B=4, S=32, seed=7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_grad_fn(cfg, ttc)(tp, batch)
-
-
 def test_non_finite_guard_keeps_the_old_state():
     cfg = _fusion_setup()
     tp = params_from_jax(_np_tree(jfusion.init_params(
@@ -355,11 +342,8 @@ def test_non_finite_guard_keeps_the_old_state():
 
 
 def test_multi_device_options_are_refused():
-    # pp_micro waits for the multi-device slice (item 11);
-    # offload_opt_state is a one-device option and waits under item 8
-    for kw, message in ((dict(pp_micro=2), "ROADMAP.*item 11"),
-                        (dict(offload_opt_state=True),
-                         "one-device.*ROADMAP.*item 8")):
+    # pp_micro waits for the multi-device slice (item 11)
+    for kw, message in ((dict(pp_micro=2), "ROADMAP.*item 11"),):
         with pytest.raises(NotImplementedError, match=message):
             trainer.make_train_step(_tcfg_of(_fusion_setup()),
                                     trainer.TrainConfig(**kw))
@@ -511,14 +495,11 @@ def test_train_cli_flags_match_the_jax_cli_and_refuse_the_unported():
     assert set(tf) - set(jf) == {"device"}
     base = ["--train-dataset-path", "x.parquet"]
     for extra in (["--mesh-data", "2"], ["--mesh-fsdp", "4"],
-                  ["--mesh-expert", "2"], ["--offload-opt-state", "true"]):
+                  ["--mesh-expert", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             _refuse_unported(build_argparser().parse_args(base + extra))
     # the HF model paths are imported now (training.cli.build_params)
     _refuse_unported(build_argparser().parse_args(
         base + ["--text-model-path", "/some/hf/dir"]))
-    with pytest.raises(SystemExit, match="one-device.*ROADMAP.*item 8"):
-        _refuse_unported(build_argparser().parse_args(
-            base + ["--offload-opt-state", "true"]))
     _refuse_unported(build_argparser().parse_args(
         base + ["--mesh-fsdp", "-1"]))
