@@ -50,12 +50,14 @@ Phases, each printed with its time; any failure exits non-zero:
      main path hands it (two runs bit-equal); its backward the training
      step's hidden and per-head shapes of both decoders, with and without
      dw (two runs bit-equal, dx and dw). The flash
-     forward runs five cases (decoder, serving and MoE prefill, encoder,
-     training), each on the TMA and wgmma kernel (its route is printed),
+     forward runs seven cases (decoder, serving and MoE prefill, encoder,
+     training, and the training and prefill shapes of phases 19a-19b's
+     local heads, 8 q over 4 kv), each on the TMA and wgmma kernel (its
+     route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
      The flash dQ and dK/dV kernels (``flash_attention_bwd_tma.cu``) run
-     three cases (training, MoE training at 32 q heads over 4 kv heads, an
-     encoder's shape), each on the TMA and wgmma kernels (routes printed),
+     four cases (training, MoE training at 32 q heads over 4 kv heads, an
+     encoder's shape, 19a's local heads), each on the TMA and wgmma kernels (routes printed),
      two runs bit-equal, dK = dV = 0 exactly on every key the mask removes;
      the time of the delta = rowsum(dO * O) pass is printed beside theirs,
      so that their sum compares with SDPA's whole backward. The paged
@@ -247,6 +249,38 @@ Phases, each printed with its time; any failure exits non-zero:
      stream (every decode and serving product, bf16 and int8); the
      generation, serving and QLoRA phases fail on any launch left on
      grouped_gemm.cu.
+19a-19e. multi-device parallelism, in ranks spawned on the one card
+     (``parallel.launch.run_ranks``, gloo: NCCL refuses two ranks on one
+     device; gloo's collectives take the CUDA tensors as they are, its
+     point-to-point calls are staged through pinned host memory, printed
+     as "gloo, point-to-point host-staged"); the kernels at these phases'
+     new shapes are held against their plain versions in phase 3 (the
+     ``p19_`` and ``ep_`` cases: flash forward and backward and the q and
+     k norms on 8 q over 4 kv local heads; the grouped GEMM and tgmm over
+     rank 0's expert=2 capacity buffer, 64 local experts, one empty, rows
+     past sum(sizes) garbage that must come out exactly zero, an empty
+     expert's weight gradient exactly zero); the kernels were built above
+     and the ranks only load them. Each against the one-rank run of the
+     same seed's weights on the card; each rank prints its seconds, peak
+     device memory, collective bytes a step and launch counts, which the
+     kernels line includes. 19a: (fsdp=2, tensor=2), 4 ranks, molly-1.7B
+     width cut to 4 of 28 decoder layers and 4 layers of each encoder: 2
+     full fine-tune and 2 QLoRA steps (r 64, dropout 0) through
+     ``train_loop`` (each rank its (data, fsdp) shard of the four
+     samples), losses within 2e-3 relative and gradient norms within 3e-3.
+     19b: the same mesh and cut, greedy decode of the phase-7 requests (8
+     new tokens) under the near-tie rule. 19c: one full fine-tune step with
+     ring attention over seq=2 (zigzag), and one with the GPipe decoder
+     over pipe=2 (2 microbatches), 2 ranks each, losses and gradient norms
+     as 19a. 19d: expert=2, 2 ranks, qwen3-30b-a3b width cut to 2 of 48
+     layers (encoders to 4): greedy KV-cache decode under the near-tie
+     rule, one full fine-tune and one expert-QLoRA step (losses and
+     gradient norms as 19a, ``moe_ep_dropped_frac`` printed). 19e: the
+     small fp32 models of phase 6 on (fsdp=2, tensor=2) and (expert=2)
+     against one rank on the CPU (loss within 1e-4, gradients within 1e-3
+     of their max); which gloo collectives take CUDA tensors as they are,
+     values checked (the four that ``parallel.comm`` hands them must), and
+     whether its ``batch_isend_irecv`` does (in two processes of its own).
 
 Cut against the CLIs' defaults: generation runs batch 4 instead of 32 and
 32 (bf16) / 16 (int8) new tokens instead of 3072; serving runs 8 slots
@@ -254,7 +288,8 @@ instead of 32, chunk 16 instead of 64, admission groups of 4 instead of 8
 and 32 new tokens instead of 3072; training runs 3 steps. The MoE phases
 keep every width of qwen3-30b-a3b; generation and serving run all 48
 layers, training 4 of the 48 (full fine-tune of 30.5 B parameters does not
-fit one card), with the moments offloaded 18.
+fit one card), with the moments offloaded 18. The parallel phases cut
+depth only (19a-19d, printed on each phase's line).
 The last two lines of standard output are the kernels JSON line and the
 device JSON line.
 """
@@ -265,6 +300,7 @@ import argparse
 import functools
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -357,6 +393,12 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
 
 
 def log(msg: str) -> None:
+    """Print a line (in the spawned ranks of the parallel phases, rank 0
+    only)."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized() \
+            and dist.get_rank() != 0:
+        return
     print(msg, flush=True)
 
 
@@ -736,6 +778,28 @@ def parity_flash(g, results):
     valid = (torch.cumsum(mask[:, :S], dim=1) > 0).float()
     cases.append(case("moe_prefill_bf16[4,3072,32,128]x3136,4kv", q, k, v,
                       mask, True, D ** -0.5, valid, 5))
+    del q, kv, k, v
+    # phases 19a-19b (tensor=2): molly-1.7B's local heads, 8 q over 4 kv, at
+    # the train step's shape and at the decoder prefill's (from a generator
+    # of their own: the cases above keep their inputs)
+    p19 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 19)
+    q, k, v, _, mask = train_attention_inputs(p19, N=8, Nkv=4)
+    cases.append(case("p19_tp_train_bf16[4,1024,8,128]x4kv", q, k, v, mask,
+                      True, 128 ** -0.5, torch.ones((4, 1024), device=dev),
+                      10))
+    del q, k, v
+    B, S, T, N, Nkv, D = 4, 3072, 64, 8, 4, 128
+    q = torch.randn((B, S, N, D), generator=p19, device=dev).to(
+        torch.bfloat16)
+    kv = torch.randn((B, Nkv, S + T, 2 * D), generator=p19,
+                     device=dev).to(torch.bfloat16)
+    k, v = kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+    mask = torch.zeros((B, S + T), dtype=torch.int32, device=dev)
+    for b, p in enumerate(pads):
+        mask[b, p:S] = 1
+    valid = (torch.cumsum(mask[:, :S], dim=1) > 0).float()
+    cases.append(case("p19_tp_prefill_bf16[4,3072,8,128]x3136,4kv", q, k, v,
+                      mask, True, D ** -0.5, valid, 5))
     results["flash_attention_fwd"] = cases
 
 
@@ -888,6 +952,14 @@ def parity_flash_bwd(g, results):
                 1.0, 10)
     dq_cases.append(a)
     dkv_cases.append(b)
+    del q, k, v, dout
+    # phase 19a (tensor=2): molly-1.7B's local heads, 8 q over 4 kv
+    p19 = torch.Generator(device="cuda").manual_seed(g.initial_seed() + 19)
+    q, k, v, dout, mask = train_attention_inputs(p19, N=8, Nkv=4)
+    a, b = case("p19_tp_train_bf16[4,1024,8,128]x4kv", q, k, v, dout, mask,
+                True, 128 ** -0.5, 5)
+    dq_cases.append(a)
+    dkv_cases.append(b)
     results["flash_attention_dq"] = dq_cases
     results["flash_attention_dkv"] = dkv_cases
 
@@ -1035,6 +1107,16 @@ def parity_rmsnorm(g, results):
             ("qk_norm_view_bf16[4,3072,24,128]x[24,128] of [4,3072,4096]",
              (4, 3072, 24, 128), True, 4096)):
         x, w = heads(shape, stacked, width)
+        cases.append(case(name, x, w, 20))
+    # phases 19a-19b (tensor=2): the q and k norms on molly-1.7B's local
+    # heads (their backward's shapes are train_k_norm's and
+    # moe_train_k_norm's below)
+    p19 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 19)
+    for name, shape in (("p19_tp_q_norm_bf16[4,1024,8,128]x[128]",
+                         (4, 1024, 8, 128)),
+                        ("p19_tp_k_norm_bf16[4,1024,4,128]x[128]",
+                         (4, 1024, 4, 128))):
+        x, w = heads(shape, False, None, p19)
         cases.append(case(name, x, w, 20))
     results["rmsnorm_fwd"] = cases
     results["rmsnorm_bwd"] = [
@@ -1418,26 +1500,59 @@ def parity_grouped_gemm(g, results):
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "source": source}
 
+    def ep_buffer(gen, tokens, G=E // 2, k=TOPK, factor=2.0):
+        """(group sizes [G], rows C) of expert rank 0 of an expert=2 mesh
+        as ``moe_mlp_expert_sharded`` makes them: ``tokens`` routed by a
+        real ``router_topk`` over all E experts, local expert G // 2 forced
+        empty, the local pairs counted into a buffer of C = min(ceil(
+        tokens * k * factor / 2), tokens * k) rows; rows past sum(sizes)
+        are empty."""
+        from molly_tpu_torch.ops.moe import router_topk
+        x = torch.randn((tokens, H), generator=gen, device=dev).to(
+            torch.bfloat16)
+        router = 0.02 * torch.randn((H, E), generator=gen, device=dev)
+        flat = router_topk(x, router, k)[1].reshape(-1)
+        flat = torch.where(flat == G // 2, G // 2 + 1, flat)
+        C = int(min(math.ceil(tokens * k * factor / 2), tokens * k))
+        counts = torch.zeros(G + 1, dtype=torch.int64, device=dev)
+        counts.scatter_add_(0, flat.clamp(max=G), torch.ones_like(flat))
+        cum = torch.cumsum(counts[:G], 0).clamp(max=C)
+        return torch.diff(cum, prepend=cum.new_zeros(1)).to(torch.int32), C
+
+    def operand(gen, M, cols, live, dt):
+        """[M, cols] random rows; under a capacity buffer the rows past
+        ``live`` hold garbage of 1e3, which must reach no result."""
+        t = torch.randn((M, cols), generator=gen, device=dev)
+        if live < M:
+            t[live:] *= 1e3
+        return t.to(dt)
+
     def fwd_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
                  rhs_dt=torch.bfloat16, out_dt=torch.float32,
-                 transpose_rhs=False, G=E, k=TOPK):
-        M = tokens * k
-        gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+                 transpose_rhs=False, G=E, k=TOPK, ep=None):
+        gen = g if ep is None else ep
+        if ep is None:
+            M = tokens * k
+            gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+        else:  # the EP capacity buffer over E // 2 local experts
+            G = E // 2
+            gs, M = ep_buffer(ep, tokens, G, k)
+        live = int(gs.sum())
         bounds = _bounds(gs, M)
         active = sum(1 for a, b in bounds if b > a)
-        lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
+        lhs = operand(gen, M, K, live, lhs_dt)
         shape = (G, N, K) if transpose_rhs else (G, K, N)
         scale = None
         if rhs_dt == torch.int8:
-            rhs = torch.randint(-127, 128, shape, generator=g, device=dev,
+            rhs = torch.randint(-127, 128, shape, generator=gen, device=dev,
                                 dtype=torch.int8)
             if not transpose_rhs:  # transposed: the caller scales dout
-                scale = (torch.rand((G, N), generator=g, device=dev) * 1e-3
-                         + 1e-4) * K ** -0.5
+                scale = (torch.rand((G, N), generator=gen, device=dev)
+                         * 1e-3 + 1e-4) * K ** -0.5
         else:
             rhs = torch.empty(shape, device=dev, dtype=rhs_dt)
             for e in range(G):  # in slices: bounds the fp32 scratch
-                rhs[e] = (torch.randn(shape[1:], generator=g, device=dev)
+                rhs[e] = (torch.randn(shape[1:], generator=gen, device=dev)
                           * K ** -0.5).to(rhs_dt)
         kw = dict(transpose_rhs=transpose_rhs, scale=scale)
         c = grouped_gemm
@@ -1460,6 +1575,9 @@ def parity_grouped_gemm(g, results):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"grouped {name}: non-finite output")
+        if not bool((out[live:] == 0).all()):
+            raise AssertionError(f"grouped {name}: a row past sum(sizes) "
+                                 f"is not zero")
         if not bit_equal or replay_equal is False:
             raise AssertionError(f"grouped {name}: two runs bit-equal "
                                  f"{bit_equal}, graph replay with new group "
@@ -1500,22 +1618,26 @@ def parity_grouped_gemm(g, results):
                     f"F.grouped_mm over the experts dequantized to bf16 "
                     f"beforehand {yardstick_ms:.4f} ms")
             del dense, b, a16
-        # lhs once, only the ACTIVE groups' weights (and scales) once, the
-        # sizes, out once
+        # the live lhs rows once, only the ACTIVE groups' weights (and
+        # scales) once, the sizes, out once (its empty rows too)
         w_bytes = active * K * N * rhs.element_size() + (
             active * N * 4 if scale is not None else 0)
-        io_bytes = nbytes(lhs, gs, out) + w_bytes
+        io_bytes = (live * K * lhs.element_size() + nbytes(gs, out)
+                    + w_bytes)
         if source == _GG_TC_CU:  # three split products at the TF32 rate
-            bound_ms, bound_by = bound(io_bytes, 3 * 2 * M * K * N, "tf32")
+            bound_ms, bound_by = bound(io_bytes, 3 * 2 * live * K * N,
+                                       "tf32")
             log(f"  grouped {name}: bound at the SIMT fp32 rate "
                 f"(67 TFLOP/s) "
-                f"{bound(io_bytes, 2 * M * K * N, 'fp32')[0]:.4f} ms")
+                f"{bound(io_bytes, 2 * live * K * N, 'fp32')[0]:.4f} ms")
         else:
-            bound_ms, bound_by = bound(io_bytes, 2 * M * K * N,
+            bound_ms, bound_by = bound(io_bytes, 2 * live * K * N,
                                        "bf16" if rounded else "fp32")
         res = report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
                      bound_by, f"{M} rows over {active} of {G} groups, "
-                     f"largest {int(gs.max())}, two runs bit-equal"
+                     + (f"{live} live, the {M - live} past them exactly "
+                        f"zero, " if live < M else "")
+                     + f"largest {int(gs.max())}, two runs bit-equal"
                      + ("" if replay_equal is None else
                         ", graph replay with new group sizes equal"), source)
         if yardstick_ms is not None:
@@ -1523,12 +1645,19 @@ def parity_grouped_gemm(g, results):
         return res
 
     def tgmm_case(name, tokens, K, N, iters, lhs_dt=torch.bfloat16,
-                  dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK):
-        M = tokens * k
-        gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+                  dout_dt=torch.float32, out_dt=torch.bfloat16, G=E, k=TOPK,
+                  ep=None):
+        gen = g if ep is None else ep
+        if ep is None:
+            M = tokens * k
+            gs = routed_group_sizes(g, tokens, H, G, k, empty=G // 2)
+        else:  # the EP capacity buffer over E // 2 local experts
+            G = E // 2
+            gs, M = ep_buffer(ep, tokens, G, k)
+        live = int(gs.sum())
         bounds = _bounds(gs, M)
-        lhs = torch.randn((M, K), generator=g, device=dev).to(lhs_dt)
-        dout = torch.randn((M, N), generator=g, device=dev).to(dout_dt)
+        lhs = operand(gen, M, K, live, lhs_dt)
+        dout = operand(gen, M, N, live, dout_dt)
 
         def call(sizes):
             """The call the autograd backward makes for this gradient."""
@@ -1555,8 +1684,8 @@ def parity_grouped_gemm(g, results):
             raise AssertionError(f"grouped {name}: two runs bit-equal "
                                  f"{torch.equal(out, again)}, graph replay "
                                  f"with new group sizes equal {replay_equal}")
-        if bool(out[G // 2].any()):
-            raise AssertionError(f"grouped {name}: the empty group's "
+        if bool(out[gs == 0].any()):
+            raise AssertionError(f"grouped {name}: an empty group's "
                                  f"gradient is not zero")
         ms = time_ms(lambda: call(gs), iters)
         plain_ms = time_ms(lambda: grouped_gemm_tgmm_plain(
@@ -1568,18 +1697,25 @@ def parity_grouped_gemm(g, results):
             call16 = library(name, lambda: grouped_mm(at, d16, offs=offs))
             if call16 is not None:
                 library_ms = time_ms(call16, iters)
-        io_bytes = nbytes(lhs, dout, gs, out)
+        # the live rows of lhs and dout once, the sizes, out once
+        io_bytes = (live * (K * lhs.element_size() + N * dout.element_size())
+                    + nbytes(gs, out))
         if source == _GG_TC_CU:  # three split products at the bf16 rate
-            bound_ms, bound_by = bound(io_bytes, 3 * 2 * M * K * N, "bf16")
+            bound_ms, bound_by = bound(io_bytes, 3 * 2 * live * K * N,
+                                       "bf16")
             log(f"  grouped {name}: bound at the SIMT fp32 rate "
                 f"(67 TFLOP/s) "
-                f"{bound(io_bytes, 2 * M * K * N, 'fp32')[0]:.4f} ms")
+                f"{bound(io_bytes, 2 * live * K * N, 'fp32')[0]:.4f} ms")
         else:
-            bound_ms, bound_by = bound(io_bytes, 2 * M * K * N,
+            bound_ms, bound_by = bound(io_bytes, 2 * live * K * N,
                                        "fp32" if f32 else "bf16")
         return report(name, err, tol, ms, plain_ms, library_ms, bound_ms,
-                      bound_by, f"{M} rows, largest group {int(gs.max())}, "
-                      f"empty group exact zero, two runs bit-equal"
+                      bound_by, f"{M} rows"
+                      + (f" ({live} live, garbage past them)"
+                         if live < M else "")
+                      + f", largest group {int(gs.max())}, "
+                      f"{int((gs == 0).sum())} empty groups exact zero, two "
+                      f"runs bit-equal"
                       + ("" if replay_equal is None else
                          ", graph replay with new group sizes equal"),
                       source)
@@ -1651,8 +1787,36 @@ def parity_grouped_gemm(g, results):
         fwd_case("small_fp32[300,64]x[4,64,128]", 150, 64, 128, 20,
                  lhs_dt=f32, rhs_dt=f32, G=4, k=2),
     ]
+    # phase 19d (expert=2): rank 0's capacity buffer over its 64 local
+    # experts, one of them empty, rows past sum(sizes) garbage (from a
+    # generator of their own: the cases above keep their inputs): prefill
+    # and decode of the generation, the full fine-tune's products and lhs
+    # gradient, the expert QLoRA's int8 base and an adapter
+    p19 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 19)
+    results["grouped_gemm"] += [
+        fwd_case("ep_prefill_gate_bf16[98304,2048]x[64,2048,768]", 12288,
+                 2048, 768, 4, ep=p19),
+        fwd_case("ep_decode_gate_bf16[32,2048]x[64,2048,768]", 4, 2048, 768,
+                 20, ep=p19),
+        fwd_case("ep_decode_down_bf16[32,768]x[64,768,2048]", 4, 768, 2048,
+                 20, ep=p19),
+        fwd_case("ep_train_gate_bf16[32768,2048]x[64,2048,768]", 4096, 2048,
+                 768, 4, ep=p19),
+        fwd_case("ep_train_down_bf16[32768,768]x[64,768,2048]", 4096, 768,
+                 2048, 4, ep=p19),
+        fwd_case("ep_train_dlhs_f32xbf16T[32768,768]x[64,2048,768]T->bf16",
+                 4096, 768, 2048, 4, lhs_dt=f32, out_dt=b16,
+                 transpose_rhs=True, ep=p19),
+        fwd_case("ep_qlora_gate_int8[32768,2048]x[64,2048,768]", 4096, 2048,
+                 768, 4, rhs_dt=i8, ep=p19),
+        fwd_case("ep_qlora_dlhs_f32xint8T[32768,768]x[64,2048,768]T->bf16",
+                 4096, 768, 2048, 4, lhs_dt=f32, rhs_dt=i8, out_dt=b16,
+                 transpose_rhs=True, ep=p19),
+        fwd_case("ep_lora_a_bf16xfp32[32768,2048]x[64,2048,64]", 4096, 2048,
+                 64, 4, rhs_dt=f32, ep=p19),
+    ]
     for case in results["grouped_gemm"]:
-        name = case["case"]
+        name = case["case"].removeprefix("ep_")
         expected = (_GG_STREAM_CU if name.startswith(("decode_", "serving_"))
                     else _GG_CU if name.startswith("small_")
                     else _GG_INT8_TMA_CU if "int8" in name
@@ -1684,9 +1848,16 @@ def parity_grouped_gemm(g, results):
                   out_dt=f32),
         tgmm_case("lora_b_down_bf16xf32[64,32768].[32768,2048]", 4096, 64,
                   2048, 4, out_dt=f32),
+        # phase 19d: the weight gradients over rank 0's capacity buffer
+        tgmm_case("ep_train_bf16xf32[2048,32768].[32768,768]->[64,2048,768]",
+                  4096, 2048, 768, 4, ep=p19),
+        tgmm_case("ep_train_down_bf16xf32[768,32768].[32768,2048]", 4096,
+                  768, 2048, 4, ep=p19),
+        tgmm_case("ep_lora_a_bf16xf32[2048,32768].[32768,64]", 4096, 2048,
+                  64, 4, out_dt=f32, ep=p19),
     ]
     for case in results["grouped_gemm_tgmm"]:
-        name = case["case"]
+        name = case["case"].removeprefix("ep_")
         expected = (_GG_TC_CU if name.startswith("lora_") else
                     _GG_CU if name.startswith("small_") else _GG_TMA_CU)
         if case["source"] != expected:
@@ -4148,6 +4319,613 @@ def plain_logits(bmodel, params, cfg, batch):
         esm.dot_product_attention = flash
 
 
+# ---------------------------------------------------------------------------
+# multi-device parallelism: ranks spawned on the one card
+# ---------------------------------------------------------------------------
+
+# depths of the parallel phases (only depth is cut; every width is the
+# preset's): the ranks share one card and one host's cores, and every
+# collective stages through host memory
+PAR_TEXT_LAYERS = 4    # of qwen3-1.7b's 28 (phases 19a-19c)
+PAR_ENC_LAYERS = 4     # of nt-500m's 24 and esm2-650m's 33 (19a-19d)
+PAR_MOE_LAYERS = 2     # of qwen3-30b-a3b's 48 (19d)
+PAR_NEW_TOKENS = 8     # greedy tokens of the sharded decode runs
+# bf16, sharded against one rank: about 7x the largest differences of the
+# sound runs (losses 2.89e-4, gradient norms 4.04e-4; H100, 700 W)
+PAR_LOSS_RTOL = 2e-3
+PAR_GNORM_RTOL = 3e-3
+PAR_GLOO_TIMEOUT_S = 600
+PAR_DEVICE = "cuda"    # where every parallel phase's rank computes
+
+
+def par_cut(cfg, text_layers: int):
+    """``cfg`` at ``text_layers`` decoder layers and PAR_ENC_LAYERS encoder
+    layers a modality."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text,
+                                      num_hidden_layers=text_layers),
+        dna_rna=dataclasses.replace(cfg.dna_rna,
+                                    num_hidden_layers=PAR_ENC_LAYERS),
+        protein=dataclasses.replace(cfg.protein,
+                                    num_hidden_layers=PAR_ENC_LAYERS))
+
+
+def par_init(cfg, seed: int):
+    """The same random params on every rank: drawn on the card from
+    ``seed``."""
+    import torch
+
+    from molly_tpu_torch.models import fusion
+    return fusion.init_params(
+        cfg, torch.Generator(PAR_DEVICE).manual_seed(seed), PAR_DEVICE)
+
+
+def par_local(samples, mesh):
+    """This rank's rows: its (data, fsdp) shard of the samples."""
+    if mesh is None:
+        return samples
+    from molly_tpu_torch.parallel import host_shard_range
+    from molly_tpu_torch.training.cli import batch_shard
+    i, n = batch_shard(mesh)
+    a, b = host_shard_range(len(samples), i, n)
+    return samples[a:b]
+
+
+def par_measure(fn):
+    """Run ``fn`` with the launch counts, the peak memory and the
+    collective byte count reset; returns (its result, a dict of seconds,
+    peak GiB, collective bytes and launch counts)."""
+    import torch
+
+    from molly_tpu_torch.parallel import comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    info = {"s": time.perf_counter() - t0, "peak_gib": peak_gib(),
+            "bytes": comm.bytes_moved(), "counts": read_counts()}
+    return out, info
+
+
+def par_train(params, cfg, tc, samples, mesh, steps, seed, label):
+    """``train_loop`` (the train CLI's loop) for ``steps`` steps over this
+    rank's rows of the four samples (one global batch of 4 a step)."""
+    from molly_tpu_torch.training.cli import train_loop
+    from molly_tpu_torch.training.trainer import init_train_state
+
+    def run():
+        state = init_train_state(params, tc)
+        return train_loop(state, cfg, tc, par_local(samples, mesh),
+                          batch_size=4, epochs=steps, total_steps=steps,
+                          seed=seed, device=PAR_DEVICE, output_dir=None)
+
+    res, info = par_measure(run)
+    check_flash_tma(label)
+    check_int8_tma(label)
+    info["history"] = [{k: h[k] for k in ("loss", "grad_norm", "skipped")
+                        if k in h} | {k: h[k] for k in (
+                            "moe_load_balance", "moe_ep_dropped_frac")
+                            if k in h} for h in res["history"]]
+    info["steps"] = steps
+    return info
+
+
+def par_decode(params, cfg, samples, text_tok, label, tap=False):
+    """Greedy ``run_batches`` of the phase-7 requests, PAR_NEW_TOKENS new
+    tokens; with ``tap`` the run's own logits give each position's gap."""
+    from molly_tpu_torch.inference.cli import run_batches
+    from molly_tpu_torch.models import GenerationConfig
+    gen = GenerationConfig(max_new_tokens=PAR_NEW_TOKENS, do_sample=False,
+                           repetition_penalty=1.1, eos_token_id=-1,
+                           pad_token_id=text_tok.pad_token_id or 0)
+    stats = {}
+    with LogitTap() as lt:
+        recs, info = par_measure(lambda: run_batches(
+            samples, params, cfg, gen, TokenIds(text_tok), io.StringIO(),
+            batch_size=4, total=len(samples), stats=stats))
+    check_flash_tma(label)
+    check_int8_tma(label)
+    info["rows"] = ids_of(recs)
+    info["steps"] = stats.get("decode_steps", 0) + 1
+    if tap:
+        info["gaps"] = lt.gaps(info["rows"], gen.repetition_penalty)
+    return info
+
+
+def par_dense_runs(seed: int, mesh):
+    """Phases 19a-19b on one rank (``mesh`` None, the reference) or on this
+    rank of ``mesh``: greedy decode of the phase-7 requests, 2 full
+    fine-tune steps and 2 QLoRA steps (adapters r 64, dropout 0 so that the
+    runs compare) through ``train_loop``, all at molly-1.7B width cut to
+    PAR_TEXT_LAYERS / PAR_ENC_LAYERS, each from the seed's weights."""
+    import torch
+
+    from molly_tpu_torch.models import qwen3
+    from molly_tpu_torch.models.lora import LoraConfig
+    from molly_tpu_torch.parallel import shard_params, use_mesh
+    from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
+
+    base = inputs(seed)
+    gcfg = par_cut(base["cfg"], PAR_TEXT_LAYERS)
+    tcfg = par_cut(base["train_cfg"], PAR_TEXT_LAYERS)
+
+    def shard(p):
+        return shard_params(p, mesh) if mesh is not None else p
+
+    out = {}
+    with use_mesh(mesh):
+        params = shard(par_init(gcfg, seed))
+        out["decode"] = par_decode(params, gcfg, base["samples"],
+                                   base["text_tok"], "19b. sharded decode",
+                                   tap=mesh is None)
+        del params
+        release()
+        params = shard(par_init(tcfg, seed))
+        out["ft"] = par_train(params, tcfg, TrainConfig(total_steps=2),
+                              base["train_samples"], mesh, 2, seed,
+                              "19a. full fine-tune")
+        del params
+        release()
+        lora = LoraConfig(r=64, alpha=64.0, dropout=0.0)
+        params = attach_lora(par_init(tcfg, seed), tcfg, lora,
+                             torch.Generator(PAR_DEVICE).manual_seed(
+                                 seed + 1))
+        with torch.no_grad():
+            params["text"] = qwen3.quantize_for_training(params["text"],
+                                                         tcfg.text)
+        params = shard(params)
+        out["qlora"] = par_train(params, tcfg,
+                                 TrainConfig(total_steps=2, lora=lora),
+                                 base["train_samples"], mesh, 2, seed,
+                                 "19a. QLoRA")
+        del params
+        release()
+    return out
+
+
+def par_cp_pp_runs(seed: int, mesh, kind: str):
+    """Phase 19c on this rank: one full fine-tune step of ``train_loop``
+    with the decoder ring-attended over ``seq`` (zigzag) or pipelined over
+    ``pipe`` (2 microbatches), molly-1.7B width cut as 19a."""
+    import dataclasses
+
+    from molly_tpu_torch.parallel import pp_param_specs, sharding, use_mesh
+    from molly_tpu_torch.training.trainer import TrainConfig
+
+    base = inputs(seed)
+    tcfg = par_cut(base["train_cfg"], PAR_TEXT_LAYERS)
+    tc = TrainConfig(total_steps=1)
+    if kind == "seq":
+        tcfg = dataclasses.replace(tcfg, text=dataclasses.replace(
+            tcfg.text, context_parallel=True, context_parallel_zigzag=True))
+    else:
+        tc = TrainConfig(total_steps=1, pp_micro=2)
+    with use_mesh(mesh):
+        params = par_init(tcfg, seed)
+        params = (sharding.shard_tree(params, pp_param_specs(params), mesh)
+                  if kind == "pipe" else sharding.shard_params(params, mesh))
+        return {kind: par_train(params, tcfg, tc, base["train_samples"],
+                                mesh, 1, seed, f"19c. {kind}")}
+
+
+def par_moe_runs(seed: int, mesh):
+    """Phase 19d on one rank (the reference) or this rank of an expert=2
+    mesh: qwen3-30b-a3b width cut to PAR_MOE_LAYERS (encoders to
+    PAR_ENC_LAYERS) with ``expert_parallel``: one full fine-tune step, one
+    expert-QLoRA step (adapters on the expert stacks, r 64, dropout 0), and
+    greedy KV-cache decode of the phase-7 requests."""
+    import dataclasses
+
+    import torch
+
+    from molly_tpu_torch.models import qwen3
+    from molly_tpu_torch.models.lora import LoraConfig
+    from molly_tpu_torch.parallel import shard_params, use_mesh
+    from molly_tpu_torch.training.trainer import TrainConfig, attach_lora
+
+    base = inputs(seed)
+
+    def cfg_of(k_tokens):
+        c = par_cut(moe_config(PAR_MOE_LAYERS, k_tokens), PAR_MOE_LAYERS)
+        return dataclasses.replace(c, text=dataclasses.replace(
+            c.text, expert_parallel=True))
+
+    gcfg, tcfg = cfg_of(1024), cfg_of(128)
+
+    def shard(p):
+        return shard_params(p, mesh) if mesh is not None else p
+
+    out = {}
+    with use_mesh(mesh):
+        params = shard(par_init(gcfg, seed))
+        out["decode"] = par_decode(params, gcfg, base["samples"],
+                                   base["text_tok"], "19d. EP decode",
+                                   tap=mesh is None)
+        del params
+        release()
+        params = shard(par_init(tcfg, seed))
+        out["ft"] = par_train(params, tcfg, TrainConfig(total_steps=1),
+                              base["train_samples"], mesh, 1, seed,
+                              "19d. EP full fine-tune")
+        del params
+        release()
+        lora = LoraConfig(r=64, alpha=64.0, dropout=0.0)
+        params = attach_lora(par_init(tcfg, seed), tcfg, lora,
+                             torch.Generator(PAR_DEVICE).manual_seed(
+                                 seed + 1))
+        with torch.no_grad():
+            params["text"] = qwen3.quantize_for_training(params["text"],
+                                                         tcfg.text)
+        params = shard(params)
+        out["qlora"] = par_train(params, tcfg,
+                                 TrainConfig(total_steps=1, lora=lora),
+                                 base["train_samples"], mesh, 1, seed,
+                                 "19d. EP expert QLoRA")
+        del params
+        release()
+    return out
+
+
+def small_train_batch(seed: int):
+    """The small models' training batch of phase 6 (right-padded rows,
+    tri-modal segments, task labels)."""
+    import torch
+    g = torch.Generator().manual_seed(seed + 2)
+    B, S = 4, 96
+    mask = torch.ones((B, S), dtype=torch.int32)
+    mask[1, 80:] = 0
+    mask[3, 50:] = 0
+    ids = torch.randint(0, 384, (B, S), generator=g)
+    labels = torch.where(mask.bool(), ids, -100)
+    labels[:, :30] = -100
+    return {
+        "input_ids": ids, "labels": labels, "attention_mask": mask,
+        "dna_rna_tokens": torch.randint(6, 4102, (B, 2, 16), generator=g),
+        "dna_rna_pos": torch.tensor([[2, 40], [30, -1], [-1, -1], [5, -1]]),
+        "protein_tokens": torch.randint(4, 24, (B, 1, 16), generator=g),
+        "protein_pos": torch.tensor([[60], [-1], [75], [25]]),
+        "task_label": torch.tensor([0, 3, 100, 7]),
+    }
+
+
+def small_par_grads(seed: int, moe: bool, mesh, device: str):
+    """Phase 19e: the small fp32 model's loss and every gradient (whole, on
+    the CPU) of one full fine-tune step, on this rank of ``mesh`` (its
+    rows, its blocks) or on one rank (``mesh`` None)."""
+    import dataclasses
+
+    import torch
+
+    from molly_tpu_torch.models import fusion
+    from molly_tpu_torch.parallel import (shard_batch, shard_params,
+                                          sharding, use_mesh)
+    from molly_tpu_torch.training.trainer import (TrainConfig,
+                                                  _trainable_leaves,
+                                                  init_train_state,
+                                                  make_grad_fn,
+                                                  trainable_paths)
+    from molly_tpu_torch.utils.tree import tree_to
+
+    cfg = small_config(moe)
+    if moe:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+            cfg.text, expert_parallel=True, ep_capacity_factor=4.0))
+    params = tree_to(fusion.init_params(cfg, torch.Generator().manual_seed(
+        seed)), device)
+    batch = {k: t.to(device) for k, t in small_train_batch(seed).items()}
+    tc = TrainConfig(learning_rate=1e-3, total_steps=5, warmup_ratio=0.0)
+    with use_mesh(mesh):
+        if mesh is not None:
+            params = shard_params(params, mesh)
+            batch = shard_batch(batch, mesh)
+        state = init_train_state(params, tc)
+        train = _trainable_leaves(state.params, tc)
+        (grads, metrics), info = par_measure(
+            lambda: make_grad_fn(cfg, tc)(state.params, batch))
+        full = sharding.gather_params(
+            [sharding.set_spec(g, sharding.spec_of(t))
+             for g, t in zip(grads, train)], mesh)
+    info.update(loss=float(metrics["loss"]),
+                grads=dict(zip(trainable_paths(state.params, tc),
+                               [g.detach().cpu() for g in full])))
+    return info
+
+
+def gloo_cuda_probe(world: int):
+    """Which gloo collectives take a CUDA tensor as it is, their values
+    checked (``parallel.comm`` hands them CUDA tensors)."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    t = torch.full((8 * world,), float(rank + 1), device="cuda")
+    whole = float(world * (world + 1) // 2)
+
+    def all_reduce():
+        x = t.clone()
+        dist.all_reduce(x)
+        return bool((x == whole).all())
+
+    def broadcast():
+        x = t.clone()
+        dist.broadcast(x, 0)
+        return bool((x == 1).all())
+
+    def all_gather_into_tensor():
+        out = torch.empty(8 * world * world, device="cuda")
+        dist.all_gather_into_tensor(out, t)
+        want = torch.arange(1, world + 1, device="cuda", dtype=torch.float32
+                            ).repeat_interleave(8 * world)
+        return bool((out == want).all())
+
+    def reduce_scatter_tensor():
+        out = torch.empty(8, device="cuda")
+        dist.reduce_scatter_tensor(out, t)
+        return bool((out == whole).all())
+
+    out = {}
+    for fn in (all_reduce, broadcast, all_gather_into_tensor,
+               reduce_scatter_tensor):
+        try:
+            right = fn()
+            torch.cuda.synchronize()
+            out[fn.__name__] = ("takes CUDA tensors" if right else
+                                "takes CUDA tensors but gives wrong values")
+        except Exception as e:  # the probe's answer, not a failure
+            out[fn.__name__] = (f"refuses ({type(e).__name__}: "
+                                f"{str(e)[:80]})")
+    return out
+
+
+def _p2p_probe_child(rank: int, root: str) -> None:
+    """One of two processes of ``gloo_p2p_probe``: a ``batch_isend_irecv``
+    ring of CUDA tensors over gloo; writes its answer, then leaves without
+    tearing the group down (a refusal may have broken it)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(root, "store"), 2),
+        rank=rank, world_size=2, timeout=datetime.timedelta(seconds=60))
+    t = torch.full((16,), float(rank + 1), device="cuda")
+    buf = torch.empty_like(t)
+    try:
+        ops = [dist.P2POp(dist.isend, t, 1 - rank),
+               dist.P2POp(dist.irecv, buf, 1 - rank)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        torch.cuda.synchronize()
+        answer = ("takes CUDA tensors" if bool((buf == 2 - rank).all())
+                  else "takes CUDA tensors but gives wrong values")
+    except Exception as e:  # the probe's answer, not a failure
+        answer = f"refuses ({type(e).__name__}: {str(e)[:80]})"
+    with open(os.path.join(root, f"p2p{rank}.txt"), "w") as f:
+        f.write(answer)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def gloo_p2p_probe() -> str:
+    """Does gloo's point-to-point take CUDA tensors? Two processes of their
+    own on cuda:0 (a refusal can abort a process from gloo's I/O thread, so
+    it stays out of the phases' groups); ``parallel.comm.exchange`` stages
+    through pinned host memory under gloo whatever this says."""
+    import multiprocessing
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as root:
+        procs = [ctx.Process(target=_p2p_probe_child, args=(r, root))
+                 for r in range(2)]
+        for pr in procs:
+            pr.start()
+        for pr in procs:
+            pr.join(120)
+        answers = []
+        for r, pr in enumerate(procs):
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+            path = os.path.join(root, f"p2p{r}.txt")
+            answers.append(open(path).read() if os.path.exists(path) else
+                           f"refuses (the process ended with exit code "
+                           f"{pr.exitcode})")
+    return "; ".join(f"rank {r}: {a}" for r, a in enumerate(answers))
+
+
+def par_rank(rank: int, world: int, dev, job):
+    """One rank of a parallel phase (spawned by ``parallel.launch``): the
+    kernels were built by the parent, which this rank only loads."""
+    import torch
+
+    from molly_tpu_torch.parallel import comm, make_mesh, make_pp_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind, seed = job["kind"], job["seed"]
+    if kind == "pipe":
+        mesh = make_pp_mesh(pipe=world)
+    else:
+        mesh = make_mesh(**job["mesh"])
+    out = {"backend": comm.describe_backend(dev), "mesh": dict(mesh.shape)}
+    if kind == "dense":
+        out.update(par_dense_runs(seed, mesh))
+    elif kind in ("seq", "pipe"):
+        out.update(par_cp_pp_runs(seed, mesh, kind))
+    elif kind == "moe":
+        out.update(par_moe_runs(seed, mesh))
+    elif kind == "small":
+        out.update(small=small_par_grads(seed, job["moe"], mesh,
+                                         PAR_DEVICE))
+        out["probe"] = gloo_cuda_probe(world)
+    return out
+
+
+def par_spawn(label: str, world: int, job):
+    """Spawn ``world`` ranks on cuda:0 (gloo) for ``job``; every rank must
+    exit 0. Prints the backend."""
+    from molly_tpu_torch.parallel.launch import run_ranks
+    release()
+    outs = run_ranks(par_rank, world, (job,), device=PAR_DEVICE,
+                     timeout_s=PAR_GLOO_TIMEOUT_S)
+    log(f"  {label}: {world} ranks on {PAR_DEVICE}, mesh {outs[0]['mesh']}, "
+        f"backend: {outs[0]['backend']}")
+    return outs
+
+
+def par_report(label: str, outs, key: str, launches, needed=()):
+    """Print each rank's seconds, peak memory and collective bytes a step of
+    run ``key``; the launches of all ranks go to ``launches`` (every
+    kernel of ``needed`` launched on every rank)."""
+    for r, o in enumerate(outs):
+        info = o[key]
+        steps = max(info.get("steps", 1), 1)
+        log(f"  {label}, rank {r}: {info['s']:.2f} s, peak device memory "
+            f"{info['peak_gib']:.2f} GiB, collectives "
+            f"{info['bytes'] / steps / 1e6:.1f} MB a step ({steps} steps); "
+            f"launches {info['counts']}")
+        for name in needed:
+            if info["counts"][name] <= 0:
+                raise AssertionError(f"{label}: rank {r} never launched "
+                                     f"{name}")
+        for name, n in info["counts"].items():
+            launches[name] += n
+
+
+def par_losses_close(label, ref, outs, key):
+    """Every rank's step losses within PAR_LOSS_RTOL and gradient norms
+    within PAR_GNORM_RTOL of the one-rank run's (printed): the norm is what
+    a missing or doubled reduction over the batch or tensor axes, or a
+    block counted more than once, would move (the losses of two steps at
+    the trainer's learning rate barely see the update)."""
+    want = [h["loss"] for h in ref[key]["history"]]
+    want_gn = [h["grad_norm"] for h in ref[key]["history"]]
+    for r, o in enumerate(outs):
+        got = [h["loss"] for h in o[key]["history"]]
+        got_gn = [h["grad_norm"] for h in o[key]["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        rel_gn = max(abs(a - b) / abs(b) for a, b in zip(got_gn, want_gn))
+        extra = ""
+        if "moe_ep_dropped_frac" in o[key]["history"][0]:
+            extra = (", moe_ep_dropped_frac " + ", ".join(
+                f"{h['moe_ep_dropped_frac']:.4f}" for h in o[key]["history"])
+                + ", moe_load_balance " + ", ".join(
+                f"{h['moe_load_balance']:.4f}" for h in o[key]["history"]))
+        log(f"  {label}, rank {r}: losses "
+            f"{', '.join(f'{x:.5f}' for x in got)} against one rank's "
+            f"{', '.join(f'{x:.5f}' for x in want)} (largest relative "
+            f"difference {rel:.2e}, tol {PAR_LOSS_RTOL}); gradient norms "
+            f"{', '.join(f'{x:.5f}' for x in got_gn)} against "
+            f"{', '.join(f'{x:.5f}' for x in want_gn)} (largest relative "
+            f"difference {rel_gn:.2e}, tol {PAR_GNORM_RTOL}){extra}")
+        if len(got) != len(want) or rel > PAR_LOSS_RTOL or \
+                rel_gn > PAR_GNORM_RTOL or any(
+                    h["skipped"] for h in o[key]["history"]):
+            raise AssertionError(f"{label}: rank {r} disagrees with the "
+                                 f"one-rank run")
+
+
+def parallel_paths(seed: int, launches):
+    """Phases 19a-19e: the multi-device paths in ranks spawned on the one
+    card (gloo), each against the one-rank run of the same
+    seed's weights on the card."""
+    from molly_tpu_torch.models import QWEN3_PRESETS
+    full = QWEN3_PRESETS["qwen3-1.7b"].num_hidden_layers
+    cuts = (f"depth cut: qwen3-1.7b {PAR_TEXT_LAYERS} of {full} layers, "
+            f"nt-500m and esm2-650m {PAR_ENC_LAYERS} layers each")
+    with Phase(f"19a-19b reference: one rank on the card ({cuts})"):
+        ref = par_dense_runs(seed, None)
+    release()
+    with Phase(f"19a-19b. fsdp=2, tensor=2 (4 ranks): greedy decode, 2 full "
+               f"fine-tune and 2 QLoRA steps ({cuts})"):
+        outs = par_spawn("19a-19b", 4, {"kind": "dense", "seed": seed,
+                                        "mesh": dict(fsdp=2, tensor=2)})
+        for r, o in enumerate(outs):
+            near_tie_check(f"19b. sharded decode, rank {r}",
+                           ref["decode"]["rows"], o["decode"]["rows"],
+                           ref["decode"]["gaps"])
+        par_report("19b. sharded decode", outs, "decode", launches,
+                   ("flash_attention_fwd", "rmsnorm_fwd"))
+        par_losses_close("19a. full fine-tune", ref, outs, "ft")
+        par_report("19a. full fine-tune", outs, "ft", launches,
+                   TRAIN_KERNELS)
+        par_losses_close("19a. QLoRA", ref, outs, "qlora")
+        par_report("19a. QLoRA", outs, "qlora", launches,
+                   TRAIN_KERNELS + ("int8_matmul",))
+    for kind, label in (("seq", "seq=2, zigzag ring attention"),
+                        ("pipe", "pipe=2, 2 microbatches")):
+        with Phase(f"19c. {label} (2 ranks): one full fine-tune step "
+                   f"({cuts})"):
+            outs = par_spawn(f"19c. {kind}", 2, {
+                "kind": kind, "seed": seed, "mesh": dict(seq=2, fsdp=1)})
+            one = {kind: {"history": ref["ft"]["history"][:1]}}
+            par_losses_close(f"19c. {kind}", one, outs, kind)
+            # the decoder's attention is the ring's plain chunks under seq;
+            # the frozen encoders' flash forward runs under both
+            par_report(f"19c. {kind}", outs, kind, launches,
+                       TRAIN_KERNELS if kind == "pipe" else
+                       ("flash_attention_fwd", "rmsnorm_fwd", "rmsnorm_bwd"))
+    moe_full = QWEN3_PRESETS["qwen3-30b-a3b"].num_hidden_layers
+    mcuts = (f"depth cut: qwen3-30b-a3b {PAR_MOE_LAYERS} of {moe_full} "
+             f"layers, encoders {PAR_ENC_LAYERS} layers each")
+    with Phase(f"19d reference: one rank on the card ({mcuts})"):
+        mref = par_moe_runs(seed, None)
+    release()
+    with Phase(f"19d. expert=2 (2 ranks): greedy KV-cache decode, one full "
+               f"fine-tune and one expert-QLoRA step ({mcuts})"):
+        outs = par_spawn("19d", 2, {"kind": "moe", "seed": seed,
+                                    "mesh": dict(fsdp=1, expert=2)})
+        for r, o in enumerate(outs):
+            near_tie_check(f"19d. EP decode, rank {r}",
+                           mref["decode"]["rows"], o["decode"]["rows"],
+                           mref["decode"]["gaps"])
+        par_report("19d. EP decode", outs, "decode", launches,
+                   ("grouped_gemm",))
+        par_losses_close("19d. EP full fine-tune", mref, outs, "ft")
+        par_report("19d. EP full fine-tune", outs, "ft", launches,
+                   ("grouped_gemm", "grouped_gemm_tgmm"))
+        par_losses_close("19d. EP expert QLoRA", mref, outs, "qlora")
+        par_report("19d. EP expert QLoRA", outs, "qlora", launches,
+                   ("grouped_gemm", "grouped_gemm_tgmm"))
+    for moe, world, mesh in ((False, 4, dict(fsdp=2, tensor=2)),
+                             (True, 2, dict(fsdp=1, expert=2))):
+        name = "MoE " if moe else ""
+        with Phase(f"19e. small {name}fp32 model, {mesh} ({world} ranks) "
+                   f"on the card against one rank on the CPU"):
+            cpu = small_par_grads(seed, moe, None, "cpu")
+            outs = par_spawn(f"19e. small {name}model", world, {
+                "kind": "small", "seed": seed, "moe": moe, "mesh": mesh})
+            for r, o in enumerate(outs):
+                got = o["small"]
+                dloss = abs(got["loss"] - cpu["loss"])
+                worst = max(
+                    (got["grads"][p] - g).abs().max().item()
+                    / max(g.abs().max().item(), 1e-12)
+                    for p, g in cpu["grads"].items())
+                log(f"  19e. small {name}model, rank {r}: |dloss| "
+                    f"{dloss:.3e} (tol {TRAIN_LOSS_ATOL}), worst gradient "
+                    f"error {worst:.3e} of its max (tol {TRAIN_GRAD_REL}) "
+                    f"over {len(cpu['grads'])} leaves")
+                if dloss > TRAIN_LOSS_ATOL or worst > TRAIN_GRAD_REL or \
+                        set(got["grads"]) != set(cpu["grads"]):
+                    raise AssertionError(f"19e. small {name}model: rank {r} "
+                                         f"disagrees with the CPU")
+            if not moe:
+                log(f"  gloo with CUDA tensors: {outs[0]['probe']}; "
+                    f"batch_isend_irecv (two processes of its own): "
+                    f"{gloo_p2p_probe()}")
+                for name in ("all_reduce", "broadcast",
+                             "all_gather_into_tensor",
+                             "reduce_scatter_tensor"):
+                    if outs[0]["probe"][name] != "takes CUDA tensors":
+                        raise AssertionError(
+                            f"gloo {name} does not take CUDA tensors: "
+                            f"parallel.comm hands them to it unstaged")
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4212,6 +4990,7 @@ def run(args) -> int:
             launches[name] += n
 
     baseline_path(args.seed, add)
+    parallel_paths(args.seed, launches)
 
     kernels = []
     for name in REPLACES:

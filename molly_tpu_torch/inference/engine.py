@@ -6,6 +6,14 @@ max_new_tokens columns; prefill writes the whole prompt at column 0 under a
 mask over the whole cache, and each decode step writes one column in place.
 Where JAX runs a ``lax.while_loop`` with an early exit once every row has
 emitted EOS, this is a Python loop that checks the same condition.
+
+Under a mesh (``parallel.use_mesh`` over ``shard_params(..., bare_text=True)``
+blocks, or a fusion tree's) every rank runs the whole batch: the layers
+gather their blocks as in training, attention and the KV cache hold this
+rank's heads on the ``tensor`` axis, an MoE decoder keeps its experts on
+their ranks under ``expert_parallel``, and the embedding and head are
+gathered once before the loop. Every rank emits rank 0's tokens (a
+broadcast after each sample), so sampled decoding agrees across ranks too.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 
 from ..models import fusion, qwen3
 from ..models.configs import FusionConfig, GenerationConfig, Qwen3Config
+from ..parallel import comm, sharding
 from .sampling import sample_tokens
 
 EMBED_KEYS = ("input_ids", "dna_rna_tokens", "dna_rna_pos",
@@ -112,6 +121,11 @@ def _generate_from_embeds(
     T = gen.max_new_tokens
     total = S + T
     dev = embeds.device
+    mesh = comm.current_mesh()
+    if mesh is not None:  # the embedding and head whole, once
+        text_params = {**text_params, **{
+            k: sharding.full(text_params[k]) for k in ("embed", "lm_head")
+            if k in text_params}}
 
     cache = qwen3.init_cache(cfg, B, total, device=dev, quant=kv_quant)
     full_mask = torch.zeros((B, total), dtype=torch.int32, device=dev)
@@ -129,10 +143,13 @@ def _generate_from_embeds(
     logits0 = qwen3.logits_from_hidden(text_params, cfg, hidden[:, -1])
 
     def sample(logits, presence):
-        return sample_tokens(
+        tok = sample_tokens(
             logits, generator, do_sample=gen.do_sample,
             temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
             repetition_penalty=gen.repetition_penalty, presence=presence)
+        if mesh is not None and mesh.devices.size > 1:
+            tok = comm.broadcast(tok, 0, torch.distributed.group.WORLD)
+        return tok
 
     rows = torch.arange(B, device=dev)
     presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev)

@@ -39,7 +39,8 @@ class Qwen3Config:
     # mixture of experts (Qwen3-MoE family; 0 = dense). num_experts > 0
     # replaces the dense SwiGLU MLP of every layer with a dropless top-k
     # sparse FFN (ops.moe); intermediate_size is then the PER-EXPERT width.
-    # expert_parallel belongs to the multi-device slice and is refused.
+    # expert_parallel: the experts stay on the ranks of the mesh's expert
+    # axis (ops.moe.moe_mlp_expert_sharded, capacity ep_capacity_factor).
     num_experts: int = 0
     num_experts_per_tok: int = 8
     norm_topk_prob: bool = True

@@ -7,6 +7,11 @@ Semantics kept: one encoder call per modality over ALL [B, G] segment slots
 overwriting the K placeholder rows start+1 .. start+K. Where JAX scatters
 with ``mode="drop"`` (inactive slots carry start = -1), the port masks those
 rows out before an in-place ``index_put_``.
+
+Under a mesh (``parallel.use_mesh``) the encoders and projectors are
+gathered whole before use, and the loss is this rank's share of the global
+batch's mean: its nll sum over the token count summed over the batch axes,
+so the shares of all ranks add up to the loss GSPMD computes.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 
 from ..data.omics_dataset import (LABEL_IGNORE, NUM_DOMAIN_TASKS,
                                   UNKNOWN_TASK_ID)
+from ..parallel import comm, sharding
 from ..utils.tree import leaves
 from . import esm, qwen3
 from .configs import EsmConfig, FusionConfig, Qwen3Config
@@ -68,8 +74,9 @@ def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
     # (the JAX step closes frozen subtrees over as constants)
     frozen = not any(t.requires_grad for t in leaves(params[enc_name]))
     with torch.no_grad() if frozen else torch.enable_grad():
-        h = esm.forward_hidden(params[enc_name], enc_cfg, flat, mask)
-    proj = params[proj_name]
+        h = esm.forward_hidden(sharding.full_tree(params[enc_name]), enc_cfg,
+                               flat, mask)
+    proj = sharding.full_tree(params[proj_name])
     # fp32 projectors (a PEFT directory's .bin files) over a bf16 encoder
     # promote as JAX does: the product in fp32, rounded once at injection
     dt = torch.promote_types(h.dtype, proj["kernel"].dtype)
@@ -176,7 +183,9 @@ def _domain_sums(per_nll, per_tok, task_label) -> Dict[str, torch.Tensor]:
 
 def lm_head_weight(params: Params, cfg: Qwen3Config) -> torch.Tensor:
     text = params["text"] if "text" in params else params
-    return text["embed"].T if cfg.tie_word_embeddings else text["lm_head"]
+    if cfg.tie_word_embeddings:
+        return sharding.full(text["embed"]).T
+    return sharding.full(text["lm_head"])
 
 
 def loss_from_hidden(
@@ -192,6 +201,9 @@ def loss_from_hidden(
     labels = batch["labels"]
     task_label = batch.get("task_label")
     if not fused_lce:
+        if batch_group() is not None:
+            raise ValueError("under a mesh with batch axes the loss is the "
+                             "fused one (fused_lce=True)")
         logits = qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
         return cross_entropy_loss(logits, labels, task_label=task_label,
                                   z_loss=z_loss, pre_shifted=pre_shifted)
@@ -201,9 +213,31 @@ def loss_from_hidden(
         hidden, w, labels, chunk_size=chunk_size, z_loss=z_loss,
         pre_shifted=pre_shifted, need_dw=lce_need_dw)
     metrics = {"loss": loss, "tokens": per_tok.sum()}
+    group = batch_group()
+    if group is not None:
+        total = comm.all_reduce(per_tok.sum(), group)
+        loss = per_nll.sum() / torch.clamp(total, min=1)
+        metrics = {"loss": loss, "tokens": total}
     if task_label is not None:
-        metrics.update(_domain_sums(per_nll, per_tok, task_label))
+        mesh = comm.current_mesh()
+        rows = None
+        if mesh is not None:
+            # a sample's tokens may be split over seq: whole samples first,
+            # then the sums over the ranks that hold other samples
+            seq = mesh.group(sharding.SEQ_AXIS)
+            per_nll = comm.all_reduce(per_nll.detach(), seq)
+            per_tok = comm.all_reduce(per_tok, seq)
+            rows = mesh.group(sharding.DATA_AXIS, sharding.FSDP_AXIS)
+        metrics.update({k: comm.all_reduce(v, rows) for k, v in
+                        _domain_sums(per_nll, per_tok, task_label).items()})
     return loss, metrics
+
+
+def batch_group():
+    """The process group of the current mesh's batch axes (the ranks that
+    hold other tokens), or None."""
+    mesh = comm.current_mesh()
+    return mesh.group(*sharding.BATCH_AXES) if mesh is not None else None
 
 
 def loss_fn(params: Params, cfg: FusionConfig,

@@ -126,6 +126,33 @@ def apply_lora(x: torch.Tensor, base_out: torch.Tensor,
     return base_out + scale * delta.to(base_out.dtype)
 
 
+def apply_lora_row_parallel(x: torch.Tensor, base_out: torch.Tensor,
+                            lora_layer: Optional[Dict[str, torch.Tensor]],
+                            scale: float, dropout_rate: float, generator,
+                            n: int, idx: int, group) -> torch.Tensor:
+    """``apply_lora`` around a row-parallel product (Megatron's o and down
+    under a ``tensor`` axis): ``x`` holds this rank's block ``idx`` of ``n``
+    of the input features and ``base_out`` the already reduced output.
+    ``lora_layer["a"]`` is the whole [d_in, r] factor; the rank multiplies
+    its row block, the [.., r] partials are summed over ``group``, and the
+    replicated sum meets the whole ``b``."""
+    if lora_layer is None:
+        return base_out
+    from ..parallel import comm
+    if dropout_rate > 0.0 and generator is not None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < (1.0 - dropout_rate)
+        x = torch.where(keep, x / (1.0 - dropout_rate),
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+    a = lora_layer["a"].chunk(n, dim=0)[idx]
+    b = lora_layer["b"]
+    if x.dtype != a.dtype:
+        x = x.to(torch.promote_types(x.dtype, a.dtype))
+    t = comm.reduce_from(x @ a.to(x.dtype), group)
+    delta = t @ b.to(x.dtype)
+    return base_out + scale * delta.to(base_out.dtype)
+
+
 def apply_lora_fused(x: torch.Tensor, fused_out: torch.Tensor,
                      lora_layer: Dict[str, Dict[str, torch.Tensor]],
                      parts, scale: float, dropout_rate: float = 0.0,

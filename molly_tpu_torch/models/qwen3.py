@@ -15,6 +15,16 @@ FFN of ``ops.moe`` over expert stacks ``expert_gate`` / ``expert_up``
 [L, E, H, I] and ``expert_down`` [L, E, I, H] behind an fp32 ``router``
 [L, H, E]; the no-cache forward hands the router's aux losses back in its
 second slot.
+
+Under a mesh (``parallel.use_mesh`` over blocks from
+``parallel.shard_params``) each layer's blocks are gathered over ``fsdp`` just
+before the layer runs (``_materialize``, inside the layer's checkpoint, so
+remat gathers again in the backward), and ``tensor`` runs Megatron-style
+(``TensorPlan``): q/k/v and gate/up keep their column blocks (local heads),
+o and down their row blocks, one all-reduce after each; a projection whose
+heads do not divide over ``tensor`` is gathered and computed whole. With
+``cfg.expert_parallel`` the experts stay on their ranks
+(``moe.moe_mlp_expert_sharded``).
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ from ..ops.attention import dot_product_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import PAGED_QUANT_MAX, paged_attention
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel import comm, sharding
 from .configs import Qwen3Config
-from .lora import apply_lora, apply_lora_fused
+from .lora import apply_lora, apply_lora_fused, apply_lora_row_parallel
 
 Params = Dict[str, Any]
 
@@ -112,14 +123,88 @@ def init_cache(cfg: Qwen3Config, batch: int, max_len: int, device="cpu",
     the logit column, the v scale folds into the softmax weights), so the
     products read the int8 values directly (``ops.attention``)."""
     dt = dtype or torch_dtype(cfg.dtype)
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
-             max_len, 2 * cfg.head_dim)
+    tp = tensor_plan(cfg)
+    n_kv = cfg.num_key_value_heads // (tp.n if tp and tp.attn else 1)
+    shape = (cfg.num_hidden_layers, batch, n_kv, max_len, 2 * cfg.head_dim)
     if quant == "int8":
         return {"kv": torch.zeros(shape, dtype=torch.int8, device=device),
                 "kv_scale": torch.zeros(shape[:-1] + (2,),
                                         dtype=torch.float32, device=device)}
     assert quant is None, quant
     return {"kv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+class TensorPlan(NamedTuple):
+    """Megatron tensor parallelism of one forward over the current mesh's
+    ``tensor`` axis: the MLP's gate/up columns and down rows are always
+    split; attention's q/k/v columns and o rows only when both head counts
+    divide over the axis (``attn``), else attention is computed whole on
+    every rank (a mesh JAX accepts is never refused)."""
+    group: Any
+    n: int
+    idx: int
+    attn: bool
+
+
+def tensor_plan(cfg: Qwen3Config) -> Optional[TensorPlan]:
+    mesh = comm.current_mesh()
+    n = mesh.size(sharding.TENSOR_AXIS) if mesh is not None else 1
+    if n == 1:
+        return None
+    attn = (cfg.num_attention_heads % n == 0
+            and cfg.num_key_value_heads % n == 0)
+    return TensorPlan(mesh.group(sharding.TENSOR_AXIS), n,
+                      mesh.index(sharding.TENSOR_AXIS), attn)
+
+
+_ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")
+_MLP_PROJ = ("gate_proj", "up_proj", "down_proj")
+_ROW_PARALLEL = ("o_proj", "down_proj")
+
+
+def _materialize(cfg: Qwen3Config, p, lora_layer):
+    """One layer's blocks gathered for use: (params, adapters, TensorPlan or
+    None). Megatron keeps the ``tensor`` block of the split projections and
+    the ``expert`` block of the expert stacks under expert parallelism;
+    everything else is gathered whole. An adapter of a split projection
+    reads a replicated ``a`` from a partitioned computation, so its
+    gradient is summed over ``tensor`` (``comm.reduce_grad``); the row
+    blocks of a row-parallel target's ``a`` are cut where it is applied
+    (``lora.apply_lora_row_parallel``)."""
+    if comm.current_mesh() is None:
+        return p, lora_layer, None
+    tp = tensor_plan(cfg)
+    if tp is not None and ("qkv_proj" in p or "gateup_proj" in p):
+        raise ValueError("fused decode weights cannot be split over a "
+                         "tensor axis: shard the unfused params")
+
+    def split(name):
+        if tp is None:
+            return False
+        return (name in _ATTN_PROJ and tp.attn) or name in _MLP_PROJ
+
+    def keep(name):
+        if name in EXPERT_STACKS + ("expert_gateup",):
+            return (sharding.EXPERT_AXIS,) if cfg.expert_parallel else ()
+        return (sharding.TENSOR_AXIS,) if split(name) else ()
+
+    out = {name: sharding.full_tree(w, keep(name)) for name, w in p.items()}
+    if lora_layer is None:
+        return out, None, tp
+    lora_out = {}
+    for name, ab in lora_layer.items():
+        if name in EXPERT_STACKS:
+            k = keep(name)
+            lora_out[name] = {"a": sharding.full(ab["a"], k),
+                              "b": sharding.full(ab["b"], k)}
+        elif split(name):
+            a = comm.reduce_grad(sharding.full(ab["a"]), tp.group)
+            b = (sharding.full(ab["b"]) if name in _ROW_PARALLEL
+                 else sharding.full(ab["b"], (sharding.TENSOR_AXIS,)))
+            lora_out[name] = {"a": a, "b": b}
+        else:
+            lora_out[name] = sharding.full_tree(ab)
+    return out, lora_out, tp
 
 
 def quantize_kv(kv_new: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,9 +234,9 @@ def _unstack_layers(lp: Params, n_layers: int):
     gradient into the stacked leaf L times)."""
     def unbind(w):
         if isinstance(w, dict):
-            parts = {k: t.unbind(0) for k, t in w.items()}
+            parts = {k: sharding.unbind_stacked(t) for k, t in w.items()}
             return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
-        return w.unbind(0)
+        return sharding.unbind_stacked(w)
 
     cols = {name: unbind(w) for name, w in lp.items()}
     return [{name: cols[name][i] for name in cols} for i in range(n_layers)]
@@ -172,10 +257,12 @@ def _generator_for(seeds, device):
 
 def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
                  lora_scale=1.0, lora_dropout=0.0, seeds=None,
-                 lora_slots=None):
+                 lora_slots=None, tp: Optional[TensorPlan] = None):
     """The part of a layer before attention: (q, k, v), q/k normed and
     rotated. lora_slots: [B] per-row adapter index into a stacked bank
-    (multi-LoRA serving), or None."""
+    (multi-LoRA serving), or None. Under ``tp.attn`` the products give this
+    rank's heads; the replicated input and the q/k norm weights then sum
+    their gradients over ``tensor``."""
     B, S, H = hidden.shape
     Nq, Nkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
@@ -199,30 +286,42 @@ def _attn_inputs(cfg: Qwen3Config, hidden, p, cos, sin, lora_layer=None,
         qk = apply_rope(qk, cos, sin)
         return qk[:, :, :Nq], qk[:, :, Nq:], v
 
+    q_norm, k_norm = p["q_norm"], p["k_norm"]
+    if tp is not None and tp.attn:
+        x = comm.reduce_grad(x, tp.group)
+        q_norm = comm.reduce_grad(q_norm, tp.group)
+        k_norm = comm.reduce_grad(k_norm, tp.group)
+
     def proj(name):
         ll = lora_layer.get(name) if lora_layer is not None else None
         return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
                           lora_dropout, gen_for(name), lora_slots=lora_slots)
 
-    q = proj("q_proj").reshape(B, S, Nq, Dh)
-    kk = proj("k_proj").reshape(B, S, Nkv, Dh)
-    v = proj("v_proj").reshape(B, S, Nkv, Dh)
+    q = proj("q_proj").reshape(B, S, -1, Dh)
+    kk = proj("k_proj").reshape(B, S, -1, Dh)
+    v = proj("v_proj").reshape(B, S, -1, Dh)
     # Qwen3 applies RMSNorm on the head dim of q/k before RoPE
-    q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
-    kk = rms_norm(kk, p["k_norm"], cfg.rms_norm_eps)
+    q = rms_norm(q, q_norm, cfg.rms_norm_eps)
+    kk = rms_norm(kk, k_norm, cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), v
 
 
 EXPERT_STACKS = ("expert_gate", "expert_up", "expert_down")
+# the aux values of a sparse layer, in the order _layer_tail stacks them
+MOE_AUX_KEYS = ("load_balance", "router_z", "ep_dropped_frac")
 
 
 def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
                 lora_scale=1.0, lora_dropout=0.0, seeds=None,
-                lora_slots=None, with_aux: bool = False):
+                lora_slots=None, with_aux: bool = False,
+                tp: Optional[TensorPlan] = None):
     """The part of a layer after attention: output projection, residual,
     MLP (dense or sparse), residual. Returns (hidden, aux): aux is the
-    [load_balance, router_z] pair of a sparse layer when ``with_aux`` asks
-    for it (the no-cache forward), else None."""
+    [load_balance, router_z] pair of a sparse layer (with
+    ``ep_dropped_frac`` third under expert parallelism) when ``with_aux``
+    asks for it (the no-cache forward), else None. Under ``tp`` the o and
+    down products are row-parallel: partial sums all-reduced over
+    ``tensor``."""
     B, S, H = hidden.shape
     gen_for = _generator_for(seeds, hidden.device)
 
@@ -231,13 +330,17 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
         return apply_lora(x, quant.linear(x, p[name]), ll, lora_scale,
                           lora_dropout, gen_for(name), lora_slots=lora_slots)
 
-    hidden = hidden + proj(attn.reshape(B, S, -1), "o_proj")
+    def row(x, name):
+        if tp is None or (name == "o_proj" and not tp.attn):
+            return proj(x, name)
+        ll = lora_layer.get(name) if lora_layer is not None else None
+        base = comm.reduce_from(quant.linear(x, p[name]), tp.group)
+        return apply_lora_row_parallel(x, base, ll, lora_scale, lora_dropout,
+                                       gen_for(name), tp.n, tp.idx, tp.group)
+
+    hidden = hidden + row(attn.reshape(B, S, -1), "o_proj")
     x = rms_norm(hidden, p["post_attn_norm"], cfg.rms_norm_eps)
     if "router" in p:  # sparse MoE FFN (dropless top-k, ops.moe)
-        if cfg.expert_parallel:
-            raise NotImplementedError(
-                "expert_parallel (moe_mlp_expert_sharded over an expert "
-                "mesh axis) is not ported: ROADMAP.md queue 1 item 11")
         moe_lora = None
         if lora_layer is not None:
             moe_lora = {k: lora_layer[k] for k in EXPERT_STACKS
@@ -247,14 +350,24 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
             moe_lora = None  # serving weights are post-merge
         else:
             wg, wu = p["expert_gate"], p["expert_up"]
-        out2d, aux = moe.moe_mlp(
-            x.reshape(B * S, H), p["router"], wg, wu, p["expert_down"],
-            num_experts_per_tok=cfg.num_experts_per_tok,
-            norm_topk_prob=cfg.norm_topk_prob, lora=moe_lora,
-            lora_scale=lora_scale, lora_dropout=lora_dropout,
-            generator_for=gen_for, with_aux=with_aux)
+        kw = dict(num_experts_per_tok=cfg.num_experts_per_tok,
+                  norm_topk_prob=cfg.norm_topk_prob, lora=moe_lora,
+                  lora_scale=lora_scale, lora_dropout=lora_dropout,
+                  generator_for=gen_for, with_aux=with_aux)
+        if cfg.expert_parallel:
+            # the no-cache forward (training, eval) runs this rank's share
+            # of the global batch; decoding runs the whole batch everywhere
+            out2d, aux = moe.moe_mlp_expert_sharded(
+                x.reshape(B * S, H), p["router"], wg, wu, p["expert_down"],
+                capacity_factor=cfg.ep_capacity_factor,
+                batch_axes=sharding.BATCH_AXES if with_aux else (),
+                seq_len=S, **kw)
+        else:
+            out2d, aux = moe.moe_mlp(
+                x.reshape(B * S, H), p["router"], wg, wu, p["expert_down"],
+                **kw)
         if aux is not None:
-            aux = torch.stack([aux["load_balance"], aux["router_z"]])
+            aux = torch.stack([aux[k] for k in MOE_AUX_KEYS if k in aux])
         return hidden + out2d.reshape(B, S, H), aux
     if "gateup_proj" in p:  # fused decode weights
         gu = quant.linear(x, p["gateup_proj"])
@@ -266,8 +379,10 @@ def _layer_tail(cfg: Qwen3Config, hidden, attn, p, lora_layer=None,
                                   lora_slots=lora_slots)
         gate, up = gu.chunk(2, dim=-1)
     else:
+        if tp is not None:
+            x = comm.reduce_grad(x, tp.group)
         gate, up = proj(x, "gate_proj"), proj(x, "up_proj")
-    return hidden + proj(F.silu(gate) * up, "down_proj"), None
+    return hidden + row(F.silu(gate) * up, "down_proj"), None
 
 
 class PagedCache(NamedTuple):
@@ -392,14 +507,22 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     Returns (hidden, aux) as ``_layer_tail`` does; a sparse layer computes
     its aux losses only on the no-cache path."""
     Dh = cfg.head_dim
+    p, lora_layer, tp = _materialize(cfg, p, lora_layer)
     lkw = (lora_layer, lora_scale, lora_dropout, seeds, lora_slots)
     if split_remat:
         q, kk, v = checkpoint(_attn_inputs, cfg, hidden, p, cos, sin, *lkw,
-                              use_reentrant=False)
+                              tp=tp, use_reentrant=False)
     else:
-        q, kk, v = _attn_inputs(cfg, hidden, p, cos, sin, *lkw)
+        q, kk, v = _attn_inputs(cfg, hidden, p, cos, sin, *lkw, tp=tp)
 
-    if cache_kv is None:
+    if cache_kv is None and _ring(cfg):
+        # context parallelism: this rank holds its part of the sequence
+        # (in zigzag order when the caller permuted the stream)
+        from ..parallel.ring_attention import ring_attention
+        attn = ring_attention(q, kk, v, mask, causal=causal,
+                              scale=Dh ** -0.5,
+                              zigzag=cfg.context_parallel_zigzag)
+    elif cache_kv is None:
         attn = dot_product_attention(q, kk, v, mask=mask, causal=causal,
                                      scale=Dh ** -0.5)
     elif isinstance(cache_kv, PagedCache):
@@ -414,8 +537,26 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
             kv_scales=csc[li] if csc is not None else None)
     if split_remat:
         return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
-                          cache_kv is None, use_reentrant=False)
-    return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None)
+                          cache_kv is None, tp=tp, use_reentrant=False)
+    return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None, tp=tp)
+
+
+def _ring(cfg: Qwen3Config) -> bool:
+    """Does attention run as a ring over the mesh's ``seq`` axis? Under
+    ``cfg.context_parallel`` with more than one rank on it: the caller
+    hands every layer this rank's part of the sequence, in zigzag order
+    under ``context_parallel_zigzag`` (the trainer permutes the stream
+    once a step, as the JAX trainer's pre-permuted layout does)."""
+    mesh = comm.current_mesh()
+    if not cfg.context_parallel or mesh is None \
+            or mesh.size(sharding.SEQ_AXIS) == 1:
+        return False
+    if cfg.context_parallel_zigzag and not cfg.context_parallel_prepermuted:
+        raise ValueError("zigzag context parallelism runs on a stream the "
+                         "caller permuted once (context_parallel_"
+                         "prepermuted): the decoder holds only its part of "
+                         "the sequence")
+    return True
 
 
 REMAT_POLICIES = ("full", "dots", "attn", "hot")
@@ -569,8 +710,8 @@ def forward_hidden(
             per_layer.append(hidden)
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     if aux_layers:  # only without a cache
-        lb, z = torch.stack(aux_layers).mean(dim=0)
-        cache = {"moe_aux": {"load_balance": lb, "router_z": z}}
+        means = torch.stack(aux_layers).mean(dim=0)
+        cache = {"moe_aux": dict(zip(MOE_AUX_KEYS, means.unbind(0)))}
     if output_hidden_states:
         return hidden, cache, torch.stack(per_layer)
     return hidden, cache
@@ -581,8 +722,8 @@ def logits_from_hidden(params: Params, cfg: Qwen3Config,
     if "lm_head_q" in params:  # int8 decode path (quantize_for_decode)
         return quant.int8_matmul(hidden, params["lm_head_q"])
     if "lm_head" in params:  # untied, or [H, V] from fuse_for_decode
-        return hidden @ params["lm_head"]
-    return hidden @ params["embed"].T  # tied embeddings
+        return hidden @ sharding.full(params["lm_head"])
+    return hidden @ sharding.full(params["embed"]).T  # tied embeddings
 
 
 QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -754,5 +895,5 @@ def forward_logits(params: Params, cfg: Qwen3Config, **kw) -> torch.Tensor:
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     # clip out-of-vocab ids (JAX mode="clip") instead of failing the gather
-    table = params["embed"]
+    table = sharding.full(params["embed"])  # a block under a mesh
     return table[input_ids.clamp(0, table.shape[0] - 1)]

@@ -1,6 +1,5 @@
-"""Dropless top-k mixture-of-experts MLP, the counterpart of
-``molly_tpu/ops/moe.py`` on one device (``moe_mlp_expert_sharded`` belongs
-to the multi-device slice).
+"""Dropless top-k mixture-of-experts MLP, and its expert-parallel form
+(``moe_mlp_expert_sharded``): the counterpart of ``molly_tpu/ops/moe.py``.
 
 Design (sort + grouped matmul, not a capacity / one-hot dispatch):
 
@@ -18,15 +17,20 @@ group sizes stay on the device (``scatter_add_``, not ``bincount``, which
 synchronizes on a card). The load-balance and router-z aux losses are
 computed only when ``with_aux`` asks (the no-cache forward): an eager
 decode tick would otherwise pay ~10 small ops a layer for values it drops.
+Under a mesh whose batch axes hold other tokens they are the global batch's
+(``_aux_losses``), as GSPMD computes them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
+from ..parallel.sharding import BATCH_AXES, SEQ_AXIS
 from .grouped_gemm import grouped_gemm
 from .lce import _mm
 from .quant import quantize_int8
@@ -178,14 +182,190 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up, w_down, *,
     out = (y * topw.to(y.dtype)[..., None]).sum(dim=1).to(x.dtype)
     if not with_aux:
         return out, None
+    return out, _aux_losses(counts, probs, logits, T, k, E)
 
-    # Switch-Transformer load-balance loss: E * sum_e f_e * P_e with f_e the
-    # fraction of routed (token, choice) pairs on expert e and P_e the mean
-    # router prob; 1.0 at perfect balance
-    f = counts.to(torch.float32) / (T * k)
-    lb = E * (f * probs.mean(dim=0)).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    return out, {"load_balance": lb, "router_z": z}
+
+def _aux_losses(counts, probs, logits, T: int, k: int, E: int
+                ) -> Dict[str, torch.Tensor]:
+    """Switch-Transformer load-balance loss E * sum_e f_e * P_e (f_e the
+    fraction of routed (token, choice) pairs on expert e, P_e the mean
+    router prob; 1.0 at perfect balance) and the router z-loss. Under a mesh
+    whose batch axes hold other tokens, both are the global batch's: the
+    counts, prob sums and z sums are summed over those axes (the prob and z
+    sums with their gradients), every rank holding as many tokens."""
+    mesh = comm.current_mesh()
+    group = mesh.group(*BATCH_AXES) if mesh is not None else None
+    lse2 = torch.logsumexp(logits, dim=-1).square()
+    if group is None:
+        f = counts.to(torch.float32) / (T * k)
+        lb = E * (f * probs.mean(dim=0)).sum()
+        return {"load_balance": lb, "router_z": lse2.mean()}
+    n_tok = T * mesh.size(*BATCH_AXES)
+    f = comm.all_reduce(counts, group).to(torch.float32) / (n_tok * k)
+    p_mean = comm.all_reduce_sum(probs.sum(dim=0), group) / n_tok
+    z = comm.all_reduce_sum(lse2.sum(), group) / n_tok
+    return {"load_balance": E * (f * p_mean).sum(), "router_z": z}
+
+
+def _split_gateup(w):
+    """A fused [E, H, 2I] gate-and-up stack (or its int8 dict) back into
+    its gate and up halves."""
+    if isinstance(w, dict):
+        wq, sc = w["w_q"].chunk(2, dim=-1), w["scale"].chunk(2, dim=-1)
+        return ({"w_q": wq[0], "scale": sc[0]},
+                {"w_q": wq[1], "scale": sc[1]})
+    return w.chunk(2, dim=-1)
+
+
+def _global_routing(topi: torch.Tensor, mesh, batch_axes, seq_len
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the global batch's expert ids [T_g, k], the global index [T] of each
+    of this rank's tokens). ``topi`` [T, k] holds this rank's share of the
+    tokens over ``batch_axes``: rows of the (data, fsdp) coordinate's block
+    and, on a ``seq`` axis, the coordinate's part of each row's
+    ``seq_len``-token sequence. The global order is JAX's: row-major over
+    the whole batch [B_g, S_g], flattened."""
+    T, k = topi.shape
+    own = torch.arange(T, device=topi.device)
+    bgroup = mesh.group(*batch_axes) if batch_axes else None
+    if bgroup is None:
+        return topi, own
+    n_s = mesh.size(SEQ_AXIS) if SEQ_AXIS in batch_axes else 1
+    n_r = mesh.size(*batch_axes) // n_s
+    S = seq_len if n_s > 1 else T
+    B = T // S
+    # group order: the row coordinate major, the seq coordinate minor
+    topi_g = comm.all_gather(topi, 0, bgroup).reshape(
+        n_r, n_s, B, S, k).transpose(1, 2).reshape(-1, k)
+    r = mesh.index(*(a for a in batch_axes if a != SEQ_AXIS))
+    j = mesh.index(SEQ_AXIS) if n_s > 1 else 0
+    return topi_g, ((r * B + own // S) * n_s + j) * S + own % S
+
+
+def moe_mlp_expert_sharded(
+        x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up, w_down, *,
+        num_experts_per_tok: int, norm_topk_prob: bool = True,
+        capacity_factor: float = 2.0, axis_name: str = "expert",
+        batch_axes: Tuple[str, ...] = (), seq_len: Optional[int] = None,
+        lora: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        lora_scale: float = 1.0, lora_dropout: float = 0.0,
+        generator_for=None, with_aux: bool = True
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Expert-parallel MoE MLP over the current mesh's ``axis_name``: the
+    weights stay on their ranks, never gathered.
+
+    ``x`` [T, H] and ``router_w`` are the same on every rank of the axis;
+    ``w_gate`` / ``w_up`` [E/n, H, I], ``w_down`` [E/n, I, H] (or their int8
+    dicts) and the expert adapters in ``lora`` are this rank's block of
+    E/n experts (rank i holds experts i*E/n ..). The plan of the JAX
+    package's shard_map:
+      - routing is replicated math (tiny [T, E] tensors);
+      - each rank compacts the (token, choice) pairs routed to ITS experts,
+        grouped by expert in a stable sort, into a buffer of
+        C = min(ceil(T * k * capacity_factor / n), T * k) rows (overflow
+        rows are dropped: ``ep_dropped_frac`` counts them);
+      - local grouped GEMMs over the C-row buffer (rows past the group
+        sizes come out zero);
+      - one all-reduce of the [T, H] partial outputs (identity backward:
+        ``comm.reduce_from``); the replicated ``x`` and routing weights sum
+        their gradients over the axis (``comm.reduce_grad``), so the
+        router's gradient is the whole one on every rank.
+
+    ``batch_axes`` names the mesh axes over which ``x`` holds only this
+    rank's share of the tokens (the training forward: ``BATCH_AXES``).
+    JAX's shard_map is manual over ``axis_name`` alone, so its T is the
+    global batch's; here too the capacity, the pairs that overflow and
+    ``ep_dropped_frac`` are the global batch's, from every rank's expert
+    ids (one all-gather of the [T, k] ids), and each rank runs the kept
+    pairs of its own tokens, in the global buffer's order, through a buffer
+    of min(C, T * k) rows. ``seq_len``: ``x`` is [rows, seq_len] flattened,
+    needed when a ``seq`` axis is among ``batch_axes``.
+
+    With one rank on the axis (or no mesh) this is ``moe_mlp`` plus a zero
+    ``ep_dropped_frac``. A fused gate-and-up stack is split back first."""
+    mesh = comm.current_mesh()
+    n_dev = mesh.size(axis_name) if mesh is not None else 1
+    kw = dict(num_experts_per_tok=num_experts_per_tok,
+              norm_topk_prob=norm_topk_prob, lora=lora,
+              lora_scale=lora_scale, lora_dropout=lora_dropout,
+              generator_for=generator_for, with_aux=with_aux)
+    if n_dev <= 1:
+        out, aux = moe_mlp(x, router_w, w_gate, w_up, w_down, **kw)
+        if aux is not None:
+            aux["ep_dropped_frac"] = torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
+        return out, aux
+    if w_up is None:
+        w_gate, w_up = _split_gateup(w_gate)
+    group = mesh.group(axis_name)
+    T, H = x.shape
+    E_l = _n_experts(w_gate)
+    E = E_l * n_dev
+    k = num_experts_per_tok
+    dev = x.device
+    topw, topi, probs, logits = router_topk(x, router_w, k, norm_topk_prob)
+    x_r = comm.reduce_grad(x, group)
+    topw_r = comm.reduce_grad(topw, group)
+
+    topi_g, gidx = _global_routing(topi, mesh, batch_axes, seq_len)
+    T_g = topi_g.shape[0]
+    C = int(min(max(math.ceil(T_g * k * capacity_factor / n_dev), 1),
+                T_g * k))
+    flat_e = topi_g.reshape(T_g * k) - mesh.index(axis_name) * E_l
+    local = (flat_e >= 0) & (flat_e < E_l)
+    key = torch.where(local, flat_e, torch.full_like(flat_e, E_l))
+    # stable, as jnp.argsort: which rows overflow the buffer is defined
+    sel = torch.sort(key, stable=True).indices[:C]
+    sizes0 = torch.zeros(E_l + 1, dtype=torch.int64,
+                         device=dev).scatter_add_(
+        0, key, torch.ones_like(key))[:E_l]
+    cum = torch.cumsum(sizes0, dim=0).clamp(max=C)
+    dropped = comm.all_reduce(sizes0.sum() - cum[-1], group)
+    # this rank's tokens among the kept pairs, compacted in buffer order
+    # (so still grouped by expert); the rest go to a dump slot
+    owner = torch.full((T_g,), -1, dtype=torch.int64, device=dev)
+    owner[gidx] = torch.arange(T, device=dev)
+    lt = owner[sel // k]
+    mine = local[sel] & (lt >= 0)
+    C_l = min(C, T * k)
+    slot = torch.where(mine, torch.cumsum(mine, dim=0) - 1,
+                       torch.full_like(sel, C_l))
+    pair = torch.full((C_l + 1,), T * k, dtype=torch.int64,
+                      device=dev).index_put_((slot,), lt * k + sel % k)[:C_l]
+    valid = pair < T * k
+    e_of = torch.where(mine, key[sel], torch.full_like(sel, E_l))
+    sizes = torch.zeros(E_l + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, e_of, torch.ones_like(e_of))[:E_l].to(torch.int32)
+    pc = torch.where(valid, pair, torch.zeros_like(pair))
+    xs = x_r[pc // k] * valid[:, None].to(x.dtype)
+
+    lora = lora or {}
+
+    def bypass(base, inp, name):
+        if name not in lora:
+            return base
+        gen = generator_for(name) if generator_for is not None else None
+        return base + _lora_grouped(inp, lora[name], sizes, lora_scale,
+                                    lora_dropout, gen)
+
+    g = bypass(_grouped_dot(xs, w_gate, sizes), xs, "expert_gate")
+    u = bypass(_grouped_dot(xs, w_up, sizes), xs, "expert_up")
+    h = (F.silu(g) * u).to(x.dtype)
+    y = bypass(_grouped_dot(h, w_down, sizes), h, "expert_down")
+    w_sel = topw_r.reshape(T * k)[pc] * valid
+    # each kept row back to its (token, choice) slot (the slots are
+    # distinct; the empty rows all land in the dropped last row), then the
+    # k choices summed in fp32 as moe_mlp does
+    pairs = y.new_zeros((T * k + 1, H)).index_put(
+        (pair,), y * w_sel[:, None].to(y.dtype))[:T * k]
+    out = comm.reduce_from(pairs.reshape(T, k, H).sum(dim=1), group)
+    if not with_aux:
+        return out.to(x.dtype), None
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, topi.reshape(T * k), torch.ones_like(topi.reshape(T * k)))
+    aux = _aux_losses(counts, probs, logits, T, k, E)
+    aux["ep_dropped_frac"] = dropped.to(torch.float32) / (T_g * k)
+    return out.to(x.dtype), aux
 
 
 def moe_mlp_reference(x, router_w, w_gate, w_up, w_down, *,

@@ -11,6 +11,10 @@
     ``state.pt`` per checkpoint directory — and the two do not read each
     other's. Saves are synchronous, so ``wait_for_saves`` has nothing to
     wait for; it exists so callers keep the same sequence of calls.
+
+Under a mesh (``parallel.use_mesh``) every rank takes part in gathering the
+blocks, rank 0 alone writes the whole tree (the same file a one-device run
+writes), and a restore cuts each rank's blocks out of it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,23 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel import comm, sharding
 from .trainer import TrainState
+
+
+def _gathered(tree):
+    """The tree with every block gathered (all ranks take part), and
+    whether this rank is the one that writes."""
+    mesh = comm.current_mesh()
+    if mesh is None:
+        return tree, True
+    return sharding.gather_params(tree, mesh), mesh.rank == 0
+
+
+def _barrier() -> None:
+    mesh = comm.current_mesh()
+    if mesh is not None and mesh.devices.size > 1:
+        torch.distributed.barrier()
 
 
 def _flatten(prefix: str, tree, out: Dict[str, Any]) -> None:
@@ -36,6 +56,11 @@ def export_adapter(path: str, params: Dict[str, Any], lora_cfg=None) -> None:
     """Save LoRA A/B + projectors as one .npz (fp32). ``lora_cfg`` records
     r/alpha in a ``__lora_meta__`` entry so inference merges with the
     trained scale."""
+    params, writer = _gathered({k: params[k] for k in
+                                ("lora", "dna_rna_projector",
+                                 "protein_projector") if k in params})
+    if not writer:
+        return _barrier()
     flat: Dict[str, np.ndarray] = {}
 
     def add(prefix, tree):
@@ -55,6 +80,7 @@ def export_adapter(path: str, params: Dict[str, Any], lora_cfg=None) -> None:
     add("protein_projector/", params["protein_projector"])
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **flat)
+    _barrier()
 
 
 def _npz(path: str):
@@ -112,7 +138,9 @@ def _detached(tree):
         return {k: _detached(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_detached(v) for v in tree]
-    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+    if isinstance(tree, torch.Tensor):  # a block keeps its spec
+        return sharding.set_spec(tree.detach(), sharding.spec_of(tree))
+    return tree
 
 
 def save_train_state(path: str, state: TrainState, *, force: bool = True,
@@ -122,12 +150,14 @@ def save_train_state(path: str, state: TrainState, *, force: bool = True,
     function's; a save here always overwrites and is always durable on
     return."""
     del force, wait
-    os.makedirs(path, exist_ok=True)
-    tmp = _state_file(path) + ".tmp"
-    torch.save({"params": _detached(state.params),
-                "opt_state": _detached(state.opt_state),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, _state_file(path))
+    tree, writer = _gathered({"params": _detached(state.params),
+                              "opt_state": _detached(state.opt_state)})
+    if writer:
+        os.makedirs(path, exist_ok=True)
+        tmp = _state_file(path) + ".tmp"
+        torch.save({**tree, "step": int(state.step)}, tmp)
+        os.replace(tmp, _state_file(path))
+    _barrier()
 
 
 def wait_for_saves() -> None:
@@ -168,6 +198,9 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
             for i, (d, s) in enumerate(zip(dst, src)):
                 copy_into(d, s, f"{where}[{i}]")
         else:
+            spec, mesh = sharding.spec_of(dst), comm.current_mesh()
+            if spec is not None and mesh is not None:
+                src = sharding.block(src, spec, mesh)  # this rank's block
             if dst.shape != src.shape:
                 raise ValueError(f"checkpoint shape mismatch at {where}: "
                                  f"{tuple(dst.shape)} vs {tuple(src.shape)}")

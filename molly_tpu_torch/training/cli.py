@@ -1,5 +1,4 @@
-"""Training entry point, the counterpart of ``molly_tpu/training/cli.py`` on
-one device.
+"""Training entry point, the counterpart of ``molly_tpu/training/cli.py``.
 
 Flow: tokenizers (+9 omics specials) -> model config + random params ->
 datasets -> freeze / LoRA regime -> train loop with periodic eval, early
@@ -8,10 +7,21 @@ stopping, checkpointing, per-task domain losses and JSONL metric logging.
 Usage:
   python -m molly_tpu_torch.training.cli --train-dataset-path train.parquet \
       [--eval-dataset-path eval.parquet] [--tiny] [--device cpu] ...
+  torchrun --nproc-per-node N -m molly_tpu_torch.training.cli ... \
+      --mesh-fsdp 2 --mesh-tensor 2 ...
 
-The flags and defaults are the JAX CLI's. The mesh flags are accepted and
-must be 1 (or -1 for ``--mesh-fsdp``): the multi-device slice is not ported
-(``--mesh-expert`` with it: expert parallelism). ``--offload-opt-state
+The flags and defaults are the JAX CLI's, plus ``--device``. Several ranks
+(``torchrun``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``)
+build the mesh from the mesh flags as the JAX CLI does: ``--mesh-data``,
+``--mesh-dcn-data``, ``--mesh-fsdp``, ``--mesh-tensor``, ``--mesh-seq``
+(``--cp-zigzag``), ``--mesh-expert`` on the 5-axis mesh, or ``--mesh-pipe``
+(``--pp-microbatches``) on a (pipe, data) mesh. Each rank holds its blocks
+of the params and moments (``parallel.shard_params``) and reads its rows:
+the dataset is split over the (data, fsdp) coordinate, not the rank, so
+ranks that differ only on tensor, seq, expert or pipe read the same rows.
+Checkpoints keep the port's format: rank 0 writes the gathered state, and a
+resume cuts each rank's blocks from it. One process is the one-device run,
+unchanged. ``--offload-opt-state
 true`` keeps the Adam moments in pinned host memory and streams them
 through the card during each update (``trainer.make_offloaded_step``).
 ``--text-model-path``,
@@ -151,7 +161,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="checkpoint dir (this package's format) to "
                         "warm-start PARAMS from (optimizer/step start "
                         "fresh; applied BEFORE --use-lora/--qlora)")
-    # parallelism: accepted for parity, one device only
+    # parallelism (several ranks: torchrun)
     p.add_argument("--mesh-data", type=int, default=1)
     p.add_argument("--mesh-dcn-data", type=int, default=1)
     p.add_argument("--mesh-fsdp", type=int, default=-1)
@@ -167,19 +177,33 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    multi = {"--mesh-data": args.mesh_data, "--mesh-dcn-data":
-             args.mesh_dcn_data, "--mesh-tensor": args.mesh_tensor,
-             "--mesh-seq": args.mesh_seq, "--mesh-pipe": args.mesh_pipe,
-             "--mesh-expert": args.mesh_expert}
-    bad = [k for k, v in multi.items() if v != 1]
-    if args.mesh_fsdp not in (1, -1):
-        bad.append("--mesh-fsdp")
-    if args.cp_zigzag:
-        bad.append("--cp-zigzag")
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: one device only; the mesh "
-                         f"paths are ROADMAP.md queue 1 item 11")
+def build_mesh(args):
+    """The mesh of the mesh flags over the running process group (JAX
+    ``cli.py:364-382``): a (pipe, data) mesh under ``--mesh-pipe``, else the
+    5-axis one."""
+    import torch.distributed as dist
+
+    from ..parallel import make_mesh
+    if args.mesh_pipe > 1:
+        from ..parallel import make_pp_mesh
+        assert args.mesh_tensor == 1 and args.mesh_seq == 1, (
+            "--mesh-pipe uses a (pipe, data) mesh; tensor/seq axes "
+            "compose with the fsdp mesh instead")
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        return make_pp_mesh(pipe=args.mesh_pipe,
+                            data=n_dev // args.mesh_pipe)
+    return make_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                     tensor=args.mesh_tensor, seq=args.mesh_seq,
+                     expert=args.mesh_expert, dcn_data=args.mesh_dcn_data)
+
+
+def batch_shard(mesh):
+    """(index, count) of this rank's rows: its coordinate over the axes
+    that split the batch (data and fsdp; data on a pipeline mesh)."""
+    axes = tuple(a for a in ("data", "fsdp") if a in mesh.shape)
+    if mesh.coords is None:
+        return 0, 1
+    return mesh.index(*axes), mesh.size(*axes)
 
 
 def main(argv=None) -> None:
@@ -237,8 +261,14 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
     first (``offload_opt_state``: a restored state is re-placed too).
     Returns the summary dict of the JAX CLI plus ``state`` and
     ``history`` (per step: loss, grad_norm, skipped, tokens, seconds, an MoE
-    decoder's moe_load_balance, and with ``stats`` the step's phase
-    seconds)."""
+    decoder's moe_load_balance (and moe_ep_dropped_frac under expert
+    parallelism), and with ``stats`` the step's phase seconds).
+
+    Under a mesh (``parallel.use_mesh``, ``state`` of blocks) ``batch_size``
+    stays the GLOBAL row count and ``train_data`` / ``eval_data`` are this
+    rank's shard: each step reads ``batch_size * accum / (data * fsdp)``
+    rows; the metrics are the global batch's, eval losses are summed over
+    the ranks, and rank 0 writes the gathered checkpoints."""
     import signal
 
     import numpy as np
@@ -246,20 +276,28 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
 
     from ..data import iterate_batches
     from ..data.pipeline import input_pipeline, to_device
-    from ..models import fusion
+    from ..parallel import comm
     from ..utils import domain_loss_metrics, print_rank_0
     from ..utils.profiling import StepTimer, trace
     from . import checkpoint as ckpt_lib
-    from .trainer import (make_offloaded_step, make_train_step,
-                          offload_opt_state)
+    from .trainer import (make_eval_loss, make_offloaded_step,
+                          make_train_step, offload_opt_state)
 
     device = torch.device(device or state.params["text"]["embed"].device)
     put_batch = to_device(device)
     step_fn = make_train_step(cfg, tc, stats)
+    eval_loss = make_eval_loss(cfg, tc)
     if tc.offload_opt_state:
         state = offload_opt_state(state)  # also re-places restores
         step_fn = make_offloaded_step(step_fn, state, stats)
     micro = batch_size * tc.accum_steps
+    mesh = comm.current_mesh()
+    if mesh is not None:
+        n_shard = batch_shard(mesh)[1]
+        assert micro % n_shard == 0, (
+            f"global microbatch {micro} must divide over data*fsdp="
+            f"{n_shard}")
+        micro //= n_shard  # the rows THIS rank feeds a step
     if total_steps is None:
         total_steps = max((len(train_data) // max(1, micro)) * epochs, 1)
 
@@ -278,8 +316,8 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
         losses = []
         with torch.no_grad():
             for eb in iterate_batches(eval_data, micro, drop_last=True):
-                losses.append(float(fusion.loss_fn(
-                    state.params, cfg, put_batch(eb))[0]))
+                losses.append(float(eval_loss(state.params,
+                                              put_batch(eb))))
         return float(np.mean(losses)) if losses else float("nan")
 
     best_eval, bad_evals = float("inf"), 0
@@ -315,9 +353,9 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
                     "grad_norm": float(metrics["grad_norm"]),
                     "skipped": bool(metrics["skipped"]),
                     "tokens": int(metrics["tokens"]), "seconds": seconds})
-                if "moe_load_balance" in metrics:
-                    history[-1]["moe_load_balance"] = float(
-                        metrics["moe_load_balance"])
+                for mk in ("moe_load_balance", "moe_ep_dropped_frac"):
+                    if mk in metrics:
+                        history[-1][mk] = float(metrics[mk])
                 if stats is not None:  # this step's share of each phase
                     history[-1]["phases"] = {
                         k: v - seen.get(k, 0.0) for k, v in stats.items()}
@@ -327,9 +365,9 @@ def train_loop(state, cfg, tc, train_data, *, eval_data=None,
                               "grad_norm": metrics["grad_norm"],
                               "learning_rate": metrics["learning_rate"],
                               "epoch": epoch}
-                    if "moe_load_balance" in metrics:
-                        record["moe_load_balance"] = (
-                            metrics["moe_load_balance"])
+                    for mk in ("moe_load_balance", "moe_ep_dropped_frac"):
+                        if mk in metrics:
+                            record[mk] = metrics[mk]
                     if compute_domain_losses:
                         record.update(domain_loss_metrics(
                             {k: v.cpu().numpy() for k, v in metrics.items()
@@ -408,12 +446,18 @@ def run_training(args) -> dict:
     from . import checkpoint as ckpt_lib
     from .trainer import TrainConfig, attach_lora, init_train_state
 
-    _refuse_unported(args)
+    from ..parallel import initialize_distributed, shard_params, use_mesh
+    from ..parallel.sharding import local_device
     np.random.seed(args.seed)
     if args.device is None and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found; pass --device cpu to train "
                          "on the CPU")
-    device = torch.device(args.device or "cuda")
+    device = local_device(args.device)
+    initialize_distributed(device=device)
+    mesh = build_mesh(args)
+    multi = mesh.devices.size > 1
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
 
     # ---- tokenizers ----
     text_tok = load_text_tokenizer(args.text_model_path)
@@ -442,6 +486,17 @@ def run_training(args) -> dict:
         text_cfg = dataclasses.replace(
             text_cfg, num_experts=args.moe_experts,
             num_experts_per_tok=args.moe_topk)
+    if args.mesh_expert > 1:
+        # the experts stay on their ranks (never gathered)
+        text_cfg = dataclasses.replace(text_cfg, expert_parallel=True)
+    if args.mesh_seq > 1:
+        div = args.mesh_seq * (2 if args.cp_zigzag else 1)
+        assert args.max_len % div == 0, (
+            f"--max-len {args.max_len} must divide over "
+            f"{div} (--mesh-seq{' x2 zigzag' if args.cp_zigzag else ''})")
+        text_cfg = dataclasses.replace(
+            text_cfg, context_parallel=True,
+            context_parallel_zigzag=args.cp_zigzag)
     cfg = FusionConfig(text=text_cfg, dna_rna=dna_cfg, protein=prot_cfg,
                        dna_rna_k_tokens=args.dna_rna_k_tokens,
                        protein_k_tokens=args.protein_k_tokens)
@@ -458,22 +513,27 @@ def run_training(args) -> dict:
                        max_dna_rna_segments=args.max_dna_rna_segments,
                        max_protein_segments=args.max_protein_segments,
                        strict_segments=args.strict_segments)
+    # per-rank input sharding over the batch coordinate (data, fsdp): the
+    # rows of ranks that differ only on tensor/seq/expert/pipe are the same
+    si, sc = batch_shard(mesh)
     if args.streaming:
         from ..data import StreamingOmicsDataset
         assert not args.read_nums, "--read-nums unsupported with --streaming"
         train_ds = StreamingOmicsDataset(
             args.train_dataset_path, text_tok, dna_tok, prot_tok, dconf,
-            seed=args.seed, shard_index=0, shard_count=1)
+            seed=args.seed, shard_index=si, shard_count=sc)
     else:
         train_ds = OmicsDataset(args.train_dataset_path, text_tok, dna_tok,
                                 prot_tok, dconf, read_nums=args.read_nums,
-                                shuffle=True, seed=args.seed)
+                                shuffle=True, seed=args.seed,
+                                shard_index=si, shard_count=sc)
     eval_ds = None
     if args.eval_dataset_path:
         econf = dataclasses.replace(dconf, max_len=args.eval_max_len)
         eval_ds = OmicsDataset(args.eval_dataset_path, text_tok, dna_tok,
                                prot_tok, econf,
-                               read_nums=args.eval_read_nums)
+                               read_nums=args.eval_read_nums,
+                               shard_index=si, shard_count=sc)
     if args.cache_dataset and not args.streaming:
         from ..data.pipeline import CachingDataset
         train_ds = CachingDataset(train_ds)
@@ -481,8 +541,9 @@ def run_training(args) -> dict:
             eval_ds = CachingDataset(eval_ds)
 
     # ---- schedule length ----
+    # len(train_ds) is this rank's shard; it feeds global_batch/sc rows
     steps_per_epoch = len(train_ds) // max(
-        1, args.batch_size_per_gpu * args.gradient_accumulation_steps)
+        1, args.batch_size_per_gpu * args.gradient_accumulation_steps // sc)
     total_steps = steps_per_epoch * args.epochs
     if args.train_iters:
         total_steps = min(total_steps, args.train_iters)
@@ -498,6 +559,7 @@ def run_training(args) -> dict:
         accum_steps=args.gradient_accumulation_steps,
         train_bio=args.train_bio, train_mlp=args.train_mlp,
         train_llm=args.train_llm, lora=lora_cfg, z_loss=args.z_loss,
+        pp_micro=args.pp_microbatches if args.mesh_pipe > 1 else 0,
         offload_opt_state=args.offload_opt_state)
 
     if args.init_from:
@@ -509,6 +571,8 @@ def run_training(args) -> dict:
         print_rank_0(f"warm-started params from {args.init_from}")
 
     if lora_cfg:
+        assert args.mesh_pipe == 1, \
+            "--use-lora is unsupported under --mesh-pipe"
         # fp32 adapters whatever --dtype, as the JAX CLI attaches them
         params = attach_lora(
             params, cfg, lora_cfg,
@@ -522,6 +586,22 @@ def run_training(args) -> dict:
     else:
         assert not args.qlora, "--qlora requires --use-lora"
 
+    # ---- mesh + sharding ----
+    if args.mesh_expert > 1:
+        assert cfg.text.num_experts, (
+            "--mesh-expert requires a MoE text preset "
+            "(cfg.text.num_experts > 0)")
+    print_rank_0(f"mesh: {dict(mesh.shape)}")
+    if multi:
+        from ..parallel import comm
+        print_rank_0(f"backend: {comm.describe_backend(device)}")
+        if args.mesh_pipe > 1:
+            from ..parallel.pipeline import pp_param_specs
+            from ..parallel.sharding import shard_tree
+            params = shard_tree(params, pp_param_specs(params), mesh)
+        else:
+            params = shard_params(params, mesh)
+
     os.makedirs(args.output_dir, exist_ok=True)
     logger = MetricLogger(args.output_dir, args.experiment_name,
                           console_every=args.log_interval,
@@ -529,24 +609,26 @@ def run_training(args) -> dict:
                           config={k: v for k, v in vars(args).items()
                                   if isinstance(v, (int, float, str, bool))})
 
-    state = init_train_state(params, tc)
-    del params
-    if args.resume_from:
-        state = ckpt_lib.restore_train_state(args.resume_from, state)
-        print_rank_0(f"resumed from {args.resume_from} "
-                     f"at step {int(state.step)}")
+    with use_mesh(mesh if multi else None):
+        state = init_train_state(params, tc)
+        del params
+        if args.resume_from:
+            state = ckpt_lib.restore_train_state(args.resume_from, state)
+            print_rank_0(f"resumed from {args.resume_from} "
+                         f"at step {int(state.step)}")
 
-    result = train_loop(
-        state, cfg, tc, train_ds, eval_data=eval_ds,
-        batch_size=args.batch_size_per_gpu, epochs=args.epochs,
-        total_steps=total_steps, seed=args.seed, device=device,
-        logger=logger, log_interval=args.log_interval,
-        eval_interval=args.eval_interval, save_interval=args.save_interval,
-        save_total_limit=args.save_total_limit,
-        early_stopping_patience=args.early_stopping_patience,
-        compute_domain_losses=args.compute_domain_losses,
-        output_dir=args.output_dir, profile_log_dir=args.profile_log_dir,
-        prefetch_depth=args.prefetch_depth)
+        result = train_loop(
+            state, cfg, tc, train_ds, eval_data=eval_ds,
+            batch_size=args.batch_size_per_gpu, epochs=args.epochs,
+            total_steps=total_steps, seed=args.seed, device=device,
+            logger=logger, log_interval=args.log_interval,
+            eval_interval=args.eval_interval,
+            save_interval=args.save_interval,
+            save_total_limit=args.save_total_limit,
+            early_stopping_patience=args.early_stopping_patience,
+            compute_domain_losses=args.compute_domain_losses,
+            output_dir=args.output_dir, profile_log_dir=args.profile_log_dir,
+            prefetch_depth=args.prefetch_depth)
     logger.close()
     return result
 

@@ -1,5 +1,5 @@
 """SFT trainer: AdamW + grad accumulation + freeze / LoRA regimes, the
-counterpart of ``molly_tpu/training/trainer.py`` on one device.
+counterpart of ``molly_tpu/training/trainer.py``.
 
 Feature map:
   - freeze switches train_bio / train_mlp / train_llm -> a boolean
@@ -16,14 +16,24 @@ Feature map:
     loss normalised by its own tokens, gradients averaged
   - an MoE decoder adds ``router_aux_coef * load_balance`` to the loss and
     reports ``moe_load_balance`` (1.0 = balanced routing), averaged over
-    the microbatches
+    the microbatches, and under expert parallelism ``moe_ep_dropped_frac``
   - the non-finite guard keeps the old state when the loss or the gradient
     norm is not finite
 
 Parameters and moments are updated IN PLACE (JAX returns a new state): the
-state a step returns shares its tensors with the one it was given. The
-mesh branches and pipeline microbatching (``pp_micro``) belong to the
-multi-device slice and are refused.
+state a step returns shares its tensors with the one it was given.
+
+Under a mesh (``parallel.use_mesh``, params from ``parallel.shard_params``)
+each rank holds its block of every leaf and its own moments (ZeRO-3 over
+``fsdp``); its batch is its rows of the global batch. The loss is this
+rank's share of the global mean (``fusion.loss_from_hidden``), the
+gradients are summed over the batch axes each block is replicated on
+(``sharding.sync_grads``), and the norm and the clip count every distinct
+block once (``sharding.global_norm``), so the step computes what the JAX
+step computes under GSPMD. With ``cfg.text.context_parallel`` on a ``seq``
+axis the step lays the sequence out once (``_seq_layout``: labels shifted
+first, the zigzag order when asked, this rank's part); with ``pp_micro``
+the decoder runs the GPipe loop of ``parallel.pipeline``.
 
 Optimizer offload (``offload_opt_state``, DeepSpeed's optimizer CPU
 offload): the Adam moments live in pinned host memory between steps
@@ -35,6 +45,7 @@ bit-equal to the on-device one.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -43,9 +54,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
+from ..data.omics_dataset import LABEL_IGNORE
 from ..models import fusion, lora as lora_lib, qwen3
 from ..models.configs import FusionConfig
 from ..models.lora import LoraConfig
+from ..parallel import comm, sharding
 from ..utils.tree import leaves, tree_map
 
 
@@ -72,7 +85,9 @@ class TrainConfig:
     # chunked linear+CE (ops.lce) instead of [B,S,V] logits
     fused_lce: bool = True
     lce_chunk: int = 256  # tokens per LCE chunk ([C, V] logit peak)
-    # pipeline microbatching (multi-device): refused here
+    # pipeline parallelism: microbatch count for the GPipe clock loop over a
+    # "pipe" mesh axis (parallel.pipeline); 0 = off. LoRA not supported in
+    # the pipelined decoder path.
     pp_micro: int = 0
     # Adam moments in (pinned) host memory between steps: see
     # offload_opt_state / make_offloaded_step
@@ -157,20 +172,13 @@ class TrainState:
     step: int
 
 
-def _refuse_multi_device(cfg: TrainConfig) -> None:
-    if cfg.pp_micro:
-        raise NotImplementedError(
-            "pp_micro (pipeline parallelism) is not ported: ROADMAP.md "
-            "queue 1 item 11")
-
-
 def init_train_state(params: Dict[str, Any], cfg: TrainConfig) -> TrainState:
     """Zero moments in each trainable leaf's dtype; marks the trainable
     leaves as requiring grad (and no other). With ``cfg.offload_opt_state``
     the moments are made where ``host_opt_shardings`` places them (pinned
     host memory for params on a card), never on the card: at depths where
-    offload matters they would not fit there."""
-    _refuse_multi_device(cfg)
+    offload matters they would not fit there. Under a mesh each rank
+    passes its blocks and makes the moments of its blocks."""
     train = _trainable_leaves(params, cfg)
     train_ids = {id(t) for t in train}
     for k in params:
@@ -180,9 +188,12 @@ def init_train_state(params: Dict[str, Any], cfg: TrainConfig) -> TrainState:
 
     def zeros(t):
         if not cfg.offload_opt_state:
-            return torch.zeros_like(t)
-        return torch.zeros(t.shape, dtype=t.dtype, device="cpu",
-                           pin_memory=t.device.type == "cuda")
+            return sharding.set_spec(torch.zeros_like(t),
+                                     sharding.spec_of(t))
+        return sharding.set_spec(
+            torch.zeros(t.shape, dtype=t.dtype, device="cpu",
+                        pin_memory=t.device.type == "cuda"),
+            sharding.spec_of(t))
 
     return TrainState(
         params=params,
@@ -229,7 +240,7 @@ def offload_opt_state(state: TrainState) -> TrainState:
             host = torch.empty(t.shape, dtype=t.dtype, device=where.device,
                                pin_memory=where.pinned)
             host.copy_(t)
-            moments[i] = host
+            moments[i] = sharding.set_spec(host, sharding.spec_of(t))
     return TrainState(params=state.params, opt_state=state.opt_state,
                       step=state.step)
 
@@ -486,25 +497,38 @@ class _PhaseClock:
         self.marks = self.marks[-1:]
 
 
-def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
-                 clock_of: Optional[Callable[[], Optional[_PhaseClock]]] = None):
-    """Returns (params, batch, generator) -> (grads, metrics): the loss's
-    gradients wrt the trainable leaves (a list in tree order, see
-    ``_trainable_leaves``) with the microbatch loop, and the metrics summed
-    as the JAX step sums them.
-
-    The loss is differentiated ONLY wrt the trainable leaves: frozen leaves
-    do not require grad, so their backward passes never run — with frozen
-    encoders the whole encoder backward disappears, and under LoRA the
-    base-weight gradient products do."""
-    _refuse_multi_device(train_cfg)
+def make_loss_fn(model_cfg: FusionConfig, train_cfg: TrainConfig):
+    """Returns (params, batch, generator) -> (loss, metrics): the step's
+    loss (LM loss, and an MoE decoder's router term) and its metrics; under
+    a mesh, this rank's share of the global batch's loss (the GPipe
+    decoder under ``pp_micro``, the sequence laid out by ``_seq_layout``
+    under context parallelism)."""
     lora_cfg = train_cfg.lora
+    if train_cfg.pp_micro:
+        assert lora_cfg is None, "LoRA + pipeline parallelism unsupported"
 
     def loss_fn(params, batch, generator):
+        mesh = comm.current_mesh()
+        if train_cfg.pp_micro:
+            from ..parallel.pipeline import pp_loss_fn
+            return pp_loss_fn(params, model_cfg, batch,
+                              n_micro=train_cfg.pp_micro,
+                              z_loss=train_cfg.z_loss)
+        text_cfg, positions, pre_shifted = model_cfg.text, None, False
         embeds = fusion.build_inputs_embeds(params, model_cfg, batch)
+        mask = batch.get("attention_mask")
+        n_seq = (mesh.size(sharding.SEQ_AXIS)
+                 if mesh is not None and text_cfg.context_parallel else 1)
+        if n_seq > 1:
+            embeds, mask, positions, batch = _seq_layout(
+                embeds, mask, batch, mesh, text_cfg.context_parallel_zigzag)
+            pre_shifted = True
+            if text_cfg.context_parallel_zigzag:
+                text_cfg = dataclasses.replace(
+                    text_cfg, context_parallel_prepermuted=True)
         hidden, aux_out = qwen3.forward_hidden(
-            params["text"], model_cfg.text, inputs_embeds=embeds,
-            attention_mask=batch.get("attention_mask"),
+            params["text"], text_cfg, inputs_embeds=embeds,
+            attention_mask=mask, positions=positions,
             lora=params.get("lora"),
             lora_scale=lora_cfg.scale if lora_cfg else 1.0,
             lora_dropout=lora_cfg.dropout if lora_cfg else 0.0,
@@ -513,16 +537,40 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
         loss, metrics = fusion.loss_from_hidden(
             params, model_cfg, hidden, batch, z_loss=train_cfg.z_loss,
             fused_lce=train_cfg.fused_lce, chunk_size=train_cfg.lce_chunk,
+            pre_shifted=pre_shifted,
             # frozen head (LoRA or --train-llm false): the lm-head /
             # tied-embed weight gradient is dead — skip its matmul
             lce_need_dw=(train_cfg.lora is None and train_cfg.train_llm))
         if model_cfg.text.num_experts and aux_out is not None:
             # MoE router load-balance aux loss (ops.moe), with the HF
-            # Qwen3-MoE config's coefficient (router_aux_loss_coef)
-            lb = aux_out["moe_aux"]["load_balance"]
-            loss = loss + model_cfg.text.router_aux_coef * lb
+            # Qwen3-MoE config's coefficient (router_aux_loss_coef); under a
+            # mesh lb is the global batch's and each batch rank adds its
+            # share
+            moe_aux = aux_out["moe_aux"]
+            lb = moe_aux["load_balance"]
+            n_b = mesh.size(*sharding.BATCH_AXES) if mesh is not None else 1
+            loss = loss + model_cfg.text.router_aux_coef * lb / n_b
             metrics = {**metrics, "moe_load_balance": lb}
+            if "ep_dropped_frac" in moe_aux:
+                metrics["moe_ep_dropped_frac"] = moe_aux["ep_dropped_frac"]
         return loss, metrics
+
+    return loss_fn
+
+
+def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
+                 clock_of: Optional[Callable[[], Optional[_PhaseClock]]] = None):
+    """Returns (params, batch, generator) -> (grads, metrics): the loss's
+    gradients wrt the trainable leaves (a list in tree order, see
+    ``_trainable_leaves``) with the microbatch loop, and the metrics summed
+    as the JAX step sums them (under a mesh: the global batch's metrics,
+    and each rank's gradients of its blocks, summed over the batch axes).
+
+    The loss is differentiated ONLY wrt the trainable leaves: frozen leaves
+    do not require grad, so their backward passes never run — with frozen
+    encoders the whole encoder backward disappears, and under LoRA the
+    base-weight gradient products do."""
+    loss_fn = make_loss_fn(model_cfg, train_cfg)
 
     def grads_of(params, train, batch, generator):
         clock = clock_of() if clock_of is not None else None
@@ -537,7 +585,15 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
                 clock.mark("backward")
         grads = [torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, train)]
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        mesh = comm.current_mesh()
+        if mesh is not None:
+            grads = sharding.sync_grads(
+                grads, [sharding.spec_of(t) for t in train], mesh)
+            group = mesh.group(*sharding.BATCH_AXES)
+            # (moe_ep_dropped_frac is already the global batch's)
+            metrics["loss"] = comm.all_reduce(metrics["loss"], group)
+        return grads, metrics
 
     def grad_fn(params, batch, generator=None):
         accum = train_cfg.accum_steps
@@ -552,12 +608,32 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
             else:
                 grads = [a.add_(b) for a, b in zip(grads, g)]
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-        for mk in ("loss", "moe_load_balance"):
+        for mk in ("loss", "moe_load_balance", "moe_ep_dropped_frac"):
             if mk in metrics:
                 metrics[mk] = metrics[mk] / accum
         return [g / accum for g in grads], metrics
 
     return grad_fn
+
+
+def make_eval_loss(model_cfg: FusionConfig, train_cfg: TrainConfig):
+    """(params, batch) -> the eval loss ``fusion.loss_fn`` gives (no z-loss,
+    no router term), under a mesh summed over the ranks' shares: the
+    global batch's mean, laid out as the train step lays it out (the
+    pipeline, the sequence parts)."""
+    eval_cfg = dataclasses.replace(train_cfg, z_loss=0.0)
+    loss_fn = make_loss_fn(model_cfg, eval_cfg)
+
+    @torch.no_grad()
+    def eval_loss(params, batch):
+        if comm.current_mesh() is None:
+            return fusion.loss_fn(params, model_cfg, batch)[0]
+        metrics = loss_fn(params, batch, None)[1]
+        mesh = comm.current_mesh()
+        return comm.all_reduce(metrics["loss"].detach(),
+                               mesh.group(*sharding.BATCH_AXES))
+
+    return eval_loss
 
 
 def make_train_step(model_cfg: FusionConfig, train_cfg: TrainConfig,
@@ -579,8 +655,13 @@ def make_train_step(model_cfg: FusionConfig, train_cfg: TrainConfig,
                                    state.params["text"]["embed"].device)
         grads, metrics = grad_fn(state.params, batch, generator)
         # grad norm over the params being optimized (also what the clip
-        # inside the optimizer sees)
-        gnorm = global_norm(grads)
+        # inside the optimizer sees); under a mesh each distinct block once
+        if comm.current_mesh() is not None:
+            gnorm = sharding.global_norm(
+                grads, [sharding.spec_of(t) for t in
+                        _trainable_leaves(state.params, train_cfg)])
+        else:
+            gnorm = global_norm(grads)
         # NaN/Inf guard: skip the update, keep the old state
         ok = bool(torch.isfinite(metrics["loss"])
                   & torch.isfinite(gnorm).to(metrics["loss"].device))
@@ -597,6 +678,39 @@ def make_train_step(model_cfg: FusionConfig, train_cfg: TrainConfig,
                           step=state.step + 1), metrics
 
     return train_step
+
+
+def _seq_layout(embeds, mask, batch, mesh, zigzag: bool):
+    """The context-parallel layout of one step (JAX ``trainer.py:230-295``):
+    positions from the whole mask, labels shifted to their positions BEFORE
+    any reordering, the zigzag order when asked, then this rank's
+    contiguous part of the (reordered) sequence. The token-summed loss does
+    not depend on the order once the labels ride along."""
+    from ..parallel.ring_attention import zigzag_order
+    B, S, _ = embeds.shape
+    n, i = mesh.size(sharding.SEQ_AXIS), mesh.index(sharding.SEQ_AXIS)
+    if mask is None:
+        positions = torch.arange(S, device=embeds.device)[None].expand(B, S)
+    else:
+        positions = torch.clamp(
+            torch.cumsum(mask.to(torch.int32), dim=1) - 1, min=0)
+    lbl = batch["labels"]
+    lbl = torch.cat([lbl[:, 1:], torch.full((B, 1), LABEL_IGNORE,
+                                            dtype=lbl.dtype,
+                                            device=lbl.device)], dim=1)
+    if zigzag:
+        order = zigzag_order(S, n).to(embeds.device)
+        embeds, positions, lbl = (x.index_select(1, order)
+                                  for x in (embeds, positions, lbl))
+        if mask is not None:
+            mask = mask.index_select(1, order)
+    s = S // n
+
+    def part(x):
+        return x[:, i * s:(i + 1) * s] if x is not None else None
+
+    return (part(embeds), part(mask), part(positions),
+            {**batch, "labels": part(lbl)})
 
 
 def attach_lora(params: Dict[str, Any], model_cfg: FusionConfig,

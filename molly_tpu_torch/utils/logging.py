@@ -1,7 +1,7 @@
 """Observability: console logging, wall-clock timers, step metrics, and a
 pluggable tracker (JSONL file / tensorboard-style callbacks), the
-counterpart of ``molly_tpu/utils/logging.py``. One process drives one
-device here, so that process is always the main one.
+counterpart of ``molly_tpu/utils/logging.py``. Under several ranks
+(``torch.distributed``) only rank 0 prints and logs.
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ from typing import Any, Dict, Optional
 
 
 def is_main_process() -> bool:
-    return True
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def print_rank_0(*args, **kw) -> None:

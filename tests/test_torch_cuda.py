@@ -1514,6 +1514,80 @@ def test_grouped_gemm_autograd_runs_the_three_kernels(dev):
     assert (dl3.float() - r3).abs().max().item() <= _gg_tol(r3, torch.bfloat16)
 
 
+# The expert-parallel MoE's capacity buffer (ops.moe.moe_mlp_expert_sharded):
+# C rows a rank, of which only sum(sizes) are live, over its local experts,
+# some of them empty. route -> (lhs dtype, rhs dtype, C, sizes, K, N, the
+# forward's counter index in _route_counts or None for the SIMT kernel)
+_CAPACITY = {
+    "bf16_tma": (_BF16, _BF16, 512, [300, 0, 150, 0], 128, 256, 1),
+    "bf16_stream": (_BF16, _BF16, 32, [5, 0, 3, 0, 0, 9, 0, 0], 128, 256, 2),
+    "int8_tma": (_BF16, torch.int8, 512, [300, 0, 150, 0], 128, 256, 3),
+    "f32_tc": (_BF16, _F32, 512, [300, 0, 150, 0], 128, 64, 4),
+    "simt": (_F32, _F32, 40, [10, 0, 7, 0], 50, 9, None),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_CAPACITY))
+def test_grouped_gemm_over_a_capacity_buffer_on_every_route(dev, route):
+    """The forward, the transposed product (the lhs gradient) and tgmm (the
+    weight gradient; not for a frozen int8 rhs) over a buffer whose rows
+    past sum(sizes) hold garbage of 1e3: those rows come out exactly zero,
+    an empty expert's weight gradient is exactly zero, and every live row
+    equals the plain version."""
+    lhs_dt, rhs_dt, C, counts, K, N, counter = _CAPACITY[route]
+    G, live = len(counts), sum(counts)
+    g = torch.Generator(device=dev).manual_seed(41)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+
+    def buffer(cols, dt):
+        x = torch.randn((C, cols), generator=g, device=dev)
+        x[live:] = 1e3 * torch.randn((C - live, cols), generator=g,
+                                     device=dev)
+        return x.to(dt)
+
+    lhs = buffer(K, lhs_dt)
+    scale = None
+    if rhs_dt == torch.int8:
+        rhs = torch.randint(-127, 128, (G, K, N), generator=g, device=dev,
+                            dtype=torch.int8)
+        scale = torch.rand((G, N), generator=g, device=dev) * 1e-2 + 1e-3
+    else:
+        rhs = (torch.randn((G, K, N), generator=g, device=dev)
+               * K ** -0.5).to(rhs_dt)
+    before = _route_counts()
+    out = gg.grouped_gemm(lhs, rhs, gs, scale=scale)
+    after = _route_counts()
+    assert after[0] == before[0] + 1
+    for i in range(1, 5):
+        assert after[i] - before[i] == (i == counter), (route, i)
+    ref = gg.grouped_gemm_plain(lhs, rhs, gs, scale=scale)
+    torch.cuda.synchronize()
+    assert bool((out[live:] == 0).all())
+    assert (out.float() - ref).abs().max().item() <= _gg_tol(
+        ref, lhs_dt, rhs_dt if rhs_dt != torch.int8 else _F32)
+
+    # the lhs gradient: dout over the same buffer, the rhs transposed (an
+    # int8 rhs without its scale, folded into dout by the caller)
+    dout = buffer(N, _F32 if rhs_dt == _F32 else lhs_dt)
+    dl = gg.grouped_gemm(dout, rhs, gs, transpose_rhs=True,
+                         out_dtype=_F32)
+    rl = gg.grouped_gemm_plain(dout, rhs, gs, transpose_rhs=True)
+    torch.cuda.synchronize()
+    assert bool((dl[live:] == 0).all())
+    assert (dl - rl).abs().max().item() <= _gg_tol(
+        rl, dout.dtype, rhs_dt if rhs_dt != torch.int8 else _F32)
+    if rhs_dt == torch.int8:
+        return
+    dw = gg.grouped_gemm_tgmm(lhs, dout, gs, rhs_dt)
+    rw = gg.grouped_gemm_tgmm_plain(lhs, dout, gs, _F32)
+    torch.cuda.synchronize()
+    for e, n in enumerate(counts):
+        if n == 0:
+            assert bool((dw[e] == 0).all()), e
+    assert (dw.float() - rw).abs().max().item() <= _gg_tol(
+        rw, lhs_dt, dout.dtype, rhs_dt)
+
+
 def test_lora_grouped_runs_the_tc_kernels_forward_and_backward(dev):
     """The expert adapters' bypass (ops.moe._lora_grouped: a bf16 stream
     over fp32 adapters, M >= 64 G) on the card against the same call on the

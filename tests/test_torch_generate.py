@@ -337,6 +337,20 @@ out = tcli.train_loop(init_train_state(params, otc), dcfg, otc,
                       total_steps=1, device="cpu", output_dir=None)
 assert out["steps"] == 1 and out["final_loss"] > 0
 
+# the multi-device package: imported by name, and its one-rank paths run
+import molly_tpu_torch.parallel as par
+from molly_tpu_torch.parallel import launch, ring_attention as _ra
+assert "molly_tpu_torch.parallel.pipeline" in sys.modules
+mesh = par.make_mesh()
+assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1,
+                      "expert": 1}
+q = torch.randn(1, 8, 2, 4)
+assert par.ring_attention_sharded(q, q, q).shape == q.shape
+y, aux = moe.moe_mlp_expert_sharded(
+    torch.randn(6, 8), torch.randn(8, 4), torch.randn(4, 8, 16),
+    torch.randn(4, 8, 16), torch.randn(4, 16, 8), num_experts_per_tok=2)
+assert y.shape == (6, 8) and float(aux["ep_dropped_frac"]) == 0.0
+
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("imported", len(names) + 1, "modules")
@@ -345,7 +359,9 @@ print("imported", len(names) + 1, "modules")
 
 def test_port_imports_no_jax():
     """Every molly_tpu_torch module (the serving engines, the paged
-    attention op, ``ops.moe`` and ``ops.grouped_gemm``, the offline ring,
+    attention op, ``ops.moe`` and ``ops.grouped_gemm``, the multi-device
+    package ``parallel`` by name with its one-rank ring and expert-sharded
+    MoE, the offline ring,
     speculative decoding, the HTTP API and the tools among them) and
     chip_smoke.py import, and the --tiny batch
     loop, the --tiny serving loops (dense ring and paged), one --tiny
@@ -373,6 +389,23 @@ def test_port_imports_no_jax():
     assert len(sources) > 20
     for path in sources:
         assert not pat.search(open(path).read()), path
+
+
+def test_parallel_exports_every_name_of_the_jax_package():
+    """``molly_tpu_torch.parallel`` exports every public name of
+    ``molly_tpu.parallel``, and ``ops.moe`` has the expert-sharded MLP."""
+    import molly_tpu.parallel as jpar
+    import molly_tpu_torch.parallel as tpar
+    from molly_tpu_torch.ops import moe
+    public = [n for n in dir(jpar) if not n.startswith("_")
+              and not isinstance(getattr(jpar, n), type(jpar))]
+    assert len(public) >= 19
+    missing = [n for n in public if not hasattr(tpar, n)]
+    assert not missing, missing
+    for n in public:
+        if isinstance(getattr(jpar, n), str):
+            assert getattr(tpar, n) == getattr(jpar, n), n
+    assert callable(moe.moe_mlp_expert_sharded)
 
 
 @pytest.mark.parametrize("which", ["inference", "training"])

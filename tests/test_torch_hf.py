@@ -726,7 +726,6 @@ def test_train_cli_build_params_imports_like_the_jax_cli(tmp_path):
                 "--dna-rna-model-path", str(tmp_path / "dna"),
                 "--protein-model-path", str(tmp_path / "prot")]
         args = tcli.build_argparser().parse_args(argv)
-        tcli._refuse_unported(args)  # the model paths are not refused
         params = tcli.build_params(args, cfg, "cpu")
         assert list(params) == ["text", "dna_rna", "protein",
                                 "dna_rna_projector", "protein_projector"]

@@ -195,14 +195,28 @@ def test_unported_lora_options_are_refused():
         one = {"a": bank["a"][n], "b": bank["b"][n]}
         ref = lora.apply_lora(x[row:row + 1], x[row:row + 1], one, 0.5)
         torch.testing.assert_close(got[row:row + 1], ref)
-    # expert-stacked targets are ported; expert PARALLELISM (the sparse FFN
-    # sharded over an expert mesh axis) is still refused
+    # expert-stacked targets are ported, and so is expert parallelism:
+    # expert_parallel=True without a mesh runs moe_mlp plus a zero
+    # ep_dropped_frac, equal to the JAX package without a mesh
     cfg = tiny_qwen3(num_experts=4, num_experts_per_tok=2,
                      expert_parallel=True)
-    ad = lora.init_lora(cfg, lora.LoraConfig(r=2), torch.Generator())
-    assert ad["layers"]["expert_down"]["a"].shape == (2, 4, 128, 2)
-    params = qwen3.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qwen3.forward_hidden(params, cfg,
-                             input_ids=torch.zeros((1, 4), dtype=torch.long),
-                             lora=ad)
+    jcfg = jtiny_qwen3(num_experts=4, num_experts_per_tok=2,
+                       expert_parallel=True)
+    jparams = jqwen3.init_params(jcfg, jax.random.key(0))
+    jad = jlora.init_lora(jcfg, jlora.LoraConfig(r=2), jax.random.key(1))
+    jad = jax.tree.map(np.asarray, jad)
+    for t in jad["layers"].values():   # a non-zero b, so the bypass acts
+        t["b"] = np.full(t["b"].shape, 0.05, np.float32)
+    assert jad["layers"]["expert_down"]["a"].shape == (2, 4, 128, 2)
+    ids = np.random.default_rng(0).integers(0, 512, (2, 6))
+    jh, jaux = jqwen3.forward_hidden(jparams, jcfg, input_ids=ids, lora=jad)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    th, taux = qwen3.forward_hidden(params, cfg,
+                                    input_ids=torch.from_numpy(ids),
+                                    lora=params_from_jax(jad))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-5)
+    assert sorted(taux["moe_aux"]) == sorted(jaux["moe_aux"])
+    for k, v in jaux["moe_aux"].items():
+        np.testing.assert_allclose(float(taux["moe_aux"][k]), float(v),
+                                   rtol=1e-5, atol=1e-7)
+    assert float(taux["moe_aux"]["ep_dropped_frac"]) == 0.0

@@ -341,14 +341,6 @@ def test_non_finite_guard_keeps_the_old_state():
                                                  mu_before))
 
 
-def test_multi_device_options_are_refused():
-    # pp_micro waits for the multi-device slice (item 11)
-    for kw, message in ((dict(pp_micro=2), "ROADMAP.*item 11"),):
-        with pytest.raises(NotImplementedError, match=message):
-            trainer.make_train_step(_tcfg_of(_fusion_setup()),
-                                    trainer.TrainConfig(**kw))
-
-
 # ------------------------------------------------------------ checkpoints
 
 
@@ -482,10 +474,10 @@ def test_train_loop_tiny_writes_the_jax_clis_jsonl_keys(tmp_path):
     assert meta == {"r": 2, "alpha": 64.0}
 
 
-def test_train_cli_flags_match_the_jax_cli_and_refuse_the_unported():
+def test_train_cli_flags_match_the_jax_cli_and_build_the_mesh():
+    from molly_tpu.parallel import make_mesh as jmake_mesh
     from molly_tpu.training.cli import build_argparser as jparser
-    from molly_tpu_torch.training.cli import (_refuse_unported,
-                                              build_argparser)
+    from molly_tpu_torch.training.cli import build_argparser, build_mesh
 
     def flags(p):
         return {a.dest: a.default for a in p._actions if a.dest != "help"}
@@ -494,12 +486,25 @@ def test_train_cli_flags_match_the_jax_cli_and_refuse_the_unported():
     assert {k: tf[k] for k in jf} == jf       # same flags, same defaults
     assert set(tf) - set(jf) == {"device"}
     base = ["--train-dataset-path", "x.parquet"]
-    for extra in (["--mesh-data", "2"], ["--mesh-fsdp", "4"],
-                  ["--mesh-expert", "2"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            _refuse_unported(build_argparser().parse_args(base + extra))
-    # the HF model paths are imported now (training.cli.build_params)
-    _refuse_unported(build_argparser().parse_args(
-        base + ["--text-model-path", "/some/hf/dir"]))
-    _refuse_unported(build_argparser().parse_args(
-        base + ["--mesh-fsdp", "-1"]))
+    # every mesh flag parses and builds the JAX CLI's mesh (one process:
+    # every axis 1, as the JAX CLI's mesh over one device)
+    for extra in ([], ["--mesh-data", "1"], ["--mesh-fsdp", "-1"],
+                  ["--mesh-fsdp", "1", "--mesh-expert", "1"],
+                  ["--mesh-seq", "1", "--cp-zigzag", "true"]):
+        mesh = build_mesh(build_argparser().parse_args(base + extra))
+        jmesh = jmake_mesh(devices=jax.devices()[:1])
+        assert mesh.shape == dict(jmesh.shape)
+    mesh = build_mesh(build_argparser().parse_args(
+        base + ["--mesh-pipe", "1"]))
+    assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 1, "seq": 1,
+                          "expert": 1}
+    # the layout of a multi-rank flag set is the JAX CLI's too
+    from molly_tpu_torch.parallel import make_mesh
+    args = build_argparser().parse_args(
+        base + ["--mesh-data", "2", "--mesh-tensor", "2"])
+    got = make_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                    tensor=args.mesh_tensor, devices=list(range(8)))
+    ref = jmake_mesh(data=2, fsdp=-1, tensor=2)
+    assert got.shape == dict(ref.shape)
+    np.testing.assert_array_equal(
+        got.devices, np.vectorize(lambda d: d.id)(ref.devices))
