@@ -5018,7 +5018,7 @@ def main() -> int:
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the third full "
                          "fine-tune step here (trace.json, "
-                         "key_averages.txt, summary.json)")
+                         "key_averages.txt)")
     return run(ap.parse_args())
 
 

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils import profiling
 from .tokenizers import (
     ASSISTANT_START_TEXT,
     SYSTEM_PROMPT_TEXT,
@@ -255,6 +256,10 @@ class OmicsSampleEncoder:
     def encode_test(self, row: Dict[str, Any]) -> Dict[str, Any]:
         """Inference-mode sample: prompt only, left-padded to max_len with
         omics start positions shifted (omics_dataset.py:384-391)."""
+        with profiling.span("molly/encode_test"):
+            return self._encode_test(row)
+
+    def _encode_test(self, row: Dict[str, Any]) -> Dict[str, Any]:
         cfg = self.cfg
         spliced = self.splice((row.get("input") or "").strip())
         input_ids: List[int] = spliced["input_ids"]

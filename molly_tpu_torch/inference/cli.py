@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import glob
+import itertools
 import json
 import os
 import time
@@ -359,35 +360,39 @@ def run_batches(samples: Iterable[Dict[str, Any]], params, cfg, gen,
                 ) -> List[Dict[str, Any]]:
     """Collate encoded samples into batches, generate, and write one JSONL
     record per sample to ``out_fh``; returns the records. ``stats`` collects
-    per-phase seconds (see ``engine.generate``)."""
+    per-phase seconds (see ``engine.generate``) and, under a recording made
+    for each batch, its spans and counts (``utils.profiling``): encoding
+    the samples, collating, generating, the tokens' copy to the host and
+    the write-out."""
     from ..data import collate_test
+    from ..utils import profiling
 
     from .engine import generate
 
     records: List[Dict[str, Any]] = []
-    buf: List[Dict[str, Any]] = []
-
-    def flush():
-        batch = collate_test(buf)
-        arrs = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        tokens = generate(params, cfg, arrs, gen, generator, stats,
-                          kv_quant=kv_quant).cpu().numpy()
-        for i in range(tokens.shape[0]):
-            rec = _record(text_tok, gen, tokens[i],
-                          {k: batch[k][i] for k in _META_KEYS})
-            out_fh.write(json.dumps(rec) + "\n")
-            records.append(rec)
-        buf.clear()
+    it = iter(samples)
+    while True:
+        with profiling.recording(stats):
+            # each encode_test of the batch runs as it is drawn, inside
+            buf = list(itertools.islice(it, batch_size))
+            if not buf:
+                return records
+            with profiling.span("molly/collate"):
+                batch = collate_test(buf)
+                arrs = {k: v for k, v in batch.items()
+                        if isinstance(v, np.ndarray)}
+            tokens = generate(params, cfg, arrs, gen, generator, stats,
+                              kv_quant=kv_quant)
+            with profiling.sync("tokens"):
+                tokens = tokens.cpu().numpy()
+            with profiling.span("molly/write"):
+                for i in range(tokens.shape[0]):
+                    rec = _record(text_tok, gen, tokens[i],
+                                  {k: batch[k][i] for k in _META_KEYS})
+                    out_fh.write(json.dumps(rec) + "\n")
+                    records.append(rec)
         print(f"[inference] {len(records)}/{total if total is not None else '?'}",
               flush=True)
-
-    for s in samples:
-        buf.append(s)
-        if len(buf) == batch_size:
-            flush()
-    if buf:
-        flush()
-    return records
 
 
 def run_serve(samples: Iterable[Dict[str, Any]], params, cfg, gen,

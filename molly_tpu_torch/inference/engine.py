@@ -18,8 +18,7 @@ broadcast after each sample), so sampled decoding agrees across ranks too.
 
 from __future__ import annotations
 
-import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +26,7 @@ import torch
 from ..models import fusion, qwen3
 from ..models.configs import FusionConfig, GenerationConfig, Qwen3Config
 from ..parallel import comm, sharding
+from ..utils import profiling
 from .sampling import sample_tokens
 
 EMBED_KEYS = ("input_ids", "dna_rna_tokens", "dna_rna_pos",
@@ -39,24 +39,37 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device)
 
 
-class _Clock:
-    """Wall-clock phase timer for ``stats``; synchronizes the device at each
-    mark, so it is only created when a caller asks for timings."""
+# the modality tokenizers' pad id (``fusion.encode_and_project`` masks it)
+_SEGMENT_PAD = 1
 
-    def __init__(self, stats: Dict[str, float], device: torch.device):
-        self.stats, self.device = stats, device
-        self._sync()
-        self.t = time.perf_counter()
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+def _count_work(batch: Dict[str, Any]) -> None:
+    """The recording's counts of the batch's encoder and prefill work, run
+    against live: tokens of every slot against the non-pad tokens of the
+    live ones (``pos >= 0``), per modality and summed, and prompt positions
+    against the attention mask's ones. Read from the arrays as handed in
+    (numpy on the host; a tensor's count is read when the recording
+    closes)."""
+    run = live = 0
+    for m in ("dna_rna", "protein"):
+        if f"{m}_tokens" not in batch:
+            continue
+        tok, pos = batch[f"{m}_tokens"], batch[f"{m}_pos"]
+        m_run = tok.shape[0] * tok.shape[1] * tok.shape[2]
+        m_live = _total((tok != _SEGMENT_PAD) & (pos >= 0)[..., None])
+        profiling.count(f"encoder_tokens_run/{m}", m_run)
+        profiling.count(f"encoder_tokens_live/{m}", m_live)
+        run, live = run + m_run, live + m_live
+    profiling.count("encoder_tokens_run", run)
+    profiling.count("encoder_tokens_live", live)
+    mask = batch["attention_mask"]
+    profiling.count("prefill_positions_run", mask.shape[0] * mask.shape[1])
+    profiling.count("prefill_positions_live", _total(mask))
 
-    def mark(self, name: str) -> None:
-        self._sync()
-        now = time.perf_counter()
-        self.stats[name] = self.stats.get(name, 0.0) + now - self.t
-        self.t = now
+
+def _total(x):
+    """A host array's sum as an int; a tensor's stays on its device."""
+    return x.sum() if isinstance(x, torch.Tensor) else int(x.sum())
 
 
 @torch.inference_mode()
@@ -73,8 +86,11 @@ def generate(
     """Returns new tokens only, [B, max_new_tokens], rows padded with
     pad_token_id after EOS. ``batch`` holds numpy arrays or tensors; they go
     to the device of the text embedding. ``stats``, when given, accumulates
-    seconds per phase (``encode_s``, ``prefill_s``, ``decode_s``) and counts
-    ``decode_steps``; it synchronizes the device between phases. An
+    seconds per phase (``encode_s``, ``prefill_s``, ``decode_s``), counts
+    ``decode_steps``, notes whether the prefill's logits were all finite
+    (``logits_finite``) and takes the spans and counts of a recording
+    (``utils.profiling.recording``; the caller's, when one is current); it
+    synchronizes the device between phases. An
     unmerged ``params["lora"]`` is merged first with ``lora_alpha`` (default
     64). ``kv_quant="int8"`` stores the KV cache as int8 with per-column
     scales (half the cache bytes); prefill and decode then read it through
@@ -94,16 +110,27 @@ def generate(
                   "text": merge_lora(params["text"], lora,
                                      LoraConfig(r=r, alpha=alpha))}
     device = params["text"]["embed"].device
-    clock = _Clock(stats, device) if stats is not None else None
-    embed_batch = {k: _as_tensor(batch[k], device) for k in EMBED_KEYS
-                   if k in batch}
-    embeds = fusion.build_inputs_embeds(params, cfg, embed_batch)
-    if clock:
-        clock.mark("encode_s")
-    return _generate_from_embeds(
-        params["text"], cfg.text, embeds,
-        _as_tensor(batch["attention_mask"], device), gen, generator, clock,
-        kv_quant)
+    with profiling.recording(stats):
+        mark = (profiling.phase_marks(stats, device) if stats is not None
+                else None)
+        with profiling.span("molly/generate", device=True):
+            if profiling.active():
+                _count_work(batch)
+            keys = [k for k in EMBED_KEYS if k in batch] + ["attention_mask"]
+            with profiling.sync("upload", sum(
+                    not (isinstance(batch[k], torch.Tensor)
+                         and batch[k].device == device) for k in keys)):
+                arrays = {k: _as_tensor(batch[k], device) for k in keys}
+            mask = arrays.pop("attention_mask")
+            embeds = fusion.build_inputs_embeds(params, cfg, arrays)
+            if mark:
+                mark("encode_s")
+            tokens = _generate_from_embeds(
+                params["text"], cfg.text, embeds, mask, gen, generator,
+                mark, kv_quant, stats)
+        if mark:  # after the span, so its closing event is waited for too
+            mark("decode_s")
+    return tokens
 
 
 @torch.inference_mode()
@@ -114,8 +141,9 @@ def _generate_from_embeds(
     attention_mask: torch.Tensor,  # [B, S]
     gen: GenerationConfig,
     generator: Optional[torch.Generator] = None,
-    clock: Optional[_Clock] = None,
+    mark: Optional[Callable[[str], None]] = None,
     kv_quant: Optional[str] = None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     B, S, _ = embeds.shape
     T = gen.max_new_tokens
@@ -136,54 +164,64 @@ def _generate_from_embeds(
     positions = torch.clamp(
         torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1, min=0)
 
-    hidden, cache = qwen3.forward_hidden(
-        text_params, cfg, inputs_embeds=embeds, attention_mask=full_mask,
-        positions=positions, cache=cache, cache_index=0)
-    # last real token is at index S-1 (left padding)
-    logits0 = qwen3.logits_from_hidden(text_params, cfg, hidden[:, -1])
-
     def sample(logits, presence):
-        tok = sample_tokens(
-            logits, generator, do_sample=gen.do_sample,
-            temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
-            repetition_penalty=gen.repetition_penalty, presence=presence)
-        if mesh is not None and mesh.devices.size > 1:
-            tok = comm.broadcast(tok, 0, torch.distributed.group.WORLD)
+        with profiling.span("molly/sample"):
+            tok = sample_tokens(
+                logits, generator, do_sample=gen.do_sample,
+                temperature=gen.temperature, top_k=gen.top_k,
+                top_p=gen.top_p, repetition_penalty=gen.repetition_penalty,
+                presence=presence)
+            if mesh is not None and mesh.devices.size > 1:
+                tok = comm.broadcast(tok, 0, torch.distributed.group.WORLD)
         return tok
 
-    rows = torch.arange(B, device=dev)
-    presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool, device=dev)
-    tok0 = sample(logits0, presence)
-    tokens = torch.full((B, T), gen.pad_token_id, dtype=torch.long,
-                        device=dev)
-    tokens[:, 0] = tok0
-    presence[rows, tok0] = True
-    done = tok0 == gen.eos_token_id
-    if clock:
-        clock.stats["logits_finite"] = (clock.stats.get("logits_finite", True)
-                                        and bool(torch.isfinite(logits0).all()))
-        clock.mark("prefill_s")
+    with profiling.span("molly/prefill", device=True):
+        hidden, cache = qwen3.forward_hidden(
+            text_params, cfg, inputs_embeds=embeds, attention_mask=full_mask,
+            positions=positions, cache=cache, cache_index=0)
+        # last real token is at index S-1 (left padding)
+        with profiling.span("molly/head"):
+            logits0 = qwen3.logits_from_hidden(text_params, cfg,
+                                               hidden[:, -1])
+        rows = torch.arange(B, device=dev)
+        presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
+                               device=dev)
+        tok0 = sample(logits0, presence)
+        tokens = torch.full((B, T), gen.pad_token_id, dtype=torch.long,
+                            device=dev)
+        tokens[:, 0] = tok0
+        with profiling.sync("presence"):  # the host scalar's copy waits
+            presence[rows, tok0] = True
+        done = tok0 == gen.eos_token_id
+    if mark:
+        stats["logits_finite"] = (stats.get("logits_finite", True)
+                                  and bool(torch.isfinite(logits0).all()))
+        mark("prefill_s")
 
     col = torch.arange(total, device=dev)[None, :]
     for i in range(1, T):
-        if bool(done.all()):
-            break
-        if clock:
-            clock.stats["decode_steps"] = clock.stats.get("decode_steps", 0) + 1
-        j = i - 1  # index of the token being fed; it sits at cache slot S+j
-        emb = qwen3.embed_tokens(text_params, tokens[:, j:j + 1])
-        mask = torch.where(col < S, full_mask,
-                           (col <= S + j).to(torch.int32))
-        pos = (n_real + j)[:, None]
-        hidden, cache = qwen3.forward_hidden(
-            text_params, cfg, inputs_embeds=emb, attention_mask=mask,
-            positions=pos, cache=cache, cache_index=S + j)
-        logits = qwen3.logits_from_hidden(text_params, cfg, hidden[:, 0])
-        nxt = sample(logits, presence)
-        nxt = torch.where(done, gen.pad_token_id, nxt)
-        tokens[:, i] = nxt
-        presence[rows, nxt] = True
-        done = done | (nxt == gen.eos_token_id)
-    if clock:
-        clock.mark("decode_s")
+        with profiling.span("molly/decode_step", device=True):
+            with profiling.sync("eos"):
+                finished = bool(done.all())
+            if finished:
+                break
+            if stats is not None:
+                stats["decode_steps"] = stats.get("decode_steps", 0) + 1
+            j = i - 1  # index of the token being fed; it sits at slot S+j
+            emb = qwen3.embed_tokens(text_params, tokens[:, j:j + 1])
+            mask = torch.where(col < S, full_mask,
+                               (col <= S + j).to(torch.int32))
+            pos = (n_real + j)[:, None]
+            hidden, cache = qwen3.forward_hidden(
+                text_params, cfg, inputs_embeds=emb, attention_mask=mask,
+                positions=pos, cache=cache, cache_index=S + j)
+            with profiling.span("molly/head"):
+                logits = qwen3.logits_from_hidden(text_params, cfg,
+                                                  hidden[:, 0])
+            nxt = sample(logits, presence)
+            nxt = torch.where(done, gen.pad_token_id, nxt)
+            tokens[:, i] = nxt
+            with profiling.sync("presence"):
+                presence[rows, nxt] = True
+            done = done | (nxt == gen.eos_token_id)
     return tokens

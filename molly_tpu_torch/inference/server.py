@@ -42,14 +42,15 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models import fusion, qwen3
 from ..models.configs import FusionConfig, GenerationConfig
-from .engine import EMBED_KEYS, _Clock
+from ..utils import profiling
+from .engine import EMBED_KEYS
 from .sampling import sample_tokens_rowwise
 
 
@@ -131,9 +132,9 @@ def _samp_from_state(s) -> dict:
             "repetition_penalty": s["samp_pen"]}
 
 
-def _mark(clock: Optional[_Clock], name: str) -> None:
+def _mark(clock: Optional[Callable[[str], None]], name: str) -> None:
     if clock is not None:
-        clock.mark(name)
+        clock(name)
 
 
 def _prefill_forward(params, batch, samp, generator, kv_pre, *,
@@ -471,8 +472,8 @@ class ServingEngine:
                       "fused_dispatches": 0,
                       "prefill_dispatches": 0, "prefill_rows": 0,
                       "fetch_wait_s": 0.0}
-        self._clock = (_Clock(self.stats, self.device) if time_phases
-                       else None)
+        self._clock = (profiling.phase_marks(self.stats, self.device)
+                       if time_phases else None)
         self._build_dispatch_fns(decode_chunk)
         # plain values, not a bound method: the engine must not refer to
         # itself, or its pools would wait for a garbage collection

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..data.omics_dataset import (LABEL_IGNORE, NUM_DOMAIN_TASKS,
                                   UNKNOWN_TASK_ID)
 from ..parallel import comm, sharding
+from ..utils import profiling
 from ..utils.tree import leaves
 from . import esm, qwen3
 from .configs import EsmConfig, FusionConfig, Qwen3Config
@@ -100,8 +101,9 @@ def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
     keep = (start_pos[..., None] >= 0) & (rows < S)
     batch_idx = torch.arange(B, device=hidden.device)[:, None, None].expand(
         rows.shape)
-    idx = (batch_idx[keep], rows[keep])
-    vals = proj_emb[keep].to(hidden.dtype)
+    with profiling.sync("inject", 3):  # each boolean mask waits for its count
+        idx = (batch_idx[keep], rows[keep])
+        vals = proj_emb[keep].to(hidden.dtype)
     if torch.is_grad_enabled() and (hidden.requires_grad
                                     or vals.requires_grad):
         return hidden.index_put(idx, vals)
@@ -112,15 +114,17 @@ def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
 def build_inputs_embeds(params: Params, cfg: FusionConfig,
                         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings with omics segments injected."""
-    hidden = qwen3.embed_tokens(params["text"], batch["input_ids"])
-    if "dna_rna_tokens" in batch:
-        demb = encode_and_project(params, cfg.dna_rna, "dna_rna_projector",
-                                  "dna_rna", batch["dna_rna_tokens"])
-        hidden = inject(hidden, demb, batch["dna_rna_pos"])
-    if "protein_tokens" in batch:
-        pemb = encode_and_project(params, cfg.protein, "protein_projector",
-                                  "protein", batch["protein_tokens"])
-        hidden = inject(hidden, pemb, batch["protein_pos"])
+    with profiling.span("molly/encode", device=True):
+        hidden = qwen3.embed_tokens(params["text"], batch["input_ids"])
+        for name, enc_cfg in (("dna_rna", cfg.dna_rna),
+                              ("protein", cfg.protein)):
+            if f"{name}_tokens" not in batch:
+                continue
+            with profiling.span(f"molly/encode/{name}", device=True):
+                emb = encode_and_project(params, enc_cfg,
+                                         f"{name}_projector", name,
+                                         batch[f"{name}_tokens"])
+                hidden = inject(hidden, emb, batch[f"{name}_pos"])
     return hidden
 
 

@@ -42,6 +42,7 @@ from ..ops.norms import rms_norm
 from ..ops.paged_attention import PAGED_QUANT_MAX, paged_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..parallel import comm, sharding
+from ..utils import profiling
 from .configs import Qwen3Config
 from .lora import apply_lora, apply_lora_fused, apply_lora_row_parallel
 
@@ -509,36 +510,40 @@ def _layer(cfg: Qwen3Config, hidden, p, cos, sin, mask, causal,
     Dh = cfg.head_dim
     p, lora_layer, tp = _materialize(cfg, p, lora_layer)
     lkw = (lora_layer, lora_scale, lora_dropout, seeds, lora_slots)
-    if split_remat:
-        q, kk, v = checkpoint(_attn_inputs, cfg, hidden, p, cos, sin, *lkw,
-                              tp=tp, use_reentrant=False)
-    else:
-        q, kk, v = _attn_inputs(cfg, hidden, p, cos, sin, *lkw, tp=tp)
+    with profiling.span("molly/qkv"):
+        if split_remat:
+            q, kk, v = checkpoint(_attn_inputs, cfg, hidden, p, cos, sin,
+                                  *lkw, tp=tp, use_reentrant=False)
+        else:
+            q, kk, v = _attn_inputs(cfg, hidden, p, cos, sin, *lkw, tp=tp)
 
-    if cache_kv is None and _ring(cfg):
-        # context parallelism: this rank holds its part of the sequence
-        # (in zigzag order when the caller permuted the stream)
-        from ..parallel.ring_attention import ring_attention
-        attn = ring_attention(q, kk, v, mask, causal=causal,
-                              scale=Dh ** -0.5,
-                              zigzag=cfg.context_parallel_zigzag)
-    elif cache_kv is None:
-        attn = dot_product_attention(q, kk, v, mask=mask, causal=causal,
-                                     scale=Dh ** -0.5)
-    elif isinstance(cache_kv, PagedCache):
-        attn = _paged_write_and_attend(cfg, q, kk, v, cache_kv)
-    else:
-        ckv, csc, li = cache_kv
-        _dense_write(ckv, csc, li, kk, v, cache_index)
-        kv_l = ckv[li]
-        attn = dot_product_attention(
-            q, kv_l[..., :Dh], kv_l[..., Dh:], mask=mask, causal=causal,
-            scale=Dh ** -0.5, q_offset=cache_index, kv_layout="bnsd",
-            kv_scales=csc[li] if csc is not None else None)
-    if split_remat:
-        return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
-                          cache_kv is None, tp=tp, use_reentrant=False)
-    return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None, tp=tp)
+    with profiling.span("molly/attn"):
+        if cache_kv is None and _ring(cfg):
+            # context parallelism: this rank holds its part of the sequence
+            # (in zigzag order when the caller permuted the stream)
+            from ..parallel.ring_attention import ring_attention
+            attn = ring_attention(q, kk, v, mask, causal=causal,
+                                  scale=Dh ** -0.5,
+                                  zigzag=cfg.context_parallel_zigzag)
+        elif cache_kv is None:
+            attn = dot_product_attention(q, kk, v, mask=mask, causal=causal,
+                                         scale=Dh ** -0.5)
+        elif isinstance(cache_kv, PagedCache):
+            attn = _paged_write_and_attend(cfg, q, kk, v, cache_kv)
+        else:
+            ckv, csc, li = cache_kv
+            _dense_write(ckv, csc, li, kk, v, cache_index)
+            kv_l = ckv[li]
+            attn = dot_product_attention(
+                q, kv_l[..., :Dh], kv_l[..., Dh:], mask=mask, causal=causal,
+                scale=Dh ** -0.5, q_offset=cache_index, kv_layout="bnsd",
+                kv_scales=csc[li] if csc is not None else None)
+    with profiling.span("molly/mlp"):  # the o-projection included
+        if split_remat:
+            return checkpoint(_layer_tail, cfg, hidden, attn, p, *lkw,
+                              cache_kv is None, tp=tp, use_reentrant=False)
+        return _layer_tail(cfg, hidden, attn, p, *lkw, cache_kv is None,
+                           tp=tp)
 
 
 def _ring(cfg: Qwen3Config) -> bool:
@@ -672,9 +677,10 @@ def forward_hidden(
             0, 2 ** 62, (L, len(lora_layers)), generator=generator,
             device=generator.device).tolist()
 
-    layer_params = _unstack_layers(params["layers"], L)
-    lora_params = (_unstack_layers(lora_layers, L)
-                   if lora_layers is not None else None)
+    with profiling.span("molly/unstack"):
+        layer_params = _unstack_layers(params["layers"], L)
+        lora_params = (_unstack_layers(lora_layers, L)
+                       if lora_layers is not None else None)
     # paged pool: every layer reads the same table and lengths (host-managed
     # between dispatches) and writes its own rows of the shared pools
     paged = (paged_layer_views(cache, L, cache_index)
@@ -694,16 +700,19 @@ def forward_hidden(
         args = (cfg, hidden, p, cos, sin, attention_mask, causal,
                 cache_kv, cache_index, ll, lora_scale, lora_dropout, seeds,
                 lora_slots)
-        if remat and li >= n_skip:
-            if cfg.remat_policy == "full":
-                hidden, aux = checkpoint(_layer, *args, use_reentrant=False)
-            elif cfg.remat_policy == "dots":
-                hidden, aux = checkpoint(_layer, *args, use_reentrant=False,
-                                         context_fn=_dots_context)
+        with profiling.span("molly/layer"):
+            if remat and li >= n_skip:
+                if cfg.remat_policy == "full":
+                    hidden, aux = checkpoint(_layer, *args,
+                                             use_reentrant=False)
+                elif cfg.remat_policy == "dots":
+                    hidden, aux = checkpoint(_layer, *args,
+                                             use_reentrant=False,
+                                             context_fn=_dots_context)
+                else:
+                    hidden, aux = _layer(*args, split_remat=True)
             else:
-                hidden, aux = _layer(*args, split_remat=True)
-        else:
-            hidden, aux = _layer(*args)
+                hidden, aux = _layer(*args)
         if aux is not None:
             aux_layers.append(aux)
         if output_hidden_states:

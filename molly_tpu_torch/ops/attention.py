@@ -10,10 +10,12 @@ Decode (Sq == 1) is plain PyTorch here exactly as it is plain XLA there.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
 
+from ..utils import profiling
 from .flash_attention import flash_attention
 
 
@@ -75,30 +77,39 @@ def plain_attention(q, k, v, *, mask, causal, scale, q_offset=0,
         assert kv_layout == "bnsd", kv_layout
         k, v = k.to(q.dtype), v.to(q.dtype)
 
-    # [B, Nkv, G, Sq, Skv]
-    logits = torch.einsum(f"bqngd,{k_sub}->bngqk", qg.float(), k.float())
-    logits = logits * scale
-    if kv_scales is not None:
-        # per-column k scale multiplies its logit column
-        logits = logits * kv_scales[..., 0][:, :, None, None, :]
+    with profiling.span("molly/attn/logits"):
+        # [B, Nkv, G, Sq, Skv]
+        logits = torch.einsum(f"bqngd,{k_sub}->bngqk", qg.float(),
+                              k.float())
+        logits = logits * scale
+        if kv_scales is not None:
+            # per-column k scale multiplies its logit column
+            logits = logits * kv_scales[..., 0][:, :, None, None, :]
     neg = torch.finfo(torch.float32).min
-    if mask is not None:
-        if mask.ndim == 2:  # [B, Skv] padding mask
-            keep = (mask != 0)[:, None, None, None, :]
-        else:  # bool [B, 1, Sq, Skv]
-            keep = mask[:, :, None]
-        logits = logits + torch.where(keep, 0.0, neg)
-    if causal:
-        q_off = torch.as_tensor(q_offset, device=q.device).reshape(-1)
-        q_pos = torch.arange(sq, device=q.device)[None, :] + q_off[:, None]
-        kv_pos = torch.arange(skv, device=q.device)
-        causal_mask = q_pos[..., None] >= kv_pos  # [B|1, sq, skv]
-        logits = torch.where(causal_mask[:, None, None], logits, neg)
+    with profiling.span("molly/attn/mask"):
+        if mask is not None:
+            if mask.ndim == 2:  # [B, Skv] padding mask
+                keep = (mask != 0)[:, None, None, None, :]
+            else:  # bool [B, 1, Sq, Skv]
+                keep = mask[:, :, None]
+            logits = logits + torch.where(keep, 0.0, neg)
+        if causal:
+            # a host int copied to the device waits for the device's backlog
+            with (contextlib.nullcontext() if torch.is_tensor(q_offset)
+                  else profiling.sync("q_offset")):
+                q_off = torch.as_tensor(q_offset,
+                                        device=q.device).reshape(-1)
+            q_pos = (torch.arange(sq, device=q.device)[None, :]
+                     + q_off[:, None])
+            kv_pos = torch.arange(skv, device=q.device)
+            causal_mask = q_pos[..., None] >= kv_pos  # [B|1, sq, skv]
+            logits = torch.where(causal_mask[:, None, None], logits, neg)
 
-    probs = torch.softmax(logits, dim=-1)
-    if kv_scales is not None:
-        # per-column v scale folds into the softmax weights
-        probs = probs * kv_scales[..., 1][:, :, None, None, :]
-    out = torch.einsum(f"bngqk,{k_sub}->bqngd",
-                       probs.to(v.dtype).float(), v.float())
-    return out.reshape(b, sq, nq, dh).to(q.dtype)
+    with profiling.span("molly/attn/pv"):
+        probs = torch.softmax(logits, dim=-1)
+        if kv_scales is not None:
+            # per-column v scale folds into the softmax weights
+            probs = probs * kv_scales[..., 1][:, :, None, None, :]
+        out = torch.einsum(f"bngqk,{k_sub}->bqngd",
+                           probs.to(v.dtype).float(), v.float())
+        return out.reshape(b, sq, nq, dh).to(q.dtype)

@@ -47,18 +47,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..data.omics_dataset import LABEL_IGNORE
 from ..models import fusion, lora as lora_lib, qwen3
 from ..models.configs import FusionConfig
 from ..models.lora import LoraConfig
 from ..parallel import comm, sharding
+from ..utils import profiling
 from ..utils.tree import leaves, tree_map
 
 
@@ -469,32 +468,9 @@ def apply_optimizer(train: List[torch.Tensor], grads: List[torch.Tensor],
     opt_state["count"] = count_inc
 
 
-class _PhaseClock:
-    """Seconds per phase of a step for ``stats``: CUDA events between the
-    marks on a card (device time, read after one synchronize at the end of
-    the step), the host clock on the CPU. Only made when a caller asks for
-    timings."""
-
-    def __init__(self, stats: Dict[str, float], device: torch.device):
-        self.stats, self.cuda = stats, device.type == "cuda"
-        self.marks: List[Tuple[str, Any]] = []
-        self.mark("start")
-
-    def mark(self, name: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def finish(self) -> None:
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-            self.stats[name + "_s"] = self.stats.get(name + "_s", 0.0) + dt
-        self.marks = self.marks[-1:]
+# the train step's phases: the ``stats`` key of each and its span
+_PHASES = (("forward_s", "molly/forward"), ("backward_s", "molly/backward"),
+           ("optimizer_s", "molly/optimizer"))
 
 
 def make_loss_fn(model_cfg: FusionConfig, train_cfg: TrainConfig):
@@ -558,8 +534,7 @@ def make_loss_fn(model_cfg: FusionConfig, train_cfg: TrainConfig):
     return loss_fn
 
 
-def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
-                 clock_of: Optional[Callable[[], Optional[_PhaseClock]]] = None):
+def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig):
     """Returns (params, batch, generator) -> (grads, metrics): the loss's
     gradients wrt the trainable leaves (a list in tree order, see
     ``_trainable_leaves``) with the microbatch loop, and the metrics summed
@@ -573,26 +548,23 @@ def make_grad_fn(model_cfg: FusionConfig, train_cfg: TrainConfig,
     loss_fn = make_loss_fn(model_cfg, train_cfg)
 
     def grads_of(params, train, batch, generator):
-        clock = clock_of() if clock_of is not None else None
-        with torch.enable_grad():
-            with record_function("molly/forward"):
-                loss, metrics = loss_fn(params, batch, generator)
-            if clock:
-                clock.mark("forward")
-            with record_function("molly/backward"):
+        with profiling.span("molly/forward", device=True), \
+                torch.enable_grad():
+            loss, metrics = loss_fn(params, batch, generator)
+        # the gradients, a mesh's gradient sync included
+        with profiling.span("molly/backward", device=True):
+            with torch.enable_grad():
                 grads = torch.autograd.grad(loss, train, allow_unused=True)
-            if clock:
-                clock.mark("backward")
-        grads = [torch.zeros_like(t) if g is None else g
-                 for g, t in zip(grads, train)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        mesh = comm.current_mesh()
-        if mesh is not None:
-            grads = sharding.sync_grads(
-                grads, [sharding.spec_of(t) for t in train], mesh)
-            group = mesh.group(*sharding.BATCH_AXES)
-            # (moe_ep_dropped_frac is already the global batch's)
-            metrics["loss"] = comm.all_reduce(metrics["loss"], group)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for g, t in zip(grads, train)]
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            mesh = comm.current_mesh()
+            if mesh is not None:
+                grads = sharding.sync_grads(
+                    grads, [sharding.spec_of(t) for t in train], mesh)
+                group = mesh.group(*sharding.BATCH_AXES)
+                # (moe_ep_dropped_frac is already the global batch's)
+                metrics["loss"] = comm.all_reduce(metrics["loss"], group)
         return grads, metrics
 
     def grad_fn(params, batch, generator=None):
@@ -642,36 +614,45 @@ def make_train_step(model_cfg: FusionConfig, train_cfg: TrainConfig,
     tensors on the params' device; ``generator`` (on that device) feeds the
     LoRA dropout and may be None when there is none. ``stats``, when given,
     accumulates seconds per phase over the steps (``forward_s``,
-    ``backward_s``, ``optimizer_s``; device time on a card)."""
-    clock: List[Optional[_PhaseClock]] = [None]
-    grad_fn = make_grad_fn(model_cfg, train_cfg, lambda: clock[0])
+    ``backward_s``, ``optimizer_s``: the spans ``molly/forward``,
+    ``molly/backward`` and ``molly/optimizer``, CUDA event time on a card,
+    host time on the CPU), read after one synchronize at the end of each
+    step."""
+    grad_fn = make_grad_fn(model_cfg, train_cfg)
     schedule = make_schedule(train_cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        if stats is not None:
-            clock[0] = _PhaseClock(stats,
-                                   state.params["text"]["embed"].device)
-        grads, metrics = grad_fn(state.params, batch, generator)
-        # grad norm over the params being optimized (also what the clip
-        # inside the optimizer sees); under a mesh each distinct block once
-        if comm.current_mesh() is not None:
-            gnorm = sharding.global_norm(
-                grads, [sharding.spec_of(t) for t in
-                        _trainable_leaves(state.params, train_cfg)])
-        else:
-            gnorm = global_norm(grads)
-        # NaN/Inf guard: skip the update, keep the old state
-        ok = bool(torch.isfinite(metrics["loss"])
-                  & torch.isfinite(gnorm).to(metrics["loss"].device))
-        if ok:
-            with record_function("molly/optimizer"):
-                apply_optimizer(_trainable_leaves(state.params, train_cfg),
-                                grads, state.opt_state, train_cfg, gnorm)
-        if clock[0] is not None:
-            clock[0].mark("optimizer")  # with the norm and the guard's sync
-            clock[0].finish()
+        rec = {} if stats is not None else None
+        with profiling.recording(rec):
+            grads, metrics = grad_fn(state.params, batch, generator)
+            # the norm, the guard's sync and the update
+            with profiling.span("molly/optimizer", device=True):
+                # grad norm over the params being optimized (also what the
+                # clip inside the optimizer sees); under a mesh each
+                # distinct block once
+                if comm.current_mesh() is not None:
+                    gnorm = sharding.global_norm(
+                        grads, [sharding.spec_of(t) for t in
+                                _trainable_leaves(state.params, train_cfg)])
+                else:
+                    gnorm = global_norm(grads)
+                # NaN/Inf guard: skip the update, keep the old state
+                ok = bool(torch.isfinite(metrics["loss"])
+                          & torch.isfinite(gnorm).to(metrics["loss"].device))
+                if ok:
+                    apply_optimizer(
+                        _trainable_leaves(state.params, train_cfg), grads,
+                        state.opt_state, train_cfg, gnorm)
+            if rec is not None and gnorm.is_cuda:
+                torch.cuda.synchronize(gnorm.device)
+        if rec:
+            for key, name in _PHASES:
+                sp = rec["spans"][name]
+                stats[key] = stats.get(key, 0.0) + (
+                    sp["host_s"] if sp["device_s"] is None
+                    else sp["device_s"])
         metrics = {**metrics, "grad_norm": gnorm, "skipped": not ok,
                    "learning_rate": schedule(state.step)}
         return TrainState(params=state.params, opt_state=state.opt_state,
