@@ -29,8 +29,8 @@ from ..parallel import comm, sharding
 from ..utils import profiling
 from .sampling import sample_tokens
 
-EMBED_KEYS = ("input_ids", "dna_rna_tokens", "dna_rna_pos",
-              "protein_tokens", "protein_pos")
+EMBED_KEYS = ("input_ids", "dna_rna_tokens", "dna_rna_pos", "dna_rna_rows",
+              "protein_tokens", "protein_pos", "protein_rows")
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -45,23 +45,30 @@ _SEGMENT_PAD = 1
 
 def _count_work(batch: Dict[str, Any]) -> None:
     """The recording's counts of the batch's encoder and prefill work, run
-    against live: tokens of every slot against the non-pad tokens of the
-    live ones (``pos >= 0``), per modality and summed, and prompt positions
-    against the attention mask's ones. Read from the arrays as handed in
-    (numpy on the host; a tensor's count is read when the recording
-    closes)."""
-    run = live = 0
-    for m in ("dna_rna", "protein"):
+    against live: tokens of the slots the encoders run (the live ones,
+    ``pos >= 0``, where ``fusion.pack_live_slots`` packs the modality, else
+    every slot) against the non-pad tokens of the live ones, and the slots
+    not run, per modality and summed; prompt positions against the
+    attention mask's ones. Read from the arrays as handed in (numpy on the
+    host; a tensor's count is read when the recording closes)."""
+    run = live = skipped = 0
+    for m in fusion.MODALITIES:
         if f"{m}_tokens" not in batch:
             continue
         tok, pos = batch[f"{m}_tokens"], batch[f"{m}_pos"]
-        m_run = tok.shape[0] * tok.shape[1] * tok.shape[2]
+        slots = pos.shape[0] * pos.shape[1]
+        m_skipped = (slots - int((pos >= 0).sum())
+                     if fusion.packs_on_host(batch, m) else 0)
+        m_run = (slots - m_skipped) * tok.shape[2]
         m_live = _total((tok != _SEGMENT_PAD) & (pos >= 0)[..., None])
         profiling.count(f"encoder_tokens_run/{m}", m_run)
         profiling.count(f"encoder_tokens_live/{m}", m_live)
+        profiling.count(f"encoder_slots_skipped/{m}", m_skipped)
         run, live = run + m_run, live + m_live
+        skipped += m_skipped
     profiling.count("encoder_tokens_run", run)
     profiling.count("encoder_tokens_live", live)
+    profiling.count("encoder_slots_skipped", skipped)
     mask = batch["attention_mask"]
     profiling.count("prefill_positions_run", mask.shape[0] * mask.shape[1])
     profiling.count("prefill_positions_live", _total(mask))
@@ -85,8 +92,11 @@ def generate(
 ) -> torch.Tensor:
     """Returns new tokens only, [B, max_new_tokens], rows padded with
     pad_token_id after EOS. ``batch`` holds numpy arrays or tensors; they go
-    to the device of the text embedding. ``stats``, when given, accumulates
-    seconds per phase (``encode_s``, ``prefill_s``, ``decode_s``), counts
+    to the device of the text embedding. A modality held in numpy arrays
+    is packed to its live slots first (``fusion.pack_live_slots``), so the
+    encoders run those alone; one held in tensors runs every slot.
+    ``stats``, when given, accumulates seconds per phase (``encode_s``,
+    ``prefill_s``, ``decode_s``), counts
     ``decode_steps``, notes whether the prefill's logits were all finite
     (``logits_finite``) and takes the spans and counts of a recording
     (``utils.profiling.recording``; the caller's, when one is current); it
@@ -116,6 +126,8 @@ def generate(
         with profiling.span("molly/generate", device=True):
             if profiling.active():
                 _count_work(batch)
+            # the live slots, picked from host arrays before they go up
+            batch = fusion.pack_live_slots(batch)
             keys = [k for k in EMBED_KEYS if k in batch] + ["attention_mask"]
             with profiling.sync("upload", sum(
                     not (isinstance(batch[k], torch.Tensor)

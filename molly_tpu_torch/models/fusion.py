@@ -1,12 +1,17 @@
 """Tri-modal fusion model: Qwen3 decoder + frozen ESM-family encoders with
 linear projectors, the counterpart of ``molly_tpu/models/fusion.py``.
 
-Semantics kept: one encoder call per modality over ALL [B, G] segment slots
-(dummy slots included, their outputs dropped), the encoder mask
-``tokens != 1`` with position 0 forced on, and projected hidden states
-overwriting the K placeholder rows start+1 .. start+K. Where JAX scatters
-with ``mode="drop"`` (inactive slots carry start = -1), the port masks those
-rows out before an in-place ``index_put_``.
+Semantics kept: the encoder mask ``tokens != 1`` with position 0 forced
+on, and projected hidden states overwriting the K placeholder rows
+start+1 .. start+K. A batch of tensors (``<m>_tokens`` [B, G, K],
+``<m>_pos`` [B, G]) runs one encoder call per modality over ALL [B, G]
+segment slots, dummy slots included, as JAX does; where JAX scatters with
+``mode="drop"`` (inactive slots carry start = -1), the port masks those
+rows out before an in-place ``index_put_``. A batch of host arrays can be
+packed first (``pack_live_slots``): the encoders then run over the live
+slots only, and their rows are written at indices picked on the host. Each
+slot's encoder pass depends on its own row alone, so the rows written are
+the same either way.
 
 Under a mesh (``parallel.use_mesh``) the encoders and projectors are
 gathered whole before use, and the loss is this rank's share of the global
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,7 +37,7 @@ from .configs import EsmConfig, FusionConfig, Qwen3Config
 from .qwen3 import torch_dtype
 
 Params = Dict[str, Any]
-
+MODALITIES = ("dna_rna", "protein")
 
 
 def init_params(cfg: FusionConfig, generator: torch.Generator,
@@ -64,9 +70,10 @@ def init_params(cfg: FusionConfig, generator: torch.Generator,
 
 def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
                        enc_name: str, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, G, K] -> projected embeddings [B, G, K, H_text]."""
-    B, G, K = tokens.shape
-    flat = tokens.reshape(B * G, K)
+    """tokens [..., K] (all slots [B, G, K], or live ones [N, K]) ->
+    projected embeddings [..., K, H_text]."""
+    *lead, K = tokens.shape
+    flat = tokens.reshape(-1, K)
     mask = (flat != 1).to(torch.int32)
     # dummy all-pad segments would have an empty mask; force position 0
     # attended (real segments start with a non-pad CLS anyway)
@@ -82,7 +89,7 @@ def encode_and_project(params: Params, enc_cfg: EsmConfig, proj_name: str,
     # promote as JAX does: the product in fp32, rounded once at injection
     dt = torch.promote_types(h.dtype, proj["kernel"].dtype)
     out = h.to(dt) @ proj["kernel"].to(dt) + proj["bias"]
-    return out.reshape(B, G, K, -1)
+    return out.reshape(*lead, K, -1)
 
 
 def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
@@ -104,6 +111,20 @@ def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
     with profiling.sync("inject", 3):  # each boolean mask waits for its count
         idx = (batch_idx[keep], rows[keep])
         vals = proj_emb[keep].to(hidden.dtype)
+    return _put(hidden, idx, vals)
+
+
+def inject_rows(hidden: torch.Tensor, proj_emb: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """``inject`` for live slots packed on the host (``pack_live_slots``):
+    proj_emb [N, K, H]; rows [3, M], each written row's batch row, sequence
+    row and row of proj_emb flattened to [N * K, H]. Every index is in
+    range, so nothing is masked and nothing waits."""
+    vals = proj_emb.reshape(-1, proj_emb.shape[-1])[rows[2]].to(hidden.dtype)
+    return _put(hidden, (rows[0], rows[1]), vals)
+
+
+def _put(hidden, idx, vals):
     if torch.is_grad_enabled() and (hidden.requires_grad
                                     or vals.requires_grad):
         return hidden.index_put(idx, vals)
@@ -111,20 +132,59 @@ def inject(hidden: torch.Tensor, proj_emb: torch.Tensor,
     return hidden
 
 
+def packs_on_host(batch: Dict[str, Any], name: str) -> bool:
+    """Does ``pack_live_slots`` pack modality ``name`` of ``batch``? Only
+    where its tokens and starts are host arrays, not tensors: picking the
+    live slots of a tensor would wait for the device."""
+    return not any(isinstance(batch[f"{name}_{k}"], torch.Tensor)
+                   for k in ("tokens", "pos"))
+
+
+def pack_live_slots(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``batch`` with each modality held in host arrays (``packs_on_host``)
+    packed, in numpy, to its live slots (``<m>_pos >= 0``): ``<m>_tokens``
+    [N, K], the live slots in row-major [B, G] order, and ``<m>_rows``
+    [3, M] int64 (see ``inject_rows``) in place of ``<m>_tokens`` [B, G, K]
+    and ``<m>_pos``. Rows start+1 .. start+K at S or beyond are left out,
+    as JAX's scatter ``mode="drop"`` drops them. A modality with no live
+    slot is left out whole: no encoder runs for it and nothing is
+    written."""
+    out = dict(batch)
+    S = batch["input_ids"].shape[1]
+    for name in MODALITIES:
+        if f"{name}_tokens" not in batch or not packs_on_host(batch, name):
+            continue
+        tokens = np.asarray(out.pop(f"{name}_tokens"))
+        pos = np.asarray(out.pop(f"{name}_pos"))
+        b, g = np.nonzero(pos >= 0)
+        if b.size == 0:
+            continue
+        K = tokens.shape[-1]
+        rows = pos[b, g].astype(np.int64)[:, None] + 1 + np.arange(K)
+        src = np.flatnonzero(rows < S)  # into the [N * K] outputs
+        out[f"{name}_tokens"] = tokens[b, g]
+        out[f"{name}_rows"] = np.stack([b[src // K], rows.ravel()[src], src])
+    return out
+
+
 def build_inputs_embeds(params: Params, cfg: FusionConfig,
                         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embeddings with omics segments injected."""
+    """Token embeddings with omics segments injected: over every slot
+    (``<m>_pos``), or over the live ones packed on the host
+    (``<m>_rows``)."""
     with profiling.span("molly/encode", device=True):
         hidden = qwen3.embed_tokens(params["text"], batch["input_ids"])
-        for name, enc_cfg in (("dna_rna", cfg.dna_rna),
-                              ("protein", cfg.protein)):
+        for name in MODALITIES:
             if f"{name}_tokens" not in batch:
                 continue
             with profiling.span(f"molly/encode/{name}", device=True):
-                emb = encode_and_project(params, enc_cfg,
+                emb = encode_and_project(params, getattr(cfg, name),
                                          f"{name}_projector", name,
                                          batch[f"{name}_tokens"])
-                hidden = inject(hidden, emb, batch[f"{name}_pos"])
+                if f"{name}_rows" in batch:
+                    hidden = inject_rows(hidden, emb, batch[f"{name}_rows"])
+                else:
+                    hidden = inject(hidden, emb, batch[f"{name}_pos"])
     return hidden
 
 

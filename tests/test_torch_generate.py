@@ -112,12 +112,23 @@ def test_greedy_generate_token_exact(penalty):
     gen = jengine.GenerationConfig(max_new_tokens=6, do_sample=False,
                                    repetition_penalty=penalty,
                                    eos_token_id=3, pad_token_id=0)
+    # a second slot a modality, live in one row: dead slots in every row
+    for m in ("dna_rna", "protein"):
+        tok, pos = batch[f"{m}_tokens"], batch[f"{m}_pos"]
+        batch[f"{m}_tokens"] = np.concatenate([tok, tok[:, ::-1]], axis=1)
+        batch[f"{m}_pos"] = np.concatenate([pos, np.full_like(pos, -1)], 1)
+    batch["dna_rna_pos"][3, 1] = 22
     ref = np.asarray(jengine.generate(
         jp, cfg, {k: jnp.asarray(v) for k, v in batch.items()}, gen,
         jax.random.key(0)))
-    got = engine.generate(params_from_jax(jax.tree.map(np.asarray, jp)),
-                          _tcfg_of(cfg), batch, _tcfg_of(gen))
+    tp, tc = params_from_jax(jax.tree.map(np.asarray, jp)), _tcfg_of(cfg)
+    # host arrays: the encoders run the live slots alone
+    got = engine.generate(tp, tc, batch, _tcfg_of(gen))
     np.testing.assert_array_equal(got.numpy(), ref)
+    # the same batch as tensors: every slot run
+    every = engine.generate(tp, tc, {k: _t(v) for k, v in batch.items()},
+                            _tcfg_of(gen))
+    assert torch.equal(every, got)
 
 
 def test_generate_eos_pads_and_sampled_runs():

@@ -307,3 +307,60 @@ def test_fusion_inject_drops_inactive_and_out_of_range_rows():
     got = fusion.build_inputs_embeds(_torch_params(jp), _tcfg_of(cfg),
                                      {k: _t(batch[k]) for k in keys})
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
+# live slots [B=3, G=2] of each modality (dna_rna, protein), and the start
+# of protein slot 1 in row 2; every other start is fixed below
+_SLOT_CASES = {
+    "mixed": ([[1, 0], [0, 1], [1, 1]], [[0, 0], [1, 0], [0, 1]], 55),
+    "every_slot_live": ([[1, 1]] * 3, [[1, 1]] * 3, 55),
+    "one_modality_empty": ([[1, 0], [0, 1], [1, 1]], [[0, 0]] * 3, 55),
+    "none_live": ([[0, 0]] * 3, [[0, 0]] * 3, 55),
+    "rows_past_S": ([[1, 0], [0, 1], [1, 1]], [[0, 0], [1, 0], [0, 1]], 88),
+}
+
+
+@pytest.mark.parametrize("case", list(_SLOT_CASES))
+def test_fusion_live_slots_packed_on_the_host_match_jax(case):
+    """``pack_live_slots`` + ``build_inputs_embeds`` (the engine's path for
+    host arrays) against JAX's all-slot injection, and the tensor path
+    (every slot run) against the same reference."""
+    dna_live, prot_live, late = _SLOT_CASES[case]
+    cfg = _fusion_setup()
+    jp = jfusion.init_params(cfg, jax.random.key(12))
+    B, G, S, K = 3, 2, 96, cfg.dna_rna_k_tokens
+    rng = np.random.default_rng(4)
+    starts = {"dna_rna": [1, 19], "protein": [37, 55]}
+    batch = {"input_ids": rng.integers(0, cfg.text.vocab_size,
+                                       (B, S)).astype(np.int32)}
+    for m, live, hi in (("dna_rna", dna_live, 4102),
+                        ("protein", prot_live, 24)):
+        tok = rng.integers(4, hi, (B, G, K)).astype(np.int32)
+        tok[..., 0] = 0                                    # CLS
+        tok[1, -1, K // 2:] = 1                            # a padded slot
+        pos = np.where(np.asarray(live, bool), starts[m], -1)
+        batch[f"{m}_tokens"], batch[f"{m}_pos"] = tok, pos.astype(np.int32)
+    if batch["protein_pos"][2, 1] >= 0:
+        batch["protein_pos"][2, 1] = late
+    ref = np.asarray(jfusion.build_inputs_embeds(
+        jp, cfg, {k: jnp.asarray(v) for k, v in batch.items()}))
+    tp, tc = _torch_params(jp), _tcfg_of(cfg)
+
+    packed = fusion.pack_live_slots(batch)
+    for m, live in (("dna_rna", dna_live), ("protein", prot_live)):
+        n = int(np.sum(live))
+        assert f"{m}_pos" not in packed
+        if n == 0:  # no encoder runs for it
+            assert f"{m}_tokens" not in packed and f"{m}_rows" not in packed
+            continue
+        assert packed[f"{m}_tokens"].shape == (n, K)
+        rows = packed[f"{m}_rows"]
+        assert rows.shape[0] == 3 and (rows[1] < S).all()
+        dropped = late + 1 + K - S if (m == "protein" and live[2][1]) else 0
+        assert rows.shape[1] == n * K - max(dropped, 0)
+    got = fusion.build_inputs_embeds(tp, tc, {k: _t(v)
+                                              for k, v in packed.items()})
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    every = fusion.build_inputs_embeds(tp, tc, {k: _t(v)
+                                                for k, v in batch.items()})
+    np.testing.assert_allclose(every.numpy(), ref, atol=ATOL)

@@ -145,29 +145,34 @@ def test_the_eval_paths_counts_equal_numpy_over_the_collated_batch(tiny):
     assert len(records) == len(ROWS)
     batch = collate_test([enc.encode_test(r) for r in ROWS])
     counts, spans = stats["counts"], stats["spans"]
-    run = live = 0
+    run = live = skipped = 0
     for m in ("dna_rna", "protein"):
         tok, pos = batch[f"{m}_tokens"], batch[f"{m}_pos"]
         m_live = int(((tok != 1) & (pos >= 0)[..., None]).sum())
-        assert counts[f"encoder_tokens_run/{m}"] == tok.size
+        n_live = int((pos >= 0).sum())  # host arrays: live slots run alone
+        assert 0 < n_live < pos.size
+        assert counts[f"encoder_tokens_run/{m}"] == n_live * K
         assert counts[f"encoder_tokens_live/{m}"] == m_live
-        run, live = run + tok.size, live + m_live
+        assert counts[f"encoder_slots_skipped/{m}"] == pos.size - n_live
+        run, live = run + n_live * K, live + m_live
+        skipped += pos.size - n_live
     assert 0 < live < run
     assert counts["encoder_tokens_run"] == run
     assert counts["encoder_tokens_live"] == live
+    assert counts["encoder_slots_skipped"] == skipped
     mask = batch["attention_mask"]
     assert counts["prefill_positions_run"] == mask.size
     assert counts["prefill_positions_live"] == int(mask.sum())
-    # six uploads, three boolean masks a modality, an EOS check a step
-    # (one more when every row ended early), a presence write a token, a
-    # decode layer's attention offset, the tokens' copy back
+    # six uploads (ids, mask, and a modality's live tokens and rows), an
+    # EOS check a step (one more when every row ended early), a presence
+    # write a token, a decode layer's attention offset, the tokens' copy
+    # back; the injection picks no rows on the device, so waits for none
     steps, eos = stats["decode_steps"], spans["molly/sync/eos"]["n"]
     L = cfg.text.num_hidden_layers
     assert eos in (steps, steps + 1)
-    assert counts["host_syncs"] == 6 + 2 * 3 + eos + (1 + steps) \
-        + L * steps + 1
+    assert counts["host_syncs"] == 6 + eos + (1 + steps) + L * steps + 1
     assert spans["molly/sync/upload"]["n"] == 1
-    assert spans["molly/sync/inject"]["n"] == 2
+    assert "molly/sync/inject" not in spans
     assert spans["molly/sync/presence"]["n"] == 1 + steps
     assert spans["molly/sync/q_offset"]["n"] == L * steps
     assert spans["molly/sync/tokens"]["n"] == 1
@@ -191,6 +196,31 @@ def test_the_eval_paths_counts_equal_numpy_over_the_collated_batch(tiny):
         sp["host_s"] for name, sp in spans.items()
         if name.startswith("molly/sync/") and name != "molly/sync/tokens"))
     assert 0 < step["self_host_s"] < step["host_s"]
+
+
+def test_tensors_keep_every_slot_and_the_injections_mask_syncs(tiny):
+    """A batch handed in as tensors runs the encoders over every slot and
+    picks the written rows by boolean masks (three syncs a modality), and
+    gives the tokens the packed host arrays give."""
+    cfg, enc, params, text_tok = tiny
+    arrs = {k: v for k, v in collate_test(
+        [enc.encode_test(r) for r in ROWS]).items()
+        if isinstance(v, np.ndarray)}
+    stats = {}
+    on_card = engine.generate(params, cfg, {k: torch.as_tensor(v)
+                                            for k, v in arrs.items()},
+                              _gen(text_tok), None, stats)
+    counts, spans = stats["counts"], stats["spans"]
+    for m in ("dna_rna", "protein"):
+        assert counts[f"encoder_tokens_run/{m}"] == arrs[f"{m}_tokens"].size
+        assert counts[f"encoder_slots_skipped/{m}"] == 0
+    assert spans["molly/sync/inject"]["n"] == 2
+    steps, eos = stats["decode_steps"], spans["molly/sync/eos"]["n"]
+    L = cfg.text.num_hidden_layers
+    # nothing to upload (the tensors are on the text's device already)
+    assert counts["host_syncs"] == 2 * 3 + eos + (1 + steps) + L * steps
+    assert torch.equal(on_card, engine.generate(params, cfg, arrs,
+                                                _gen(text_tok)))
 
 
 @pytest.mark.parametrize("do_sample", [False, True])
