@@ -7,9 +7,10 @@ hold the requests a run compares, and as many requests compared.
         [--control int8 --control-seeds 4,5,6]
 
 The control is the program's own lower-precision path: ``int8`` puts the
-decoder's weights (the experts too) through ``quantize_for_decode``, the
-int8 weight-only decode the inference CLI's ``--int8`` runs. Prints one
-line a reading and a JSON summary last."""
+decoder's weights (the experts too) through ``quantize_for_decode`` of the
+program's model module that the configuration's ``reference/<decoder>.py``
+names, the int8 weight-only decode the inference CLI's ``--int8`` runs.
+Prints one line a reading and a JSON summary last."""
 
 import argparse
 import json

@@ -14,8 +14,9 @@ between phases), then batch ``profile_batch`` again under the profiler.
 
 The check: once the window has closed and the program's state is freed, a
 sample of the window's greedy requests drawn from the seed, the longest
-among them, is run through the float32 reference over its prompt and the
-tokens it was served; the mean over the served tokens of the squared gap
+among them, is run through the float32 reference (the configuration's
+``reference/<decoder>.py`` for the decoder) over its prompt and the tokens
+it was served; the mean over the served tokens of the squared gap
 by which each token's logit lies below the reference's best (0 where it is
 the reference's argmax) must stay within the cell's limit. The widest gap,
 the mean gap and the share of tokens off the argmax are printed beside
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import os
 import tempfile
 import time
@@ -83,10 +85,10 @@ def run(cell) -> Outcome:
                                       load_text_tokenizer)
     from molly_tpu_torch.inference.cli import run_batches
     from molly_tpu_torch.inference.sampling import sample_tokens
-    from molly_tpu_torch.models import qwen3
     from molly_tpu_torch.models.configs import GenerationConfig
 
     t, dev = cell.traffic, cell.device
+    decoder = cell.decoder()  # a name with no file stops here
     if dev == "cuda":
         from molly_tpu_torch.ops import _cuda_build
         _cuda_build.build()
@@ -98,9 +100,11 @@ def run(cell) -> Outcome:
         protein_k_tokens=t["protein_k_tokens"],
         max_dna_rna_segments=t["max_dna_rna_segments"],
         max_protein_segments=t["max_protein_segments"]))
-    params = weights.make(cell.config, cell.seed, dev)
+    params = weights.make(cell.config, cell.seed, dev, decoder)
     if cell.control == "int8":  # calibration only: the program's int8 path
-        params["text"] = qwen3.quantize_for_decode(
+        program = importlib.import_module(
+            f"molly_tpu_torch.models.{decoder.PROGRAM_MODULE}")
+        params["text"] = program.quantize_for_decode(
             params["text"], cfg.text, moe_experts=bool(cfg.text.num_experts),
             donate=True)
     s = t["sampling"]
@@ -214,7 +218,8 @@ def run(cell) -> Outcome:
     attempted = B * len(batches)
     written = sum(batch["written"] for batch in batches)
     record = {
-        "config": cell.config, "traffic": t, "window_s": window_s,
+        "config": cell.config, "decoder": decoder, "traffic": t,
+        "window_s": window_s,
         "bench_dir": cell.bench_dir, "batches": batches,
         "stats_batches": stat_batches, "trace": summary,
         "profiled": profiled, "memory_peak_bytes": memory_peak,
@@ -243,10 +248,11 @@ def run(cell) -> Outcome:
         ids, segments = prompts[bi][ri]
         served = tokens[bi][ri][:shapes[bi]["rows"][ri]["emitted"]].tolist()
         requests.append({"ids": ids, "segments": segments, "served": served})
-    ref_params = weights.make(cell.config, cell.seed, dev)
+    ref_params = weights.make(cell.config, cell.seed, dev, decoder)
     t_ref = time.perf_counter()
     with ref_model.full_float32(), torch.no_grad():
-        logits = ref_model.served_logits(ref_params, cell.config, requests)
+        logits = ref_model.served_logits(ref_params, cell.config, requests,
+                                         decoder)
         gaps = torch.cat([ref_model.greedy_gaps(lg, rq["served"],
                                                 s["repetition_penalty"])
                           for lg, rq in zip(logits, requests)])

@@ -1,11 +1,12 @@
 """A cell and the files it is made of, found by name: its entry in
-``BENCHMARK.json`` (configuration, traffic), ``configs/<config>.json``,
+``BENCHMARK.json`` (configuration, traffic), ``configs/<config>.json``
+(which names its decoder, ``reference/<decoder>.py``),
 ``traffic/<traffic>.json`` (which names its driver, ``drivers/<driver>.py``),
 ``limits/<cell>.json`` (the limit of each number its check compares), and
 one reader a per-layer metric, ``metrics/<metric>.py`` or, shared by the
 metric's cells, ``metrics/<metric before its first dot>.py``. Adding a
-cell, a configuration, a mix or a metric adds files and entries and edits
-none."""
+cell, a configuration, a decoder, a mix or a metric adds files and entries
+and edits none."""
 
 from __future__ import annotations
 
@@ -42,26 +43,42 @@ class Cell:
     extra: Dict[str, Any] = field(default_factory=dict)
 
     def fusion_config(self):
-        """The program's ``FusionConfig`` for this configuration."""
-        from molly_tpu_torch.models.configs import (EsmConfig, FusionConfig,
-                                                    Qwen3Config)
-        c, t = self.config, self.traffic
+        """The program's ``FusionConfig`` for this configuration: the text
+        part in the class and under the key names that the decoder's file
+        gives (``PROGRAM_CONFIG``, ``PROGRAM_KEYS``), keeping only the
+        class's fields."""
+        from molly_tpu_torch.models import configs
+        c, t, dec = self.config, self.traffic, self.decoder()
+        text_class = getattr(configs, dec.PROGRAM_CONFIG)
         text = dict(c["text"])
-        if text.get("num_experts"):
-            text["intermediate_size"] = text.pop("moe_intermediate_size")
-        keep = set(Qwen3Config.__dataclass_fields__)
+        for key, program_key in dec.PROGRAM_KEYS.items():
+            if key in text:
+                text[program_key] = text.pop(key)
+        keep = set(text_class.__dataclass_fields__)
         text = {k: v for k, v in text.items() if k in keep}
 
         def esm(d):
-            keep_e = set(EsmConfig.__dataclass_fields__)
-            return EsmConfig(**{k: v for k, v in d.items() if k in keep_e},
-                             dtype=c["dtype"])
+            keep_e = set(configs.EsmConfig.__dataclass_fields__)
+            return configs.EsmConfig(
+                **{k: v for k, v in d.items() if k in keep_e},
+                dtype=c["dtype"])
 
-        return FusionConfig(
-            text=Qwen3Config(**text, dtype=c["dtype"]),
+        return configs.FusionConfig(
+            text=text_class(**text, dtype=c["dtype"]),
             dna_rna=esm(c["dna_rna"]), protein=esm(c["protein"]),
             dna_rna_k_tokens=t["dna_rna_k_tokens"],
             protein_k_tokens=t["protein_k_tokens"])
+
+    def decoder(self):
+        """``reference/<decoder>.py`` of the configuration's ``"decoder"``:
+        everything that depends on the decoder's equations. A name with no
+        file stops the run, naming the path it looked for."""
+        path = self.bench_dir / "reference" / f"{self.config['decoder']}.py"
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"configs/{self.entry['config']}.json names the decoder "
+                f"{self.config['decoder']!r}, but {path} does not exist")
+        return _load(path)
 
     def driver(self):
         """``drivers/<driver>.py`` of this cell's traffic file."""

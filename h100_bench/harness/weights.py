@@ -5,9 +5,9 @@ them, so that the program and the plain reference are handed the same
 weights and neither takes them from the other.
 
 normal(0, 0.02) for every matrix and embedding, ones for norm weights,
-zeros for biases, U(-1/sqrt(in), 1/sqrt(in)) for the projectors; the MoE
-router is drawn in the model dtype and kept in float32, as the program
-keeps it."""
+zeros for biases, U(-1/sqrt(in), 1/sqrt(in)) for the projectors. The text
+decoder's tree is its ``reference/<decoder>.py``'s ``draw``, first from
+the same generator."""
 
 from __future__ import annotations
 
@@ -41,43 +41,6 @@ class _Draw:
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
 
-def decoder_sizes(text: Dict[str, Any]) -> Dict[str, int]:
-    """H, I (the expert width for an MoE), L, Nq, Nkv, Dh, V, E, k."""
-    E = int(text.get("num_experts", 0))
-    return {"H": text["hidden_size"],
-            "I": text["moe_intermediate_size"] if E else
-            text["intermediate_size"],
-            "L": text["num_hidden_layers"], "Nq": text["num_attention_heads"],
-            "Nkv": text["num_key_value_heads"], "Dh": text["head_dim"],
-            "V": text["vocab_size"], "E": E,
-            "k": int(text.get("num_experts_per_tok", 0))}
-
-
-def _decoder(d: _Draw, text: Dict[str, Any]) -> Dict[str, Any]:
-    s = decoder_sizes(text)
-    H, I, L, Dh = s["H"], s["I"], s["L"], s["Dh"]
-    Dq, Dkv = s["Nq"] * Dh, s["Nkv"] * Dh
-    layers = {"input_norm": d.ones(L, H), "post_attn_norm": d.ones(L, H),
-              "q_proj": d.normal(L, H, Dq), "k_proj": d.normal(L, H, Dkv),
-              "v_proj": d.normal(L, H, Dkv), "o_proj": d.normal(L, Dq, H),
-              "q_norm": d.ones(L, Dh), "k_norm": d.ones(L, Dh)}
-    if s["E"]:
-        E = s["E"]
-        layers["router"] = d.normal(L, H, E).to(torch.float32)
-        layers["expert_gate"] = d.normal(L, E, H, I)
-        layers["expert_up"] = d.normal(L, E, H, I)
-        layers["expert_down"] = d.normal(L, E, I, H)
-    else:
-        layers["gate_proj"] = d.normal(L, H, I)
-        layers["up_proj"] = d.normal(L, H, I)
-        layers["down_proj"] = d.normal(L, I, H)
-    out = {"embed": d.normal(s["V"], H), "layers": layers,
-           "final_norm": d.ones(H)}
-    if not text["tie_word_embeddings"]:
-        out["lm_head"] = d.normal(H, s["V"])
-    return out
-
-
 def _encoder(d: _Draw, enc: Dict[str, Any]) -> Dict[str, Any]:
     H, I, L = (enc["hidden_size"], enc["intermediate_size"],
                enc["num_hidden_layers"])
@@ -104,12 +67,14 @@ def _encoder(d: _Draw, enc: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def make(config: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The fusion model's weights for a configuration file's contents."""
+def make(config: Dict[str, Any], seed: int, device, decoder
+         ) -> Dict[str, Any]:
+    """The fusion model's weights for a configuration file's contents;
+    ``decoder`` is the configuration's ``reference/<decoder>.py``."""
     d = _Draw(seed, device, DTYPES[config["dtype"]])
     H = config["text"]["hidden_size"]
     return {
-        "text": _decoder(d, config["text"]),
+        "text": decoder.draw(d, config["text"]),
         "dna_rna": _encoder(d, config["dna_rna"]),
         "protein": _encoder(d, config["protein"]),
         "dna_rna_projector": {

@@ -2,7 +2,7 @@
 calls in the profiled slice (``roofline/<operation>.py`` from the shapes
 the harness made) over the device time of the kernels that its data file
 (``roofline/<operation>.json``) names. None when the slice ran none of
-them."""
+them. ``args`` follow the configuration to the operation's ``calls``."""
 
 import importlib.util
 import json
@@ -10,7 +10,7 @@ import json
 from h100_bench.harness.peaks import bound_s
 
 
-def share(record, operation):
+def share(record, operation, *args):
     summary, batch = record.get("trace"), record.get("profiled")
     if summary is None or batch is None:
         return None
@@ -22,7 +22,7 @@ def share(record, operation):
     spec.loader.exec_module(mod)
     with open(folder / f"{operation}.json") as f:
         data = json.load(f)
-    calls = mod.calls(shape, record["config"])
+    calls = mod.calls(shape, record["config"], *args)
     seconds = summary.kernel_seconds(data["kernels"])
     if not calls or seconds <= 0:
         return None

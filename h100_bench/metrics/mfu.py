@@ -11,6 +11,6 @@ def read(record):
     batches = record.get("batches") or []
     if record.get("trace") is None or not batches:
         return None
-    total = sum(model_flops.generate(b["shape"], record["config"])
-                for b in batches)
+    total = sum(model_flops.generate(b["shape"], record["config"],
+                                     record["decoder"]) for b in batches)
     return 100.0 * total / record["window_s"] / PEAK_FLOPS["bf16"]

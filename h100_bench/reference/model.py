@@ -3,10 +3,8 @@ configuration file's contents and the benchmark's weights: the ESM-family
 encoders (HF ``modeling_esm``: token-dropout rescale, pre-LN blocks, q
 scaled before rotary, exact GELU or NT-v2's bias-free SwiGLU, final
 LayerNorm), the linear projectors, the overwrite of each segment's k
-placeholder rows, and the Qwen3 decoder (HF ``modeling_qwen3`` and
-``modeling_qwen3_moe``: RMSNorm, q/k norms per head, rotary, grouped-query
-causal attention, SwiGLU or a top-k softmax router over SwiGLU experts with
-renormalised weights, the tied or untied head).
+placeholder rows, and the decoder that the configuration names
+(``reference/<decoder>.py``, its ``decoder_logits``).
 
 No cache and no padding: every request is one unpadded sequence, its
 prompt followed by the tokens it was served. Weights are widened to float32
@@ -17,7 +15,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,17 +40,17 @@ def full_float32():
         torch.set_float32_matmul_precision(saved[2])
 
 
-def _f(t: torch.Tensor) -> torch.Tensor:
+def f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32)
 
 
-def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+def layer_f32(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer i's weights in float32."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else _f(v[i]))
+    return {k: (layer_f32(v, i) if isinstance(v, dict) else f32(v[i]))
             for k, v in stacked.items()}
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     """x [..., S, N, D], positions 0 .. S-1, GPT-NeoX half split."""
     S, D = x.shape[-3], x.shape[-1]
     inv = 1.0 / theta ** (torch.arange(0, D, 2, device=x.device,
@@ -68,7 +66,7 @@ def _layer_norm(x, p, eps):
     return F.layer_norm(x, x.shape[-1:], p["weight"], p["bias"], eps)
 
 
-def _rms_norm(x, w, eps):
+def rms_norm(x, w, eps):
     return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w
 
 
@@ -82,7 +80,7 @@ def encoder(params: Dict[str, Any], enc: Dict[str, Any],
         ids = tokens[c0:c0 + chunk]
         mask = ids != enc["pad_token_id"]
         mask[:, 0] = True
-        emb = _f(params["embed"])[ids]
+        emb = f32(params["embed"])[ids]
         if enc["token_dropout"]:
             is_mask = ids == enc["mask_token_id"]
             emb = emb.masked_fill(is_mask[..., None], 0.0)
@@ -92,9 +90,9 @@ def encoder(params: Dict[str, Any], enc: Dict[str, Any],
         if enc.get("position_embedding_type") == "absolute":
             m = mask.to(torch.long)
             pos = torch.cumsum(m, 1) * m + enc["pad_token_id"]
-            emb = emb + _f(params["pos_embed"])[pos]
+            emb = emb + f32(params["pos_embed"])[pos]
         if enc.get("emb_layer_norm_before"):
-            emb = _layer_norm(emb, {k: _f(v) for k, v in
+            emb = _layer_norm(emb, {k: f32(v) for k, v in
                                     params["emb_ln"].items()},
                               enc["layer_norm_eps"])
         h = emb * mask[..., None]
@@ -103,13 +101,13 @@ def encoder(params: Dict[str, Any], enc: Dict[str, Any],
         D = H // N
         bias = torch.where(mask, 0.0, -math.inf)[:, None, None, :]
         for i in range(enc["num_hidden_layers"]):
-            p = _layer(params["layers"], i)
+            p = layer_f32(params["layers"], i)
             x = _layer_norm(h, p["attn_ln"], enc["layer_norm_eps"])
             q = (x @ p["q"] + p["q_b"]).view(n, K, N, D) * D ** -0.5
             k = (x @ p["k"] + p["k_b"]).view(n, K, N, D)
             v = (x @ p["v"] + p["v_b"]).view(n, K, N, D)
             if enc.get("position_embedding_type", "rotary") == "rotary":
-                q, k = _rope(q, 1e4), _rope(k, 1e4)
+                q, k = rope(q, 1e4), rope(k, 1e4)
             s = torch.einsum("bqnd,bknd->bnqk", q, k) + bias
             a = torch.einsum("bnqk,bknd->bqnd", s.softmax(-1), v)
             h = h + a.reshape(n, K, H) @ p["attn_out"] + p["attn_out_b"]
@@ -122,79 +120,18 @@ def encoder(params: Dict[str, Any], enc: Dict[str, Any],
             if enc["mlp_bias"]:
                 x = x + p["ffn_out_b"]
             h = h + x
-        final = {k: _f(v) for k, v in params["final_ln"].items()}
+        final = {k: f32(v) for k, v in params["final_ln"].items()}
         outs.append(_layer_norm(h, final, enc["layer_norm_eps"]))
     return torch.cat(outs)
 
 
-def _moe(x: torch.Tensor, p: Dict[str, Any], text: Dict[str, Any]
-         ) -> torch.Tensor:
-    """Top-k softmax router over SwiGLU experts, weights renormalised."""
-    probs = (x @ p["router"]).softmax(-1)
-    w, e = probs.topk(text["num_experts_per_tok"], dim=-1)
-    if text.get("norm_topk_prob", True):
-        w = w / w.sum(-1, keepdim=True)
-    out = torch.zeros_like(x)
-    for ex in torch.unique(e).tolist():
-        tok, slot = (e == ex).nonzero(as_tuple=True)
-        xe = x[tok]
-        y = (F.silu(xe @ p["expert_gate"][ex]) * (xe @ p["expert_up"][ex])
-             ) @ p["expert_down"][ex]
-        out.index_add_(0, tok, y * w[tok, slot][:, None])
-    return out
-
-
-def decoder_logits(params: Dict[str, Any], text: Dict[str, Any],
-                   embeds: Sequence[torch.Tensor],
-                   rows: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """Each request's embeddings [N_i, H] through the decoder; returns the
-    float32 logits [stop - start, V] at positions start .. stop - 1 of each
-    request (``rows``)."""
-    Nq, Nkv, D = (text["num_attention_heads"], text["num_key_value_heads"],
-                  text["head_dim"])
-    eps = text["rms_norm_eps"]
-    hs = [e.clone() for e in embeds]
-    for i in range(text["num_hidden_layers"]):
-        p = _layer(params["layers"], i)
-        xs = []
-        for j, h in enumerate(hs):
-            S = h.shape[0]
-            x = _rms_norm(h, p["input_norm"], eps)
-            q = _rms_norm((x @ p["q_proj"]).view(S, Nq, D), p["q_norm"], eps)
-            k = _rms_norm((x @ p["k_proj"]).view(S, Nkv, D), p["k_norm"],
-                          eps)
-            v = (x @ p["v_proj"]).view(S, Nkv, D)
-            q, k = _rope(q, text["rope_theta"]), _rope(k, text["rope_theta"])
-            q = q.view(S, Nkv, Nq // Nkv, D)
-            causal = torch.ones(S, S, dtype=torch.bool,
-                                device=h.device).tril()
-            out = torch.empty_like(q)
-            for g in range(Nkv):  # one kv head at a time bounds the scores
-                s = torch.einsum("qrd,kd->rqk", q[:, g], k[:, g]) * D ** -0.5
-                s = s.masked_fill(~causal, -math.inf).softmax(-1)
-                out[:, g] = torch.einsum("rqk,kd->qrd", s, v[:, g])
-            hs[j] = h + out.reshape(S, Nq * D) @ p["o_proj"]
-            xs.append(_rms_norm(hs[j], p["post_attn_norm"], eps))
-        if "router" in p:
-            flat = _moe(torch.cat(xs), p, text)
-            ys = list(flat.split([x.shape[0] for x in xs]))
-        else:
-            ys = [(F.silu(x @ p["gate_proj"]) * (x @ p["up_proj"]))
-                  @ p["down_proj"] for x in xs]
-        hs = [h + y for h, y in zip(hs, ys)]
-        del p
-    head = (_f(params["lm_head"]) if "lm_head" in params
-            else _f(params["embed"]).T)
-    final = _f(params["final_norm"])
-    return [_rms_norm(h[a:b], final, eps) @ head
-            for h, (a, b) in zip(hs, rows)]
-
-
 def served_logits(params: Dict[str, Any], config: Dict[str, Any],
-                  requests: Sequence[Dict[str, Any]]) -> List[torch.Tensor]:
+                  requests: Sequence[Dict[str, Any]], decoder
+                  ) -> List[torch.Tensor]:
     """Each request ``{ids, segments, served}`` (prompt ids, the segments
     of ``prompt.build``, the served token ids) -> the reference's float32
-    logits [len(served), V]: row j is what predicts served token j."""
+    logits [len(served), V]: row j is what predicts served token j.
+    ``decoder``: the configuration's ``reference/<decoder>.py``."""
     dev = params["text"]["embed"].device
     H = config["text"]["hidden_size"]
     proj = {}
@@ -206,21 +143,22 @@ def served_logits(params: Dict[str, Any], config: Dict[str, Any],
         toks = torch.tensor([s[2] for s in segs], device=dev)
         hidden = encoder(params[modality], config[modality], toks)
         pw = params[f"{modality}_projector"]
-        out = hidden @ _f(pw["kernel"]) + _f(pw["bias"])
+        out = hidden @ f32(pw["kernel"]) + f32(pw["bias"])
         for (r, start, _), o in zip(segs, out):
             proj.setdefault(r, []).append((start, o))
     embeds, rows = [], []
     table = params["text"]["embed"]
     for r, req in enumerate(requests):
         ids = list(req["ids"]) + list(req["served"][:-1])
-        e = _f(table[torch.tensor(ids, device=dev)])
+        e = f32(table[torch.tensor(ids, device=dev)])
         for start, o in proj.get(r, []):
             n = min(o.shape[0], e.shape[0] - start - 1)
             e[start + 1:start + 1 + n] = o[:n]
         embeds.append(e.reshape(-1, H))
         n_prompt = len(req["ids"])
         rows.append((n_prompt - 1, n_prompt - 1 + len(req["served"])))
-    return decoder_logits(params["text"], config["text"], embeds, rows)
+    return decoder.decoder_logits(params["text"], config["text"], embeds,
+                                  rows)
 
 
 def greedy_gaps(logits: torch.Tensor, served: Sequence[int],

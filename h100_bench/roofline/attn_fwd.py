@@ -1,26 +1,15 @@
 """Flash attention forward (``ops.flash_attention_fwd``) in a generate
 batch: every encoder layer over its live segments (all K query rows, which
 fill the placeholder rows, against the segment's live keys) and every
-decoder layer's prefill (each query row against the live keys at or before
-it; q over the cache of S + T columns). Operations count only the key
-pairs the mask and the causal rule allow; bytes are q, k, v, o and the
-log-sum-exp, each once. The arithmetic of the kernel table in PERF.md."""
+decoder layer's prefill (each query row against the live keys its layer
+lets it read, as the decoder's file counts them). Operations count only
+the key pairs the mask and the attention rule allow; bytes are q, k, v, o
+and the log-sum-exp, each once. The arithmetic of the kernel table in
+PERF.md."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
-
-
-def decoder_prefill(rows_n: List[int], S: int, T: int, Nq: int, Nkv: int,
-                    D: int) -> Tuple[float, float]:
-    """(operations, bytes) of one decoder layer's prefill call: B = len(
-    rows_n) rows of n real tokens left-padded to S."""
-    B = len(rows_n)
-    pairs = sum(n * (n + 1) // 2 for n in rows_n)
-    flops = 4 * D * Nq * pairs
-    nbytes = (2 * (B * S * Nq * D * 2) + 2 * (B * Nkv * (S + T) * D * 2)
-              + B * Nq * S * 4)
-    return float(flops), float(nbytes)
 
 
 def encoder_layer(live: List[int], K: int, N: int, D: int
@@ -33,14 +22,14 @@ def encoder_layer(live: List[int], K: int, N: int, D: int
     return float(flops), float(nbytes)
 
 
-def calls(shape: Dict[str, Any], config: Dict[str, Any]
+def calls(shape: Dict[str, Any], config: Dict[str, Any], decoder
           ) -> List[Tuple[float, float]]:
-    """(operations, bytes) of each call in the batch."""
-    text = config["text"]
-    out = [decoder_prefill([r["n"] for r in shape["rows"]], shape["S"],
-                           shape["T"], text["num_attention_heads"],
-                           text["num_key_value_heads"], text["head_dim"])
-           ] * text["num_hidden_layers"]
+    """(operations, bytes) of each call in the batch: the decoder's prefill
+    calls as its ``reference/<decoder>.py`` counts them, one a layer, then
+    the encoders'."""
+    out = list(decoder.prefill_attention_calls(
+        [r["n"] for r in shape["rows"]], shape["S"], shape["T"],
+        config["text"]))
     for modality in ("dna_rna", "protein"):
         enc = config[modality]
         live = [n for r in shape["rows"] for m, n in r["segments"]

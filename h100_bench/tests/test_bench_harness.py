@@ -7,23 +7,21 @@ card's tests (``-m cuda``) skip here."""
 
 from __future__ import annotations
 
-import hashlib
 import json
 import subprocess
 import sys
-from pathlib import Path
 
 import pytest
 import torch
 
-from h100_bench.harness import env
 from h100_bench.harness.peaks import bound_s
 from h100_bench.harness.trace import Summary, _label_gaps, _union
-from h100_bench.roofline import attn_fwd, model_flops, moe_gemm
+from h100_bench.reference import qwen3
+from h100_bench.roofline import model_flops, moe_gemm
 from h100_bench.traffic.omics import batch_rows, kind_counts, strata
 
-from .tiny import (BENCH, TINY_CONFIG, make_bench, run_tiny, tiny_moe_config,
-                   tiny_traffic)
+from .tiny import (BENCH, TINY_CONFIG, digest, make_bench, run_tiny,
+                   tiny_moe_config, tiny_traffic)
 
 ROOT = BENCH.parent
 
@@ -46,22 +44,16 @@ def test_tiny_cell_runs_end_to_end_and_is_correct(bench):
     assert out.record["batches"][0]["stats"] is None
 
 
-def _digest(folder: Path):
-    return {str(p.relative_to(folder)): hashlib.sha256(p.read_bytes())
-            .hexdigest() for p in sorted(folder.rglob("*")) if p.is_file()
-            and "__pycache__" not in p.parts}
-
-
 def test_added_workload_runs_with_no_file_edited(tmp_path):
     """A new MoE configuration, mix, limit and BENCHMARK.json entry: new
     files only; every file the benchmark had is byte for byte the same."""
-    before = _digest(BENCH)
+    before = digest(BENCH)
     bench = make_bench(tmp_path, config=tiny_moe_config(),
                        traffic=tiny_traffic(greedy_every=1), name="tm.eval")
-    copied = _digest(bench)
-    for rel, digest in copied.items():
+    copied = digest(bench)
+    for rel, sha in copied.items():
         if rel in before:
-            assert before[rel] == digest, rel
+            assert before[rel] == sha, rel
     added = set(copied) - set(before)
     assert added == {"configs/tiny-moe.json", "traffic/tiny_tm.eval.json",
                      "limits/tm.eval.json"}
@@ -103,14 +95,24 @@ def test_a_run_loads_no_forbidden_module(bench):
     assert "FORBIDDEN []" in res.stdout
 
 
-def test_forbidden_names_are_compared_whole(monkeypatch):
-    monkeypatch.setitem(sys.modules, "molly_tpu_torch_fake", sys)
-    monkeypatch.setitem(sys.modules, "jaxtyping_fake", sys)
-    assert env.forbidden_modules() == [] or "jax" not in \
-        env.forbidden_modules()
-    assert "molly_tpu" not in env.forbidden_modules()
-    monkeypatch.setitem(sys.modules, "molly_tpu.sub", sys)
-    assert "molly_tpu" in env.forbidden_modules()
+def test_forbidden_names_are_compared_whole():
+    """In a process of its own, whose module table holds nothing that an
+    earlier test of the same worker loaded: names that only begin with a
+    forbidden one are not it; a submodule's top-level name is."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]\n"
+            "from h100_bench.harness import env\n"
+            "print('BEFORE', env.forbidden_modules())\n"
+            "sys.modules['molly_tpu_torch_fake'] = sys\n"
+            "sys.modules['jaxtyping_fake'] = sys\n"
+            "print('PREFIXES', env.forbidden_modules())\n"
+            "sys.modules['molly_tpu.sub'] = sys\n"
+            "print('SUB', env.forbidden_modules())\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = dict(line.split(" ", 1) for line in res.stdout.splitlines())
+    assert lines == {"BEFORE": "[]", "PREFIXES": "[]",
+                     "SUB": "['molly_tpu']"}
 
 
 def test_traffic_is_the_same_for_a_seed_and_follows_its_mix():
@@ -144,8 +146,10 @@ def test_attention_roofline_matches_the_kernel_table():
     """PERF.md's decoder-prefill case: q [4,3072,16,128] over a
     [4,8,3136,256] cache, left pads 0 / 517 / 1203 / 2999 -> 0.0806 ms,
     bound by operations."""
-    flops, nbytes = attn_fwd.decoder_prefill(
-        [3072, 3072 - 517, 3072 - 1203, 3072 - 2999], 3072, 64, 16, 8, 128)
+    text = {"num_attention_heads": 16, "num_key_value_heads": 8,
+            "head_dim": 128, "num_hidden_layers": 1}
+    (flops, nbytes), = qwen3.prefill_attention_calls(
+        [3072, 3072 - 517, 3072 - 1203, 3072 - 2999], 3072, 64, text)
     assert flops == 4 * 128 * 16 * 9_735_634
     assert round(bound_s(flops, nbytes) * 1e3, 4) == 0.0806
     assert flops / 989e12 > nbytes / 3.35e12
@@ -168,7 +172,7 @@ def test_model_flops_by_hand():
     shape = {"rows": [{"n": 10, "emitted": 3, "segments": [("dna_rna", 5)]}]}
     # decoder token: 2 layers x (64*64 + 2*64*32 + 64*64 + 3*64*128)
     tok = 2 * 2 * (4096 + 4096 + 4096 + 24576)
-    assert model_flops.decoder_token(c["text"]) == tok
+    assert qwen3.token_flops(c["text"]) == tok
     # encoder token (SwiGLU): 2 layers x (4*32*32 + 3*32*64)
     enc = 2 * 2 * (4096 + 6144)
     assert model_flops.encoder_token(c["dna_rna"]) == enc
@@ -177,7 +181,7 @@ def test_model_flops_by_hand():
     proj = 2 * 5 * 32 * 64
     prefill = 10 * tok + 4 * 64 * 2 * 55 + head
     decode = sum(tok + 4 * 64 * 2 * (10 + j + 1) + head for j in range(2))
-    assert model_flops.generate(shape, c) == float(
+    assert model_flops.generate(shape, c, qwen3) == float(
         5 * enc + attn_enc + proj + prefill + decode)
 
 
@@ -224,7 +228,8 @@ def test_a_traced_tiny_run_reads_its_per_layer_metrics(bench):
         pytest.approx(1e3 * (st[0]["decode_s"] + st[1]["decode_s"])
                       / (st[0]["decode_steps"] + st[1]["decode_steps"]))
     assert metric_reader(bench, "idle_pct.eval")(rec) == pytest.approx(100)
-    flops = model_flops.generate(rec["batches"][0]["shape"], TINY_CONFIG)
+    flops = model_flops.generate(rec["batches"][0]["shape"], TINY_CONFIG,
+                                 qwen3)
     assert metric_reader(bench, "mfu.eval")(rec) == pytest.approx(
         100 * flops / rec["window_s"] / 989e12)
     assert metric_reader(bench, "attn_fwd_roofline.eval")(rec) is None
@@ -271,6 +276,8 @@ def test_every_benchmark_metric_has_a_reader_and_every_cell_its_files():
         assert (BENCH / "drivers" / f"{cell.traffic['driver']}.py").exists()
         cfg = cell.fusion_config()
         assert cfg.text.hidden_size == cell.config["text"]["hidden_size"]
+        assert (BENCH / "reference"
+                / f"{cell.config['decoder']}.py").is_file()
 
 
 @pytest.fixture
@@ -330,11 +337,12 @@ def test_benchmark_json_keeps_to_its_contract():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    """The plain reference and the traffic generator load no module of
-    ``molly_tpu_torch`` (nor of JAX): they judge the program's output and
-    take nothing it made."""
+    """The plain reference (its decoder file too) and the traffic generator
+    load no module of ``molly_tpu_torch`` (nor of JAX): they judge the
+    program's output and take nothing it made."""
     code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]\n"
             "import h100_bench.reference.model, h100_bench.reference.prompt\n"
+            "import h100_bench.reference.qwen3\n"
             "import h100_bench.traffic.omics, h100_bench.harness.weights\n"
             "tops = {m.split('.')[0] for m in sys.modules}\n"
             "print('LOADED', sorted(tops & {'molly_tpu_torch', 'molly_tpu',"

@@ -45,14 +45,18 @@ def test_a_traced_tiny_run_reports_the_recorders_metrics(bench):
     assert got["decode_host_ms.eval"]["value"] \
         + got["decode_wait_ms.eval"]["value"] == \
         pytest.approx(1e3 * step_s / steps)
-    # uploads 6, masks 3 a modality, an EOS check a step, a presence write
-    # a token, a decode layer's attention offset, the tokens' copy
+    # the sync sites of a batch of host arrays: the upload of the ids, the
+    # mask and each live modality's packed tokens and rows
+    # (``engine.generate``; the inject's mask counts are on the tensor path
+    # only), an EOS check a step, a presence write a token, a decode
+    # layer's attention offset, the tokens' copy
     syncs = [s["counts"]["host_syncs"] for s in st]
     assert got["host_syncs.eval"]["value"] == sum(syncs) / len(syncs)
     layers = cell.config["text"]["num_hidden_layers"]
-    for s in st:
-        n = s["decode_steps"]
-        assert s["counts"]["host_syncs"] == 6 + 6 + \
+    for b in out.record["stats_batches"]:
+        s, n = b["stats"], b["stats"]["decode_steps"]
+        live = {m for r in b["shape"]["rows"] for m, _ in r["segments"]}
+        assert s["counts"]["host_syncs"] == 2 + 2 * len(live) + \
             s["spans"]["molly/sync/eos"]["n"] + (1 + n) + layers * n + 1
     assert 0 < got["encoder_live_pct.eval"]["value"] < 100
     assert 0 < got["prefill_live_pct.eval"]["value"] < 100
@@ -119,7 +123,7 @@ def _tiny_program(bench):
         protein_k_tokens=t["protein_k_tokens"],
         max_dna_rna_segments=t["max_dna_rna_segments"],
         max_protein_segments=t["max_protein_segments"]))
-    params = weights.make(cell.config, 5, "cuda")
+    params = weights.make(cell.config, 5, "cuda", cell.decoder())
     gen = GenerationConfig(max_new_tokens=t["max_new_tokens"],
                            do_sample=False,
                            eos_token_id=text_tok.eos_token_id,

@@ -6,6 +6,7 @@ Nothing of it is ever a device measurement."""
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import shutil
 import time
@@ -15,6 +16,7 @@ BENCH = Path(__file__).resolve().parents[1]
 
 TINY_CONFIG = {
     "name": "tiny", "source": "a CPU test model", "dtype": "float32",
+    "decoder": "qwen3",
     "text": {"vocab_size": 512, "hidden_size": 64, "intermediate_size": 128,
              "num_hidden_layers": 2, "num_attention_heads": 4,
              "num_key_value_heads": 2, "head_dim": 16, "rms_norm_eps": 1e-6,
@@ -58,6 +60,13 @@ def tiny_traffic(base: str = "omics_eval_b32.json", **over):
                     question_tokens=[10, 30])
     t.update(over)
     return t
+
+
+def digest(folder: Path):
+    """SHA-256 of each file under ``folder`` by its relative path."""
+    return {str(p.relative_to(folder)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted(folder.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts}
 
 
 def make_bench(tmp: Path, config=None, traffic=None, limit=1e-6,
