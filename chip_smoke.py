@@ -50,9 +50,10 @@ Phases, each printed with its time; any failure exits non-zero:
      main path hands it (two runs bit-equal); its backward the training
      step's hidden and per-head shapes of both decoders, with and without
      dw (two runs bit-equal, dx and dw). The flash
-     forward runs seven cases (decoder, serving and MoE prefill, encoder,
-     training, and the training and prefill shapes of phases 19a-19b's
-     local heads, 8 q over 4 kv), each on the TMA and wgmma kernel (its
+     forward runs eight cases (decoder, serving and MoE prefill, encoder,
+     training, the training and prefill shapes of phases 19a-19b's
+     local heads, 8 q over 4 kv, and latent attention's prefill at q.k
+     width 192 and v width 128), each on the TMA and wgmma kernel (its
      route is printed),
      with its rows without a valid key exactly zero and two runs bit-equal.
      The flash dQ and dK/dV kernels (``flash_attention_bwd_tma.cu``) run
@@ -694,7 +695,7 @@ def parity_flash(g, results):
         pairs = allowed_pairs(mask, q.shape[1], causal, q_offset)
         bound_ms, bound_by = bound(
             nbytes(q, k, v, o, lse),
-            2 * 2 * q.shape[3] * pairs * q.shape[2], "bf16")
+            2 * pairs * q.shape[2] * (q.shape[3] + v.shape[3]), "bf16")
         log(f"  flash {name}: route {route}; max|dO| {err:.3e} (tol "
             f"{FLASH_O_ATOL}), max|dLSE| {lse_err:.3e} (tol {FLASH_LSE_ATOL}),"
             f" {int(none.sum())} rows without a key exactly zero, two runs "
@@ -800,6 +801,27 @@ def parity_flash(g, results):
     valid = (torch.cumsum(mask[:, :S], dim=1) > 0).float()
     cases.append(case("p19_tp_prefill_bf16[4,3072,8,128]x3136,4kv", q, k, v,
                       mask, True, D ** -0.5, valid, 5))
+    del q, kv, k, v
+    # latent attention's prefill (Moonlight-16B-A3B): q [4, 3072, 16, 192]
+    # over the decompressed K [4, 3136, 16, 192] = [k_nope | k_rope] and V
+    # [4, 3136, 16, 128], the strided half of kv [.., 256] = [k_nope | v]
+    # as W_kv_b gives it, causal, the decoder prefill's pads (a generator
+    # of its own)
+    mla = torch.Generator(device=dev).manual_seed(g.initial_seed() + 25)
+    B, S, T, N, Dqk, Dv = 4, 3072, 64, 16, 192, 128
+    q = torch.randn((B, S, N, Dqk), generator=mla, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((B, S + T, N, Dqk), generator=mla, device=dev).to(
+        torch.bfloat16)
+    kv = torch.randn((B, S + T, N, 2 * Dv), generator=mla, device=dev).to(
+        torch.bfloat16)
+    v = kv[..., Dv:]
+    mask = torch.zeros((B, S + T), dtype=torch.int32, device=dev)
+    for b, p in enumerate(pads):
+        mask[b, p:S] = 1
+    valid = (torch.cumsum(mask[:, :S], dim=1) > 0).float()
+    cases.append(case("mla_prefill_bf16[4,3072,16,192]x3136,v128", q, k, v,
+                      mask, True, Dqk ** -0.5, valid, 5))
     results["flash_attention_fwd"] = cases
 
 

@@ -58,6 +58,15 @@
 // Tiles of 128 keys for D = 64 too: S then fills the same 64 registers, and
 // one tile shape keeps one producer; 2 ring stages for D = 128 (64 KB a
 // stage, 160 KB with Q), 3 for D = 64 (32 KB a stage).
+//
+// The q.k head width DQK may exceed the v head width DV: multi-head latent
+// attention (models/deepseek_v3.py) attends with q and k of 192 (128
+// decompressed + 64 rotary) and v of 128. Q and K are then DQK / 64 chunks
+// of 64 columns, V and O DV / 64; S = Q K^T takes DQK / 16 k-steps into the
+// same 64 registers, O keeps DV / 2, so the register budget is D = 128's.
+// At 192 / 128 a stage is 48 + 32 KB and Q 48 KB: 2 stages, 209 KB. O is
+// staged in the first DV / 64 chunks of the Q tile, which has at least as
+// many. The pairs built are 64 / 64, 128 / 128 and 192 / 128.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -73,12 +82,14 @@ constexpr int BOX = 128 * 128;  // 128 rows x 128 bytes (64 bf16): 16 KB
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int CH = D / 64;             // 64-wide head-dim chunks
-  static constexpr int STAGES = D == 128 ? 2 : 3;
-  static constexpr int Q_BYTES = CH * BOX;
-  static constexpr int STAGE_BYTES = 2 * CH * BOX;  // K, then V
+  static constexpr int CQ = DQK / 64;  // 64-wide chunks of a q or k row
+  static constexpr int CV = DV / 64;   // of a v or o row
+  static_assert(CV <= CQ, "O is staged in the Q tile");
+  static constexpr int STAGES = DQK + DV > 192 ? 2 : 3;
+  static constexpr int Q_BYTES = CQ * BOX;
+  static constexpr int STAGE_BYTES = (CQ + CV) * BOX;  // K, then V
   static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + align
 };
 
@@ -103,14 +114,14 @@ struct Ring {
   }
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_o,
                          const Args a) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t s_full[STAGES], s_empty[STAGES], s_qbar;
@@ -154,7 +165,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) {
       mbar_expect_tx(&s_qbar, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < C::CH; ++c)
+      for (int c = 0; c < C::CQ; ++c)
         tma_load_4d(q_sm + c * BOX, &map_q, &s_qbar, c * 64, q0, h, b);
     }
     const int32_t* mp = a.mask ? a.mask + b * a.m_sb : nullptr;
@@ -186,11 +197,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_expect_tx(bar, C::STAGE_BYTES);
           unsigned char* kt = ring_sm + ring.stage * C::STAGE_BYTES;
 #pragma unroll
-          for (int c = 0; c < C::CH; ++c) {
+          for (int c = 0; c < C::CQ; ++c)
             tma_load_4d(kt + c * BOX, &map_k, bar, c * 64, k0, kvh, b);
-            tma_load_4d(kt + (C::CH + c) * BOX, &map_v, bar, c * 64, k0, kvh,
+#pragma unroll
+          for (int c = 0; c < C::CV; ++c)
+            tma_load_4d(kt + (C::CQ + c) * BOX, &map_v, bar, c * 64, k0, kvh,
                         b);
-          }
         }
         __syncwarp();
         ring.advance();
@@ -218,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.causal ? a.q_offset + min(wrow + 63, a.Sq - 1) : 0x7fffffff;
   const int wg_first = a.causal ? a.q_offset + wrow : 0x7fffffff;
 
-  constexpr int NO = D / 2;  // O accumulators a thread: m64nDk16
+  constexpr int NO = DV / 2;  // O accumulators a thread: m64nDVk16
   float o[NO], s[64];
   uint32_t pa[BN / 16][4] = {};  // P as the A operand, 16 keys a k-step
 #pragma unroll
@@ -252,12 +264,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 4; ++i) bits[i] = s_bits[stage][i];
     const uint32_t k_base = smem_u32(ring_sm + stage * C::STAGE_BYTES);
-    const uint32_t v_base = k_base + C::CH * BOX;
+    const uint32_t v_base = k_base + C::CQ * BOX;
 
     // S = Q K^T
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DQK / 16; ++ks) {
       const uint32_t off = (ks >> 2) * BOX + (ks & 3) * 32;
       wgmma_m64n128k16<0, 0>(s, smem_desc(q_base + off, BOX),
                              smem_desc(k_base + off, BOX), ks > 0);
@@ -309,7 +321,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       l[hr] = l[hr] * alpha + rs;  // this lane's part of the row sum
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j + 2 * hr] *= alpha;
         o[4 * j + 2 * hr + 1] *= alpha;
       }
@@ -327,7 +339,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t vd = smem_desc(v_base + kk * 2048, BOX);
-      if constexpr (D == 128)
+      if constexpr (DV == 128)
         wgmma_m64n128k16_rs<1>(o, pa[kk], vd);
       else
         wgmma_m64n64k16_rs<1>(o, pa[kk], vd);
@@ -356,7 +368,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* stg = q_sm + wg * 64 * 128;
   const int r = 16 * warp + g;  // and r + 8; both are g modulo 8
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     unsigned char* p =
         stg + (j >> 3) * BOX + r * 128 + (((j & 7) ^ g) << 4) + 4 * t;
     *reinterpret_cast<uint32_t*>(p) =
@@ -368,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   warpgroup_sync(wg);
   if ((threadIdx.x & 127) == 0) {
 #pragma unroll
-    for (int c = 0; c < C::CH; ++c)
+    for (int c = 0; c < C::CV; ++c)
       tma_store_4d(&map_o, stg + c * BOX, c * 64, wrow, h, b);
     tma_store_commit();
   }
@@ -384,39 +396,42 @@ __global__ void __launch_bounds__(THREADS, 1)
   if ((threadIdx.x & 127) == 0) tma_store_wait_all();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long (&st)[12], const Args& a, int Nkv,
            cudaStream_t stream) {
   alignas(64) CUtensorMap map_q, map_k, map_v, map_o;
-  if (!make_bsnd_map(&map_q, q, D, a.Sq, a.N, a.B, st[1], st[2], st[0],
+  if (!make_bsnd_map(&map_q, q, DQK, a.Sq, a.N, a.B, st[1], st[2], st[0],
                      BM) ||
-      !make_bsnd_map(&map_k, k, D, a.Skv, Nkv, a.B, st[4], st[5], st[3],
+      !make_bsnd_map(&map_k, k, DQK, a.Skv, Nkv, a.B, st[4], st[5], st[3],
                      BN) ||
-      !make_bsnd_map(&map_v, v, D, a.Skv, Nkv, a.B, st[7], st[8], st[6],
+      !make_bsnd_map(&map_v, v, DV, a.Skv, Nkv, a.B, st[7], st[8], st[6],
                      BN) ||
-      !make_bsnd_map(&map_o, o, D, a.Sq, a.N, a.B, st[10], st[11], st[9],
+      !make_bsnd_map(&map_o, o, DV, a.Sq, a.N, a.B, st[10], st[11], st[9],
                      64))
     return cudaErrorInvalidValue;
+  constexpr int smem = Cfg<DQK, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<D>::SMEM);
+      flash_fwd_tma_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)a.n_qt * a.N * a.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_tma_kernel<D><<<(unsigned)blocks, THREADS, Cfg<D>::SMEM, stream>>>(
+  flash_fwd_tma_kernel<DQK, DV><<<(unsigned)blocks, THREADS, smem, stream>>>(
       map_q, map_k, map_v, map_o, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, Sq, N, D], k/v [B, Skv, Nkv, D], o [B, Sq, N, D], all bf16, given by
-// element strides (the head dim contiguous; bases 16-byte aligned, strides
-// multiples of 8 elements); lse [B, N, Sq] fp32; D is 64 or 128.
+// q [B, Sq, N, D], k [B, Skv, Nkv, D], v [B, Skv, Nkv, Dv], o [B, Sq, N, Dv],
+// all bf16, given by element strides (the head dim contiguous; bases 16-byte
+// aligned, strides multiples of 8 elements); lse [B, N, Sq] fp32; (D, Dv) is
+// (64, 64), (128, 128) or (192, 128).
 extern "C" int molly_flash_attention_fwd_tma(
     const void* q, const void* k, const void* v, const int32_t* mask, void* o,
-    float* lse, int B, int N, int Nkv, int Sq, int Skv, int D, long long q_sb,
+    float* lse, int B, int N, int Nkv, int Sq, int Skv, int D, int Dv,
+    long long q_sb,
     long long q_ss, long long q_sn, long long k_sb, long long k_ss,
     long long k_sn, long long v_sb, long long v_ss, long long v_sn,
     long long o_sb, long long o_ss, long long o_sn, long long m_sb,
@@ -432,7 +447,10 @@ extern "C" int molly_flash_attention_fwd_tma(
          Skv,        (Sq + BM - 1) / BM, m_sb, m_ss, scale * LOG2E,
          causal,     q_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, o, st, a, Nkv, s);
-  if (D == 128) return launch<128>(q, k, v, o, st, a, Nkv, s);
+  if (D == 64 && Dv == 64) return launch<64, 64>(q, k, v, o, st, a, Nkv, s);
+  if (D == 128 && Dv == 128)
+    return launch<128, 128>(q, k, v, o, st, a, Nkv, s);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, o, st, a, Nkv, s);
   return cudaErrorInvalidValue;
 }

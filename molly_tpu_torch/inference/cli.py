@@ -621,7 +621,7 @@ def main(argv=None) -> None:
     from ..data import (DataConfig, OmicsDataset,
                         default_modality_tokenizers, load_text_tokenizer)
 
-    from ..models import qwen3
+    from ..models import decoders
 
     if args.device is None and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found; pass --device cpu to run on "
@@ -646,7 +646,7 @@ def main(argv=None) -> None:
         # the expert stacks of an MoE decoder are quantized too, and the
         # bf16 ones released as their int8 replacements are built;
         # multi-LoRA serving keeps one int8 leaf a target (fuse=False)
-        params["text"] = qwen3.quantize_for_decode(
+        params["text"] = decoders.of(cfg.text).quantize_for_decode(
             params["text"], cfg.text,
             fuse=not (args.api_serve and args.serve_adapter),
             moe_experts=bool(cfg.text.num_experts), donate=True)

@@ -1,5 +1,7 @@
 """KV-cache generate loop: prefill from injected embeddings, then decode with
-sampling — the counterpart of ``molly_tpu/inference/engine.py``.
+sampling — the counterpart of ``molly_tpu/inference/engine.py``. The
+decoder is the text configuration's (``models.decoders.of``): Qwen3's dense
+KV cache, or the DeepSeek-V3 family's latent cache.
 
 Prompts are left-padded to a fixed length S; the cache holds S +
 max_new_tokens columns; prefill writes the whole prompt at column 0 under a
@@ -23,8 +25,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..models import fusion, qwen3
-from ..models.configs import FusionConfig, GenerationConfig, Qwen3Config
+from ..models import decoders, fusion
+from ..models.configs import FusionConfig, GenerationConfig
 from ..parallel import comm, sharding
 from ..utils import profiling
 from .sampling import sample_tokens
@@ -148,7 +150,7 @@ def generate(
 @torch.inference_mode()
 def _generate_from_embeds(
     text_params: Dict[str, Any],
-    cfg: Qwen3Config,
+    cfg: Any,                      # the decoder's text configuration
     embeds: torch.Tensor,          # [B, S, H] (left-padded prompt)
     attention_mask: torch.Tensor,  # [B, S]
     gen: GenerationConfig,
@@ -167,7 +169,8 @@ def _generate_from_embeds(
             k: sharding.full(text_params[k]) for k in ("embed", "lm_head")
             if k in text_params}}
 
-    cache = qwen3.init_cache(cfg, B, total, device=dev, quant=kv_quant)
+    decoder = decoders.of(cfg)
+    cache = decoder.init_cache(cfg, B, total, device=dev, quant=kv_quant)
     full_mask = torch.zeros((B, total), dtype=torch.int32, device=dev)
     full_mask[:, :S] = attention_mask
 
@@ -188,13 +191,13 @@ def _generate_from_embeds(
         return tok
 
     with profiling.span("molly/prefill", device=True):
-        hidden, cache = qwen3.forward_hidden(
+        hidden, cache = decoder.forward_hidden(
             text_params, cfg, inputs_embeds=embeds, attention_mask=full_mask,
             positions=positions, cache=cache, cache_index=0)
         # last real token is at index S-1 (left padding)
         with profiling.span("molly/head"):
-            logits0 = qwen3.logits_from_hidden(text_params, cfg,
-                                               hidden[:, -1])
+            logits0 = decoder.logits_from_hidden(text_params, cfg,
+                                                 hidden[:, -1])
         rows = torch.arange(B, device=dev)
         presence = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
                                device=dev)
@@ -220,16 +223,16 @@ def _generate_from_embeds(
             if stats is not None:
                 stats["decode_steps"] = stats.get("decode_steps", 0) + 1
             j = i - 1  # index of the token being fed; it sits at slot S+j
-            emb = qwen3.embed_tokens(text_params, tokens[:, j:j + 1])
+            emb = decoder.embed_tokens(text_params, tokens[:, j:j + 1])
             mask = torch.where(col < S, full_mask,
                                (col <= S + j).to(torch.int32))
             pos = (n_real + j)[:, None]
-            hidden, cache = qwen3.forward_hidden(
+            hidden, cache = decoder.forward_hidden(
                 text_params, cfg, inputs_embeds=emb, attention_mask=mask,
                 positions=pos, cache=cache, cache_index=S + j)
             with profiling.span("molly/head"):
-                logits = qwen3.logits_from_hidden(text_params, cfg,
-                                                  hidden[:, 0])
+                logits = decoder.logits_from_hidden(text_params, cfg,
+                                                    hidden[:, 0])
             nxt = sample(logits, presence)
             nxt = torch.where(done, gen.pad_token_id, nxt)
             tokens[:, i] = nxt

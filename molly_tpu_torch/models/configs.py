@@ -5,11 +5,17 @@ Jax-free copies of ``molly_tpu.models.configs`` (importing that module runs
 (``molly_tpu/models/fusion.py``) and ``GenerationConfig``
 (``molly_tpu/inference/engine.py``). ``tests/test_torch_models.py`` holds
 every field and preset against the JAX originals, so the copies cannot drift.
+
+``DeepseekV3Config`` has no JAX original: the port's second decoder
+architecture (``models.deepseek_v3``), which ``FusionConfig.text`` may hold
+in place of a ``Qwen3Config`` (``models.decoders`` finds the module by the
+type).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -55,6 +61,76 @@ class Qwen3Config:
     @property
     def kv_dim(self) -> int:
         return self.num_key_value_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class DeepseekV3Config:
+    """DeepSeek-V3-family decoder (HF transformers modeling_deepseek_v3.py
+    is the spec): multi-head latent attention without q compression (q
+    projected to heads of qk_nope + qk_rope; one latent of kv_lora_rank and
+    one rotary key shared by every head, RMSNorm on the latent, kv_b_proj
+    decompressing k_nope and v per head), interleaved rotary on the rope
+    part, the first ``first_k_dense_replace`` layers a dense SwiGLU and the
+    rest ``num_experts`` routed SwiGLU experts (sigmoid scores; the top
+    ``num_experts_per_tok`` of score + correction bias; weights the unbiased
+    scores, normalised, times ``routed_scaling_factor``) beside
+    ``n_shared_experts`` shared ones, run as one SwiGLU of that many times
+    the expert width. The names are the published config's, but the routed
+    expert count: ``num_experts`` (published ``n_routed_experts``)."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264    # the dense layers' SwiGLU width
+    moe_intermediate_size: int = 1408  # one routed or shared expert's
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    num_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 2.446
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    rope_interleave: bool = True
+    tie_word_embeddings: bool = False
+    hidden_act: str = "silu"
+    attention_bias: bool = False
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        unsupported = {
+            "q_lora_rank": (self.q_lora_rank, None),
+            "n_group": (self.n_group, 1), "topk_group": (self.topk_group, 1),
+            "scoring_func": (self.scoring_func, "sigmoid"),
+            "topk_method": (self.topk_method, "noaux_tc"),
+            "rope_interleave": (self.rope_interleave, True),
+            "hidden_act": (self.hidden_act, "silu"),
+            "attention_bias": (self.attention_bias, False)}
+        for name, (got, want) in unsupported.items():
+            if got != want:
+                raise ValueError(
+                    f"DeepseekV3Config: {name}={got!r} is not supported "
+                    f"(only {want!r}: q compression and group-limited "
+                    f"routing are not ported)")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """One cached token's width: the latent and the rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -168,6 +244,20 @@ def tiny_moe(**kw) -> Qwen3Config:
     base = dict(num_experts=4, num_experts_per_tok=2)
     base.update(kw)
     return tiny_qwen3(**base)
+
+
+def tiny_deepseek_v3(**kw) -> DeepseekV3Config:
+    """Small DeepSeek-V3-family config for tests: one dense layer, then
+    MoE layers of 8 routed experts (top-2) and 2 shared."""
+    base = dict(vocab_size=512, hidden_size=64, intermediate_size=96,
+                moe_intermediate_size=16, num_hidden_layers=3,
+                num_attention_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
+                qk_rope_head_dim=8, v_head_dim=16, num_experts=8,
+                num_experts_per_tok=2, n_shared_experts=2,
+                first_k_dense_replace=1, routed_scaling_factor=2.446,
+                dtype="float32")
+    base.update(kw)
+    return DeepseekV3Config(**base)
 
 
 def tiny_esm(**kw) -> EsmConfig:

@@ -1,4 +1,5 @@
-"""Tri-modal fusion model: Qwen3 decoder + frozen ESM-family encoders with
+"""Tri-modal fusion model: a decoder (Qwen3, or the DeepSeek-V3 family,
+found by ``models.decoders.of(cfg.text)``) + frozen ESM-family encoders with
 linear projectors, the counterpart of ``molly_tpu/models/fusion.py``.
 
 Semantics kept: the encoder mask ``tokens != 1`` with position 0 forced
@@ -32,8 +33,8 @@ from ..data.omics_dataset import (LABEL_IGNORE, NUM_DOMAIN_TASKS,
 from ..parallel import comm, sharding
 from ..utils import profiling
 from ..utils.tree import leaves
-from . import esm, qwen3
-from .configs import EsmConfig, FusionConfig, Qwen3Config
+from . import decoders, esm
+from .configs import EsmConfig, FusionConfig
 from .qwen3 import torch_dtype
 
 Params = Dict[str, Any]
@@ -57,7 +58,8 @@ def init_params(cfg: FusionConfig, generator: torch.Generator,
                 "bias": torch.zeros((d_out,), dtype=dt, device=device)}
 
     draw = {
-        "text": lambda: qwen3.init_params(cfg.text, generator, device),
+        "text": lambda: decoders.of(cfg.text).init_params(cfg.text,
+                                                          generator, device),
         "dna_rna": lambda: esm.init_params(cfg.dna_rna, generator, device),
         "protein": lambda: esm.init_params(cfg.protein, generator, device),
         "dna_rna_projector": lambda: projector(cfg.dna_rna.hidden_size,
@@ -173,7 +175,8 @@ def build_inputs_embeds(params: Params, cfg: FusionConfig,
     (``<m>_pos``), or over the live ones packed on the host
     (``<m>_rows``)."""
     with profiling.span("molly/encode", device=True):
-        hidden = qwen3.embed_tokens(params["text"], batch["input_ids"])
+        hidden = decoders.of(cfg.text).embed_tokens(params["text"],
+                                                    batch["input_ids"])
         for name in MODALITIES:
             if f"{name}_tokens" not in batch:
                 continue
@@ -191,10 +194,11 @@ def build_inputs_embeds(params: Params, cfg: FusionConfig,
 def forward_logits(params: Params, cfg: FusionConfig,
                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     embeds = build_inputs_embeds(params, cfg, batch)
-    hidden, _ = qwen3.forward_hidden(
+    decoder = decoders.of(cfg.text)
+    hidden, _ = decoder.forward_hidden(
         params["text"], cfg.text, inputs_embeds=embeds,
         attention_mask=batch.get("attention_mask"))
-    return qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
+    return decoder.logits_from_hidden(params["text"], cfg.text, hidden)
 
 
 def shift_for_next_token(logits: torch.Tensor, labels: torch.Tensor):
@@ -245,7 +249,8 @@ def _domain_sums(per_nll, per_tok, task_label) -> Dict[str, torch.Tensor]:
             "domain_loss_count": onehot.sum(dim=0)}
 
 
-def lm_head_weight(params: Params, cfg: Qwen3Config) -> torch.Tensor:
+def lm_head_weight(params: Params, cfg: Any) -> torch.Tensor:
+    """The head [H, V] of the decoder's text configuration ``cfg``."""
     text = params["text"] if "text" in params else params
     if cfg.tie_word_embeddings:
         return sharding.full(text["embed"]).T
@@ -268,7 +273,8 @@ def loss_from_hidden(
         if batch_group() is not None:
             raise ValueError("under a mesh with batch axes the loss is the "
                              "fused one (fused_lce=True)")
-        logits = qwen3.logits_from_hidden(params["text"], cfg.text, hidden)
+        logits = decoders.of(cfg.text).logits_from_hidden(
+            params["text"], cfg.text, hidden)
         return cross_entropy_loss(logits, labels, task_label=task_label,
                                   z_loss=z_loss, pre_shifted=pre_shifted)
     from ..ops.lce import causal_lm_loss
@@ -308,7 +314,7 @@ def loss_fn(params: Params, cfg: FusionConfig,
             batch: Dict[str, torch.Tensor], *, z_loss: float = 0.0,
             fused_lce: bool = True):
     embeds = build_inputs_embeds(params, cfg, batch)
-    hidden, _ = qwen3.forward_hidden(
+    hidden, _ = decoders.of(cfg.text).forward_hidden(
         params["text"], cfg.text, inputs_embeds=embeds,
         attention_mask=batch.get("attention_mask"))
     return loss_from_hidden(params, cfg, hidden, batch, z_loss=z_loss,

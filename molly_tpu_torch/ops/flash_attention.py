@@ -17,7 +17,10 @@ The forward and each backward kernel exist twice. ``fwd_takes_tma`` and
 ``bwd_takes_tma`` are the rules: bf16 with 16-byte aligned bases and
 strides (every main-path call) runs the TMA and wgmma kernels, which visit
 no key tile that the mask and the causal rule leave empty; fp32 and
-unaligned bf16 views run the SIMT kernels.
+unaligned bf16 views run the SIMT kernels. The forward's v (and O) head
+width may differ from the q.k width: multi-head latent attention's prefill
+attends at 192 / 128 (``models.deepseek_v3``), on the TMA kernel and the
+plain version only; the backward takes one width.
 
 A query row with no valid key (a left-padded prompt position) comes out of
 both card kernels as O = 0 and LSE = 0; the plain version gives it the
@@ -85,7 +88,7 @@ def flash_attention_plain(q, k, v, mask=None, causal=True, scale=None,
     s, no_key = _scores(q, k, mask, causal, scale, q_offset)
     lse = torch.logsumexp(s, dim=-1)                       # [B, Nkv, g, Sq]
     o = torch.einsum("bngqk,bknd->bqngd", _probs(s, lse, no_key), v.float())
-    return (o.reshape(B, Sq, N, D).to(q.dtype),
+    return (o.reshape(B, Sq, N, v.shape[-1]).to(q.dtype),
             lse.reshape(B, N, Sq))
 
 
@@ -97,13 +100,18 @@ def _tma_layout(t: torch.Tensor) -> bool:
         st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
+# (q.k, v) head widths the TMA forward is built for
+TMA_WIDTHS = ((64, 64), (128, 128), (192, 128))
+
+
 def fwd_takes_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor) -> bool:
-    """Does this forward go to the TMA and wgmma kernel? All four bf16, a
-    head dim of 64 or 128, and each laid out as ``_tma_layout`` says.
-    Everything else runs the SIMT kernel."""
+    """Does this forward go to the TMA and wgmma kernel? All four bf16,
+    (q.k, v) head widths of 64 / 64, 128 / 128 or 192 / 128, and each laid
+    out as ``_tma_layout`` says. Everything else runs the SIMT kernel, which
+    takes one width, 64 or 128."""
     return (q.dtype == k.dtype == v.dtype == o.dtype == torch.bfloat16
-            and q.shape[-1] in (64, 128)
+            and (q.shape[-1], v.shape[-1]) in TMA_WIDTHS
             and all(_tma_layout(t) for t in (q, k, v, o)))
 
 
@@ -111,9 +119,9 @@ def bwd_takes_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dout: torch.Tensor) -> bool:
     """Do this backward's dQ and dK/dV go to the TMA and wgmma kernels? The
     forward's rule over q, k, v and dO (the outputs are allocated
-    contiguous, so they always qualify). Everything else runs the SIMT
-    kernels."""
-    return fwd_takes_tma(q, k, v, dout)
+    contiguous, so they always qualify) at one head width, 64 or 128.
+    Everything else runs the SIMT kernels."""
+    return q.shape[-1] == v.shape[-1] and fwd_takes_tma(q, k, v, dout)
 
 
 def _strides(t: torch.Tensor, D: int):
@@ -128,8 +136,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
                         q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B, Sq, N, D], k/v [B, Skv, Nkv, D] (any strides with a contiguous
-    head dim), mask [B, Skv] 1=keep -> (O [B, Sq, N, D], LSE [B, N, Sq]).
+    """q [B, Sq, N, D], k [B, Skv, Nkv, D], v [B, Skv, Nkv, Dv] (any
+    strides with a contiguous head dim; Dv = D but on the TMA kernel's
+    192 / 128), mask [B, Skv] 1=keep -> (O [B, Sq, N, Dv], LSE [B, N,
+    Sq]).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     that ``fwd_takes_tma`` names, or raises. ``.launches`` counts kernel
@@ -139,12 +149,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     B, Sq, N, D = q.shape
-    Skv, Nkv = k.shape[1], k.shape[2]
+    Skv, Nkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; the kernel takes one of "
                         f"{list(_DTYPES)} for all three")
-    if D not in (64, 128) or N % Nkv or k.shape != v.shape or \
+    widths = (D, Dv) in TMA_WIDTHS if Dv != D else D in (64, 128)
+    if not widths or N % Nkv or k.shape[:3] != v.shape[:3] or \
             k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -154,7 +165,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v on different devices")
     if scale is None:
         scale = D ** -0.5
-    o = torch.empty((B, Sq, N, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, N, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, N, Sq), dtype=torch.float32, device=q.device)
     if mask is not None:
         if mask.shape != (B, Skv):
@@ -167,18 +178,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     from . import _cuda_build
     tma = fwd_takes_tma(q, k, v, o)
+    if Dv != D and not tma:
+        raise ValueError(f"flash_attention: q.k width {D} and v width {Dv} "
+                         f"run on the TMA kernel alone, which takes aligned "
+                         f"bf16")
     lib = _flash_lib("flash_attention_fwd_tma" if tma else
                      "flash_attention_fwd")
-    if tma:
-        fn, dtype, st = lib.molly_flash_attention_fwd_tma, (), [
-            x for t in (q, k, v, o) for x in _strides(t, D)]
-    else:
-        fn, dtype, st = lib.molly_flash_attention_fwd, (_DTYPES[q.dtype],), [
-            x for t in (q, k, v, o) for x in t.stride()[:3]]
+    if tma:  # the TMA kernel's entry point takes both widths
+        fn, widths, st = lib.molly_flash_attention_fwd_tma, (D, Dv), [
+            x for t in (q, k, v, o) for x in _strides(t, t.shape[-1])]
+    else:  # the SIMT kernel's, one width and a dtype code
+        fn, widths, st = lib.molly_flash_attention_fwd, (
+            D, _DTYPES[q.dtype]), [x for t in (q, k, v, o)
+                                   for x in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m_ptr,
-                 o.data_ptr(), lse.data_ptr(), B, N, Nkv, Sq, Skv, D, *dtype,
+                 o.data_ptr(), lse.data_ptr(), B, N, Nkv, Sq, Skv, *widths,
                  *st, m_sb, m_ss, float(scale), int(bool(causal)),
                  int(q_offset), stream)
     _cuda_build.check(lib, err, "flash_attention_fwd")
@@ -380,14 +396,13 @@ def flash_attention(q, k, v, mask=None, causal=True, scale=None,
 
 def _flash_lib(name: str):
     """The forward's library ``name``: the SIMT kernel's entry point takes a
-    dtype code after D, the TMA kernel's (bf16 only) does not."""
+    dtype code after D, the TMA kernel's (bf16 only) the v width Dv."""
     from . import _cuda_build
     lib = _cuda_build.library(name)
     fn = getattr(lib, f"molly_{name}")
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ints = 7 if name == "flash_attention_fwd" else 6
-        fn.argtypes = ([P] * 6 + [I] * ints + [L] * 14
+        fn.argtypes = ([P] * 6 + [I] * 7 + [L] * 14
                        + [ctypes.c_float, I, I, P])
         fn.restype = I
     return lib

@@ -86,7 +86,9 @@ def _grouped_dot(lhs: torch.Tensor, rhs, group_sizes: torch.Tensor
 
 
 def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int,
-                norm_topk_prob: bool = True
+                norm_topk_prob: bool = True, scoring: str = "softmax",
+                correction_bias: Optional[torch.Tensor] = None,
+                routed_scale: float = 1.0
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """Routing: (weights [T, k] fp32, expert ids [T, k], probs [T, E] fp32,
@@ -94,9 +96,26 @@ def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int,
     gives an fp32 result that is never rounded to bf16 (a rounded logit
     changes which experts run); the softmax is in fp32. ``torch.topk`` does
     not promise ``jax.lax.top_k``'s tie order (lower index first); ties do
-    not occur with real-valued weights."""
+    not occur with real-valued weights.
+
+    ``scoring="sigmoid"`` is DeepSeek-V3's router (``topk_method``
+    ``noaux_tc`` with one group; no JAX original): probs are the sigmoid
+    scores, the k experts are those of the highest score +
+    ``correction_bias`` [E] (the bias steers the choice only), their
+    weights the unbiased scores, normalised (with HF's 1e-20 in the
+    denominator) under ``norm_topk_prob``, times ``routed_scale``."""
     w = router_w.to(x.dtype)
     logits = x @ w if x.dtype == torch.float32 else _MmF32.apply(x, w)
+    if scoring == "sigmoid":
+        probs = torch.sigmoid(logits.to(torch.float32))
+        choice = probs if correction_bias is None else probs + correction_bias
+        topi = torch.topk(choice, k, dim=-1).indices
+        topw = probs.gather(-1, topi)
+        if norm_topk_prob:
+            topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-20)
+        return topw * routed_scale, topi, probs, logits
+    if scoring != "softmax":
+        raise ValueError(f"router_topk: scoring {scoring!r}")
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)
     if norm_topk_prob:
@@ -139,11 +158,31 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up, w_down, *,
     ``w_up=None`` means ``w_gate`` is a FUSED [E, H, 2I] gate-and-up stack
     (``qwen3.quantize_for_decode``): one grouped GEMM instead of two. Fused
     stacks are post-merge serving weights; adapters are not applied."""
-    T, H = x.shape
+    T = x.shape[0]
     E = _n_experts(w_gate)
     k = num_experts_per_tok
     topw, topi, probs, logits = router_topk(x, router_w, k, norm_topk_prob)
+    out, counts = moe_experts(x, topw, topi, w_gate, w_up, w_down, lora=lora,
+                              lora_scale=lora_scale,
+                              lora_dropout=lora_dropout,
+                              generator_for=generator_for)
+    if not with_aux:
+        return out, None
+    return out, _aux_losses(counts, probs, logits, T, k, E)
 
+
+def moe_experts(x: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor,
+                w_gate, w_up, w_down, *,
+                lora: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                lora_scale: float = 1.0, lora_dropout: float = 0.0,
+                generator_for=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_mlp`` after its router: x [T, H] through the experts of the
+    routing ``topi`` [T, k], combined with the weights ``topw`` [T, k] fp32
+    -> (out [T, H] in x.dtype, rows per expert [E] int64 on the device).
+    The stacks and ``lora`` are as ``moe_mlp`` takes them."""
+    T, H = x.shape
+    E = _n_experts(w_gate)
+    k = topi.shape[1]
     flat_e = topi.reshape(T * k)               # expert id per (token, choice)
     # stable, so the sorted row order (and with it the order in which the
     # weight gradient sums a group's rows) is defined
@@ -180,9 +219,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up, w_down, *,
     inv[order] = torch.arange(T * k, device=x.device)
     y = y[inv].reshape(T, k, H)
     out = (y * topw.to(y.dtype)[..., None]).sum(dim=1).to(x.dtype)
-    if not with_aux:
-        return out, None
-    return out, _aux_losses(counts, probs, logits, T, k, E)
+    return out, counts
 
 
 def _aux_losses(counts, probs, logits, T: int, k: int, E: int

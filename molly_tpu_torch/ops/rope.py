@@ -1,5 +1,7 @@
 """Rotary position embeddings (GPT-NeoX half-split convention), the
-counterpart of ``molly_tpu/ops/rope.py``. Qwen3 uses theta 1e6, ESM 1e4."""
+counterpart of ``molly_tpu/ops/rope.py``. Qwen3 uses theta 1e6, ESM 1e4.
+DeepSeek-V3's interleaved form (``apply_rope_interleaved``) has no JAX
+original."""
 
 from __future__ import annotations
 
@@ -30,3 +32,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
         cos = cos[..., None, :]
         sin = sin[..., None, :]
     return x * cos + rotate_half(x) * sin
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor):
+    """DeepSeek-V3's rotary with ``rope_interleave`` (HF
+    ``apply_rotary_pos_emb_interleave``): the pairs (2i, 2i + 1) of x's last
+    dim are taken apart into [evens ‖ odds], which then rotate half-split
+    as ``apply_rope`` does. The result stays in that order, as HF returns
+    it; q and k both do, so their product is the pairs' rotation."""
+    d = x.shape[-1]
+    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
+    return apply_rope(x, cos, sin)
